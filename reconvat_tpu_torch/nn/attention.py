@@ -1,0 +1,59 @@
+"""Local windowed multi-head self-attention (PyTorch counterpart of
+`reconvat_tpu/nn/attention.py`, reference `MutliHeadAttention1D`,
+`model/self_attention.py:6-82`).
+
+Window-W attention where K/V are projected from the zero-padded input, a
+learned relative-position embedding `rel` enters as q.rel, and energies are
+plain dot products (no 1/sqrt(d) scaling). The attention probabilities are
+returned beside the output.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from ..ops.banded_attention_kernel import banded_attention, banded_attention_fwd
+
+__all__ = ["banded_attention", "banded_attention_fwd", "MultiHeadAttention1D"]
+
+
+class MultiHeadAttention1D(nn.Module):
+    """(B, L, in_features) -> (out (B, L, out_features),
+    attention (B, L, groups, kernel_size)).
+
+    `use_kernel` (default True) routes the attention core through
+    `banded_attention_fwd` (the CUDA kernel on a CUDA tensor, its plain
+    version on a CPU tensor); False runs the plain version on any device."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 kernel_size: int = 31, groups: int = 1):
+        super().__init__()
+        assert out_features % groups == 0
+        assert (kernel_size - 1) % 2 == 0, "kernel size must be odd"
+        self.out_features = out_features
+        self.kernel_size = kernel_size
+        self.groups = groups
+        self.W_k = nn.Linear(in_features, out_features, bias=False)
+        self.W_q = nn.Linear(in_features, out_features, bias=False)
+        self.W_v = nn.Linear(in_features, out_features, bias=False)
+        self.rel = nn.Parameter(torch.empty(1, out_features, kernel_size))
+        self.use_kernel = True
+
+    def forward(self, x):
+        B, L, _ = x.shape
+        H = self.groups
+        Dh = self.out_features // H
+        W = self.kernel_size
+        hw = (W - 1) // 2
+        # K/V from the zero-padded sequence (reference pads x before the
+        # bias-free projections, `model/self_attention.py:44-47`)
+        xpad = F.pad(x, (0, 0, hw, hw))
+        q = self.W_q(x).reshape(B, L, H, Dh)
+        k = self.W_k(xpad).reshape(B, L + 2 * hw, H, Dh)
+        v = self.W_v(xpad).reshape(B, L + 2 * hw, H, Dh)
+        rel = self.rel[0].reshape(H, Dh, W)
+        fn = banded_attention_fwd if self.use_kernel else banded_attention
+        out, probs = fn(q, k, v, rel, W)
+        return out.reshape(B, L, self.out_features), probs
+

@@ -1,0 +1,112 @@
+"""U-Net encoder/decoder blocks (PyTorch counterpart of the NHWC path of
+`reconvat_tpu/nn/unet.py`, reference `model/self_attention_VAT.py:844-926`).
+
+Activations are NCHW with time on H and frequency on W. Residual double-conv
+encoder blocks with a 1x1 skip and strided downsampling; transpose-conv
+decoder blocks whose upsampler is driven to an explicit target size
+(`output_size=`). Submodule names match the reference state_dict names. The
+frequency-folded layout of the JAX package is a TPU lane device and is not
+ported: it equals this layout.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+BATCHNORM_EPS = 1e-5
+LEAKY_SLOPE = 0.01
+
+
+def _act(x):
+    return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+class EncBlock(nn.Module):
+    """Reference `block` (`model/self_attention_VAT.py:844-859`)."""
+
+    def __init__(self, inp: int, out: int, ksize=3, pad=1, ds_ksize=2,
+                 ds_stride=2):
+        super().__init__()
+        self.conv1 = nn.Conv2d(inp, out, ksize, padding=pad)
+        self.bn1 = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+        self.conv2 = nn.Conv2d(out, out, ksize, padding=pad)
+        self.bn2 = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+        self.skip = nn.Conv2d(inp, out, 1)
+        self.ds = nn.Conv2d(out, out, ds_ksize, stride=ds_stride)
+
+    def forward(self, x):
+        x11 = _act(self.bn1(self.conv1(x)))
+        x12 = _act(self.bn2(self.conv2(x11))) + self.skip(x)
+        return self.ds(x12), tuple(x12.shape[2:])  # (time, freq) pre-ds
+
+
+class DBlock(nn.Module):
+    """Reference `d_block` (`model/self_attention_VAT.py:861-882`)."""
+
+    def __init__(self, inp: int, out: int, is_last: bool, ksize=3, pad=1,
+                 ds_ksize=2, ds_stride=2):
+        super().__init__()
+        mid = inp // 2
+        self.is_last = is_last
+        self.conv2d = nn.ConvTranspose2d(inp, mid, ksize, 1, pad)
+        self.bn2d = nn.BatchNorm2d(mid, eps=BATCHNORM_EPS)
+        self.conv1d = nn.ConvTranspose2d(mid, out, ksize, 1, pad)
+        if is_last:
+            us_ch = inp
+        else:
+            self.bn1d = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+            us_ch = inp - out
+        self.us = nn.ConvTranspose2d(us_ch, us_ch, ds_ksize, ds_stride)
+
+    def forward(self, x, size, skip):
+        x = self.us(x, output_size=size)
+        if not self.is_last:
+            x = torch.cat([x, skip], dim=1)
+        x = _act(self.bn2d(self.conv2d(x)))
+        if self.is_last:
+            return self.conv1d(x)
+        return _act(self.bn1d(self.conv1d(x)))
+
+
+class Encoder(nn.Module):
+    """Reference `Encoder` (`model/self_attention_VAT.py:884-906`)."""
+
+    def __init__(self, ds_ksize=2, ds_stride=2):
+        super().__init__()
+        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride)
+        self.block1 = EncBlock(1, 16, **kw)
+        self.block2 = EncBlock(16, 32, **kw)
+        self.block3 = EncBlock(32, 64, **kw)
+        self.block4 = EncBlock(64, 128, **kw)
+        self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
+        self.conv2 = nn.Conv2d(32, 32, 3, padding=1)
+        self.conv3 = nn.Conv2d(16, 16, 3, padding=1)
+
+    def forward(self, x):
+        """x (B, 1, T, F) -> (bottleneck, pre-downsample sizes, skips)."""
+        x1, s1 = self.block1(x)
+        x2, s2 = self.block2(x1)
+        x3, s3 = self.block3(x2)
+        x4, s4 = self.block4(x3)
+        return x4, [s1, s2, s3, s4], [self.conv1(x3), self.conv2(x2),
+                                      self.conv3(x1), x1]
+
+
+class Decoder(nn.Module):
+    """Reference `Decoder` (`model/self_attention_VAT.py:908-926`); output
+    width `num_instruments`, no final activation."""
+
+    def __init__(self, num_instruments: int = 1, ds_ksize=2, ds_stride=2):
+        super().__init__()
+        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride)
+        self.d_block1 = DBlock(192, 64, False, **kw)
+        self.d_block2 = DBlock(96, 32, False, **kw)
+        self.d_block3 = DBlock(48, 16, False, **kw)
+        self.d_block4 = DBlock(16, num_instruments, True, **kw)
+
+    def forward(self, x, s, c):
+        x = self.d_block1(x, s[3], c[0])
+        x = self.d_block2(x, s[2], c[1])
+        x = self.d_block3(x, s[1], c[2])
+        return self.d_block4(x, s[0], None)

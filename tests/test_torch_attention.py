@@ -1,0 +1,99 @@
+"""Port's banded attention vs the JAX package, on the CPU.
+
+Tolerance: atol 1e-5 (rtol 1e-4) for out and probs, the bound the JAX
+package holds its Pallas forward to against XLA
+(tests/test_pallas_attention.py). Both sides are fp32 with no TF32; only
+the summation order of the Dh-term dot products and the window-term
+softmax and output sums differ.
+The kernel-against-plain tests are in tests/test_torch_kernels.py.
+"""
+import numpy as np
+import pytest
+import torch
+
+import jax
+import jax.numpy as jnp
+
+from reconvat_tpu.nn import attention as jattn
+from reconvat_tpu.ops.pallas_attention import pallas_banded_forward
+from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
+from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+from reconvat_tpu_torch.weights import flax_to_torch
+
+ATOL, RTOL = 1e-5, 1e-4
+
+
+def _inputs(B=2, L=100, H=4, Dh=57, window=31, seed=0):
+    rng = np.random.RandomState(seed)
+    hw = (window - 1) // 2
+    q = rng.randn(B, L, H, Dh).astype(np.float32)
+    k = rng.randn(B, L, H, Dh).astype(np.float32)
+    v = rng.randn(B, L, H, Dh).astype(np.float32)
+    kpad = np.pad(k, ((0, 0), (hw, hw), (0, 0), (0, 0)))
+    vpad = np.pad(v, ((0, 0), (hw, hw), (0, 0), (0, 0)))
+    rel = (rng.randn(H, Dh, window) * 0.1).astype(np.float32)
+    return q, kpad, vpad, rel
+
+
+def _t(*arrays):
+    return [torch.from_numpy(a) for a in arrays]
+
+
+@pytest.mark.parametrize("L,window,with_rel", [(100, 31, True),
+                                               (64, 7, True),
+                                               (33, 31, True),
+                                               (80, 15, False)])
+def test_banded_attention_matches_jax(L, window, with_rel):
+    q, kpad, vpad, rel = _inputs(L=L, window=window)
+    rel = rel if with_rel else None
+    ref_out, ref_probs = jattn.banded_attention(
+        *(jnp.asarray(a) for a in (q, kpad, vpad)),
+        None if rel is None else jnp.asarray(rel), window, block_size=64)
+    out, probs = bak.banded_attention(
+        *_t(q, kpad, vpad), None if rel is None else torch.from_numpy(rel),
+        window)
+    assert tuple(out.shape) == (2, L, 4, 57)
+    assert tuple(probs.shape) == (2, L, 4, window)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(probs.numpy(), np.asarray(ref_probs),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_banded_attention_matches_jax_pallas_interpret():
+    q, kpad, vpad, rel = _inputs(L=100, window=31, seed=1)
+    ref = pallas_banded_forward(*(jnp.asarray(a) for a in (q, kpad, vpad,
+                                                            rel)), 31, 64)
+    out, _ = bak.banded_attention(*_t(q, kpad, vpad, rel), 31)
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                               rtol=RTOL, atol=ATOL)
+
+
+def test_wrapper_is_plain_on_cpu():
+    q, kpad, vpad, rel = _t(*_inputs(L=40, window=31, seed=2))
+    before = bak.banded_attention_fwd.launches
+    a = bak.banded_attention_fwd(q, kpad, vpad, rel, 31)
+    b = bak.banded_attention(q, kpad, vpad, rel, 31)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+    assert bak.banded_attention_fwd.launches == before
+
+
+@pytest.mark.parametrize("in_features,out_features,groups,window",
+                         [(24, 32, 4, 7), (229, 916, 4, 31)])
+def test_multihead_attention_matches_jax(in_features, out_features, groups,
+                                         window):
+    x = np.random.RandomState(3).randn(2, 40, in_features).astype(np.float32)
+    ref_mod = jattn.MultiHeadAttention1D(out_features=out_features,
+                                         kernel_size=window, groups=groups)
+    variables = ref_mod.init(jax.random.PRNGKey(0), jnp.asarray(x))
+    ref_out, ref_attn = ref_mod.apply(variables, jnp.asarray(x))
+
+    mod = MultiHeadAttention1D(in_features, out_features, window, groups)
+    mod.load_state_dict(flax_to_torch(variables), strict=True)
+    with torch.no_grad():
+        out, attn = mod(torch.from_numpy(x))
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref_out),
+                               rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(attn.numpy(), np.asarray(ref_attn),
+                               rtol=RTOL, atol=ATOL)
+
