@@ -4,11 +4,16 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `reconvat_tpu_torch/csrc/` with nvcc,
-holds each kernel against its plain PyTorch version at the serving path's
-full-width shapes and times it, then drives the serving path
-(`serve.transcribe_batch` over `ReconVAT`, random weights from a fixed
-seed) on 8 clips of 20.48 s, once through the kernels and once through the
-plain versions, and checks that both agree and that the kernels ran.
+holds each kernel against its plain PyTorch version at the full-width
+shapes of the serving and training paths and times it, then drives the
+serving path (`serve.transcribe_batch` over `ReconVAT`, random weights from
+a fixed seed) on 8 clips of 20.48 s, once through the kernels and once
+through the plain versions, and checks that both agree and that the
+kernels ran. Then it drives the training path (`train.state.
+make_train_step`: semi-supervised VAT with reconstruction, B = 8 labeled +
+8 unlabeled clips of 20.48 s, fp32), times it, counts each kernel's
+launches per step, profiles it, and holds one step through the kernels
+against the same step through the plain versions.
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -37,7 +42,23 @@ B, SAMPLES = 8, 327680            # 8 clips of 20.48 s -> 640 frames
 H, W = 4, 31                      # attention heads, window
 MEL_TOL = dict(rtol=1e-4, atol=1e-6)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+# attention gradients over their max |.|: fp32 both sides, dk/dv add up to
+# 31 terms per row and drel 5120 rows per head in another order
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 POST_ATOL = 1e-4                  # posteriogram, plain vs kernel path
+# train step, kernels vs plain versions (fp32): losses rtol 1e-3, since
+# the LDS terms go through the VAT direction, a finite difference of size
+# ~xi that turns fp32 rounding into ~1e-4 relative loss differences
+STEP_LOSS_RTOL = 1e-3
+# gradients: the step's gradient is ill-conditioned at random init (the
+# reconstructor and the second transcriber pass normalize near-constant
+# signals in train-mode BatchNorm), so each leaf is held to the plain
+# route's own movement under a 1e-6 (relative) perturbation of the audio,
+# x PROBE_FACTOR, plus 5e-4 of the largest gradient magnitude: a bias
+# gradient sums up to 8 x 640 x 229 terms that cancel, and the routes sum
+# them in other orders, an fp32 rounding that no relative bound and no
+# input probe sees
+PROBE, PROBE_FACTOR, GRAD_FLOOR = 1e-6, 3.0, 5e-4
 
 
 def log(msg: str) -> None:
@@ -134,11 +155,10 @@ def phase_mel(fe):
     return row
 
 
-def phase_attention():
+def attention_inputs():
+    """q, kpad, vpad, rel and an output gradient at the full width of the
+    model's attention (B=8, L=640, H=4, Dh=229, W=31), from a seed."""
     import torch.nn.functional as F
-
-    from reconvat_tpu_torch.ops.banded_attention_kernel import (
-        banded_attention, banded_attention_fwd)
 
     L, D, hw = 640, 229, (W - 1) // 2
     rng = torch.Generator(device="cuda").manual_seed(1)
@@ -150,20 +170,38 @@ def phase_attention():
     kpad = F.pad(randn(B, L, H, D, scale=D ** -0.25), (0, 0, 0, 0, hw, hw))
     vpad = F.pad(randn(B, L, H, D), (0, 0, 0, 0, hw, hw))
     rel = randn(H, D, W, scale=0.1 * D ** -0.25)
-    out, probs = banded_attention_fwd(q, kpad, vpad, rel, W)
-    torch.cuda.synchronize()
-    ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
-    err_out = check_close("attention out", out, ref_out, ATTN_TOL)
-    err_p = check_close("attention probs", probs, ref_probs, ATTN_TOL)
+    d_out = randn(B, L, H, D)
+    return q, kpad, vpad, rel, d_out
 
-    # library yardstick: SDPA over the padded sequence with a dense additive
-    # mask carrying the band and the skewed q.rel bias (built untimed)
+
+def sdpa_inputs(q, kpad, vpad, rel):
+    """The library yardstick's operands: SDPA over the padded sequence
+    with a dense additive mask carrying the band and the skewed q.rel
+    bias (built untimed)."""
+    L = q.shape[1]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kpad, vpad))
     qrel = torch.einsum("blhd,hdw->bhlw", q, rel)
     mask = torch.full((B, H, L, L + W - 1), float("-inf"), device="cuda")
     cols = torch.arange(L, device="cuda")[:, None] + torch.arange(
         W, device="cuda")
     mask.scatter_(3, cols.expand(B, H, L, W), qrel)
+    return qh, kh, vh, mask
+
+
+def phase_attention(q, kpad, vpad, rel):
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention, banded_attention_fwd)
+
+    L, D = q.shape[1], q.shape[3]
+    out, probs = banded_attention_fwd(q, kpad, vpad, rel, W)
+    torch.cuda.synchronize()
+    ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
+    err_out = check_close("attention out", out, ref_out, ATTN_TOL)
+    err_p = check_close("attention probs", probs, ref_probs, ATTN_TOL)
+
+    qh, kh, vh, mask = sdpa_inputs(q, kpad, vpad, rel)
 
     def library():
         return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
@@ -190,6 +228,83 @@ def phase_attention():
         f"{row['plain_ms']}, library_ms {row['library_ms']}, bound_ms "
         f"{bound_ms} ({bound_by}; {flops / 1e9} GFLOP, {nbytes / 1e6} MB)")
     return row
+
+
+def check_grads(name, got, ref, labels) -> float:
+    """Each gradient against its plain version over its max |.|, at
+    GRAD_TOL; returns the largest absolute error."""
+    err = 0.0
+    for label, a, b in zip(labels, got, ref):
+        scale = max(b.abs().max().item(), 1e-30)
+        check_close(f"{name} {label}", a / scale, b / scale, GRAD_TOL)
+        err = max(err, (a - b).abs().max().item())
+    return err
+
+
+def phase_attention_bwd(q, kpad, vpad, rel, d_out):
+    """Kernel 3 (both passes) and kernel 4 (the first pass alone) against
+    their plain versions at the model's full width."""
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    L, D = q.shape[1], q.shape[3]
+    args = (q, kpad, vpad, rel, d_out, W)
+    got = bak.banded_attention_bwd(*args)
+    torch.cuda.synchronize()
+    err = check_grads("banded_attention_bwd", got,
+                      bak.banded_attention_bwd_plain(*args),
+                      ("dq", "dk", "dv", "drel"))
+    parts = bak.banded_attention_bwd_partials(*args)
+    torch.cuda.synchronize()
+    err_p = check_grads("banded_attention_bwd_partials", parts,
+                        bak.banded_attention_bwd_partials_plain(*args),
+                        ("dq", "dk_part", "dv_part", "drel_part"))
+
+    # library yardstick: the gradient of SDPA with the dense band mask
+    # (dq, dk, dv; the mask's q.rel bias is a constant there)
+    qh, kh, vh, mask = (t.detach().requires_grad_(i < 3) for i, t in
+                        enumerate(sdpa_inputs(q, kpad, vpad, rel)))
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         scale=1.0)
+    g = d_out.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+
+    flops = B * L * H * W * (15 * D + 10)
+    inputs = sum(t.numel() for t in args[:5])
+    nbytes = 4 * (inputs + sum(t.numel() for t in got))
+    bound_ms, bound_by = bound(flops, nbytes)
+    row = dict(
+        name="banded_attention_bwd", route="cuda",
+        source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        replaces="reconvat_tpu/ops/pallas_attention_bwd.py:37",
+        max_abs_err=err, ms=time_ms(lambda: bak.banded_attention_bwd(*args)),
+        plain_ms=time_ms(lambda: bak.banded_attention_bwd_plain(*args)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(library))
+    p_flops = flops - B * L * H * W * 10
+    p_bytes = 4 * (inputs + sum(t.numel() for t in parts))
+    p_bound_ms, p_bound_by = bound(p_flops, p_bytes)
+    row_p = dict(
+        name="banded_attention_bwd_partials", route="cuda",
+        source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        replaces="tools/bench_attention_parts.py:73",
+        max_abs_err=err_p,
+        ms=time_ms(lambda: bak.banded_attention_bwd_partials(*args)),
+        plain_ms=time_ms(
+            lambda: bak.banded_attention_bwd_partials_plain(*args)),
+        bound_ms=p_bound_ms, bound_by=p_bound_by, library_ms=None)
+    log(f"phase 3b banded_attention_bwd (B={B}, L={L}, H={H}, Dh={D}, "
+        f"W={W}): max_abs_err {err} (tol {GRAD_TOL} over each gradient's "
+        f"max), ms {row['ms']}, plain_ms {row['plain_ms']}, library_ms "
+        f"(autograd.grad of SDPA, dense mask) {row['library_ms']}, bound_ms "
+        f"{bound_ms} ({bound_by}; {flops / 1e9} GFLOP, {nbytes / 1e6} MB)")
+    log(f"phase 3c banded_attention_bwd_partials (first pass alone): "
+        f"max_abs_err {err_p}, ms {row_p['ms']}, plain_ms "
+        f"{row_p['plain_ms']}, bound_ms {p_bound_ms} ({p_bound_by}; "
+        f"{p_flops / 1e9} GFLOP, {p_bytes / 1e6} MB)")
+    return row, row_p
 
 
 def serve_loop(serve, model, batches, depth: int = 2) -> dict:
@@ -227,22 +342,29 @@ def serve_loop(serve, model, batches, depth: int = 2) -> dict:
 
 
 KERNEL_GROUPS = (("mel_power", ("mel_partial", "sum_chunks")),
+                 ("banded_attention_bwd", ("bwd_partials_kernel",
+                                           "bwd_overlap_add_kernel",
+                                           "bwd_drel_sum_kernel")),
                  ("banded_attention_fwd", ("banded_attention",)),
                  ("convolutions_bn", ("conv", "cudnn", "implicit", "dgrad",
-                                      "fprop", "fft", "bn_fw")),
+                                      "wgrad", "fprop", "fft", "gemm_cf32",
+                                      "bn_fw", "bn_bw", "batch_norm")),
                  ("matmuls", ("gemm", "gemv")),
                  ("copies", ("memcpy", "memset")))
 
 
-def phase_profile(serve, model, batches) -> None:
-    """Device time by kernel over a short steady window of the serving path
-    (torch.profiler) and the device's busy share of the window's wall
-    time."""
+def profile_groups(fn):
+    """Run fn() under torch.profiler. Returns (wall s, device busy ms,
+    device ms by kernel group, top kernels), or None when the profiler
+    recorded no device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
-        sec = serve_loop(serve, model, batches)["seconds"]
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        sec = time.perf_counter() - t0
     kernels = {}
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
@@ -253,22 +375,37 @@ def phase_profile(serve, model, batches) -> None:
         kernels[e.key] = kernels.get(e.key, 0.0) + us
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms == 0:
-        log("phase 5 profile: the profiler recorded no device kernels; "
-            "device time not measured")
-        return
+        return None
     groups = dict.fromkeys([g for g, _ in KERNEL_GROUPS] + ["other"], 0.0)
     for name, us in kernels.items():
         low = name.lower()
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in low for k in keys)), "other")
         groups[group] += us / 1e3
-    n = len(batches)
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    log(f"phase 5 profile ({n} batches, depth 2): wall {sec * 1e3 / n} "
-        f"ms/batch, device busy {busy_ms / n} ms/batch, busy share "
-        f"{busy_ms / (sec * 1e3)}; device ms/batch by group "
-        f"{ {g: v / n for g, v in groups.items()} }; top kernels (ms/batch) "
-        f"{[(k[:60], v / 1e3 / n) for k, v in top]}")
+    return sec, busy_ms, groups, top
+
+
+def log_profile(label: str, unit: str, n: int, prof) -> None:
+    if prof is None:
+        log(f"{label}: the profiler recorded no device kernels; device "
+            f"time not measured")
+        return
+    sec, busy_ms, groups, top = prof
+    log(f"{label}: wall {sec * 1e3 / n} ms/{unit}, device busy "
+        f"{busy_ms / n} ms/{unit}, busy share {busy_ms / (sec * 1e3)}; "
+        f"device ms/{unit} by group "
+        f"{ {g: v / n for g, v in groups.items()} }; top kernels "
+        f"(ms/{unit}) {[(k[:60], v / 1e3 / n) for k, v in top]}")
+
+
+def phase_profile(serve, model, batches) -> None:
+    """Device time by kernel over a short steady window of the serving path
+    (torch.profiler) and the device's busy share of the window's wall
+    time."""
+    log_profile(f"phase 5 profile ({len(batches)} batches, depth 2)",
+                "batch", len(batches),
+                profile_groups(lambda: serve_loop(serve, model, batches)))
 
 
 def phase_serve(rows):
@@ -357,6 +494,172 @@ def phase_serve(rows):
     phase_profile(serve, model, batches[:4])
 
 
+def train_batches(seed: int):
+    """One labeled and one unlabeled batch of B clips of 20.48 s on the
+    card: audio from seeded numpy, ~3 % of the frame labels active."""
+    rng = np.random.RandomState(seed)
+    frames = (SAMPLES - 1) // 512 + 1
+
+    def audio():
+        return torch.tensor(rng.randn(B, SAMPLES) * 0.1,
+                            dtype=torch.float32, device="cuda")
+
+    label = torch.tensor(rng.rand(B, frames, 88) < 0.03,
+                         dtype=torch.float32, device="cuda")
+    return {"audio": audio(), "frame": label}, {"audio": audio()}
+
+
+def step_grads(model, batch_l, batch_ul, seed: int, vat: bool):
+    """Losses and per-parameter gradients of one training forward and
+    backward (no update), VAT directions from `seed`."""
+    from reconvat_tpu_torch.models.reconvat import fp32_math
+    from reconvat_tpu_torch.train.state import total_loss_from_dict
+
+    model.zero_grad(set_to_none=True)
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    with fp32_math():
+        _, losses, _ = model.run_on_batch(batch_l, batch_ul, gen, vat=vat,
+                                          train=True)
+        total_loss_from_dict(losses, 1.0).backward()
+    return ({k: v.item() for k, v in losses.items()},
+            {n: p.grad.detach().clone() for n, p in model.named_parameters()})
+
+
+def compare_routes(model, batch_l, batch_ul) -> str:
+    """One step's losses and gradients through the kernels against the
+    same step through the plain versions, from the same state: without
+    VAT (losses and every gradient), and with VAT at xi = 1e-2 from the
+    same directions (losses)."""
+    import copy
+    import dataclasses
+
+    plain = copy.deepcopy(model)
+    plain.use_kernels(False)
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+
+    def run(m, bl, bul, vat):
+        m.load_state_dict(start)
+        return step_grads(m, bl, bul, seed=5, vat=vat)
+
+    lk, gk = run(model, batch_l, None, False)
+    lp, gp = run(plain, batch_l, None, False)
+    audio = batch_l["audio"]
+    noise = torch.randn(audio.shape, device=audio.device, generator=(
+        torch.Generator(device=audio.device).manual_seed(9)))
+    probe = {**batch_l, "audio": audio * (1 + PROBE * noise)}
+    _, gq = run(plain, probe, None, False)
+    for k in lp:
+        if not np.isclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
+            fail(f"train step without VAT: {k} {lk[k]} (kernels) vs "
+                 f"{lp[k]} (plain)")
+    top = max(g.abs().max().item() for g in gp.values())
+    worst = 0.0
+    for name, g in gp.items():
+        diff = (gk[name] - g).abs().max().item()
+        moved = (gq[name] - g).abs().max().item()
+        if not torch.isfinite(gk[name]).all() or (
+                diff > PROBE_FACTOR * moved + GRAD_FLOOR * top):
+            fail(f"train step without VAT: gradient of {name} differs by "
+                 f"{diff} (plain route moves {moved} under the probe)")
+        if g.abs().max().item() > GRAD_FLOOR * top and \
+                gk[name].abs().max().item() == 0:
+            fail(f"kernel route lost the gradient of {name}")
+        worst = max(worst, diff / top)
+    cfg = model.vat_cfg
+    model.vat_cfg = plain.vat_cfg = dataclasses.replace(cfg, xi=1e-2)
+    lvk, _ = run(model, batch_l, batch_ul, True)
+    lvp, _ = run(plain, batch_l, batch_ul, True)
+    model.vat_cfg = cfg
+    for k in lvp:
+        if not np.isclose(lvk[k], lvp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
+            fail(f"train step with VAT (xi 1e-2): {k} {lvk[k]} (kernels) "
+                 f"vs {lvp[k]} (plain)")
+    model.load_state_dict(start)
+    unet_grad = gk["transcriber.Unet1_encoder.block1.conv1.weight"]
+    return (f"without VAT: losses agree (rtol {STEP_LOSS_RTOL}), every "
+            f"gradient within {PROBE_FACTOR}x the plain route's movement "
+            f"under a {PROBE} audio probe + {GRAD_FLOOR} of the largest "
+            f"({top}; largest gap {worst} of it), U-Net input "
+            f"layer gradient max {unet_grad.abs().max().item()}; with VAT "
+            f"at xi 1e-2: losses kernels {lvk} plain {lvp}")
+
+
+def phase_train(rows) -> None:
+    """The training path at full width: timed steps, launches per step,
+    peak memory, a profile, kernels against plain versions, and the card
+    against the CPU on a short clip."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    counters = {"mel_power": mel_power,
+                "banded_attention_fwd": bak.banded_attention_fwd,
+                "banded_attention_bwd": bak.banded_attention_bwd,
+                "banded_attention_bwd_partials":
+                    bak.banded_attention_bwd_partials}
+    model = ReconVAT(seed=0)
+    state = create_train_state(model)
+    step = make_train_step(model, alpha=1.0, vat=True, use_unlabeled=True)
+    batches = [train_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for i in range(2):                                   # warm-up
+        step(state, *batches[i % 2], gen)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    # the main path: counts reset just before, read just after
+    n_steps = 6
+    for f in counters.values():
+        f.launches = 0
+    t0 = time.perf_counter()
+    losses = [step(state, *batches[i % 2], gen) for i in range(n_steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    launches = {k: f.launches for k, f in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, n in launches.items():
+        if n == 0:
+            fail(f"training path never launched {name}")
+    last = {k: v.item() for k, v in losses[-1].items()}
+    if not all(np.isfinite(v.item()) for ls in losses for v in ls.values()):
+        fail(f"non-finite training loss: {last}")
+    per_step = {k: n / n_steps for k, n in launches.items()}
+    audio_s = 2 * B * SAMPLES / 16000
+    log(f"phase 6 training (B={B} labeled + {B} unlabeled x {SAMPLES} "
+        f"samples, VAT + reconstruction, fp32, {n_steps} steps after 2 "
+        f"warm-up): {ms} ms/step, {audio_s / (ms / 1e3)} audio-s/s "
+        f"trained, peak memory {peak_gb} GB, launches per step "
+        f"{per_step}, step {state.step}, last losses {last}")
+    for row in rows:
+        row["launches_train"] = launches[row["name"]]
+        if row["name"].startswith("banded_attention_bwd"):
+            row["launches"] = launches[row["name"]]
+
+    log_profile("phase 7 training profile (2 steps)", "step", 2,
+                profile_groups(lambda: [step(state, *batches[i], gen)
+                                        for i in range(2)]))
+    log(f"phase 8 train step, kernels vs plain versions: "
+        f"{compare_routes(model, *batches[0])}")
+
+    # the card against the CPU on a short clip, without VAT (the CPU path
+    # is the one the tests hold against the JAX package)
+    cpu = ReconVAT(seed=0, device="cpu")
+    cpu.load_state_dict(model.state_dict())
+    short_l = {k: v[:2, :32 * 512] if k == "audio" else v[:2, :32]
+               for k, v in batches[0][0].items()}
+    card_l, _ = step_grads(model, short_l, None, 0, vat=False)
+    cpu_l, _ = step_grads(cpu, {k: v.cpu() for k, v in short_l.items()},
+                          None, 0, vat=False)
+    for k in cpu_l:
+        if not np.isclose(card_l[k], cpu_l[k], rtol=1e-4, atol=1e-5):
+            fail(f"train losses on the card and the CPU differ: {k} "
+                 f"{card_l[k]} vs {cpu_l[k]}")
+    log(f"phase 9 train losses, card vs CPU (2 x 32 frames, no VAT): "
+        f"{card_l} vs {cpu_l}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -380,8 +683,12 @@ def main() -> int:
     log(f"phase 1 {card}; kernels built in {time.perf_counter() - t0} s")
 
     fe = make_frontend("Mel")[0].cuda()
-    rows = [phase_mel(fe), phase_attention()]
-    phase_serve(rows)
+    attn = attention_inputs()
+    rows = [phase_mel(fe), phase_attention(*attn[:4]),
+            *phase_attention_bwd(*attn)]
+    del attn
+    phase_serve(rows[:2])
+    phase_train(rows)
     for row in rows:
         row["max_err"] = row["max_abs_err"]
     log(json.dumps({"kernels": rows}))

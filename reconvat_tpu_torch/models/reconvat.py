@@ -9,7 +9,9 @@
 
 Submodule names match the reference state_dict, so the keys map one to one
 onto the JAX variable tree (`weights.flax_to_torch`). Parameters and compute
-are fp32; TF32 is switched off around the serving call.
+are fp32; TF32 is switched off around the serving call and the train step.
+`run_on_batch` is the training batch contract (supervised losses,
+reconstruction and VAT); `transcribe` the serving path.
 """
 from __future__ import annotations
 
@@ -21,10 +23,12 @@ from torch import nn
 
 from .. import constants as C
 from ..nn.attention import MultiHeadAttention1D
-from ..nn.unet import Decoder, Encoder
+from ..nn.unet import Decoder, Encoder, frozen_batch_stats
 from ..ops.normalize import Normalization
 from ..ops.spectrogram import make_frontend
-from .common import make_log_norm_spec, transcribe_spec
+from ..vat import VATConfig, vat_loss
+from .common import frame_mask, make_log_norm_spec, transcribe_spec
+from .losses import binary_cross_entropy, mse_loss
 
 
 def resolve_device(device=None) -> torch.device:
@@ -106,6 +110,11 @@ class UNet(nn.Module):
             return reconstruction, pianoroll, pianoroll2, a
         return pianoroll, a
 
+    def transcribe_frames(self, x):
+        """Transcriber-only path that VAT attacks (reference
+        `UNet_VAT.forward`, `model/self_attention_VAT.py:162-202`)."""
+        return self.transcriber(x)[0]
+
 
 @torch.no_grad()
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
@@ -137,11 +146,15 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
 class ReconVAT(UNet):
     """The flagship model with its signal chain (reference constructor,
     `model/self_attention_VAT.py:1015`). Built on CUDA unless `device` says
-    otherwise; parameters from `seed` through a `torch.Generator`; eval
-    mode (BatchNorm on running statistics)."""
+    otherwise; parameters from `seed` through a `torch.Generator`. It
+    starts in eval mode (BatchNorm on running statistics); `run_on_batch`
+    sets the mode its `train` argument asks for and `transcribe` sets eval
+    mode. xi, eps and kl_div configure VAT as in the JAX package."""
 
     def __init__(self, log: bool = True, reconstruction: bool = True,
-                 mode: str = "imagewise", seed: int = 0, device=None):
+                 mode: str = "imagewise", xi: float = 1e-6,
+                 eps: float = 2.0, kl_div: bool = False, seed: int = 0,
+                 device=None):
         device = resolve_device(device)
         frontend, n_bins = make_frontend("Mel")
         super().__init__(n_bins, reconstruction)
@@ -149,6 +162,9 @@ class ReconVAT(UNet):
         self.n_bins = n_bins
         self.log = log
         self.normalize = Normalization(mode)
+        # the spec image is (B, T, F, 1): the perturbation's per-vector L2
+        # norm runs over the bins axis
+        self.vat_cfg = VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=2)
         init_parameters(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.to(device)
@@ -169,6 +185,87 @@ class ReconVAT(UNet):
         drops the final sample (327680 samples -> 640 frames)."""
         return make_log_norm_spec(self, audio, t_true)[..., None]
 
+    def run_on_batch(self, batch_l, batch_ul=None, generator=None,
+                     vat: bool = False, train: bool = True, t_true=None):
+        """Counterpart of the JAX package's `ReconVAT.run_on_batch`
+        (reference `UNet.run_on_batch`,
+        `model/self_attention_VAT.py:1090-1203`).
+
+        batch_l {"audio" (B, N), "frame" (B, T, 88)}, batch_ul {"audio"}
+        or None, on the model's device. Returns (predictions, losses, spec
+        (B, T, F)). `train` selects BatchNorm's mode (batch statistics, with
+        the running statistics updated in place by the supervised forward
+        only) and the loss names. The VAT directions are drawn from
+        `generator` (on the model's device): the unlabeled chain's first,
+        then the labeled chain's. t_true masks the spec normalization and
+        the losses to the true frames of a padded clip. Grad mode must be
+        on when `vat` or `batch_ul` is given (the power iteration
+        differentiates)."""
+        self.train(train)
+        prefix = "train" if train else "test"
+        frame_label = batch_l["frame"]
+        mask = (None if t_true is None
+                else frame_mask(t_true, frame_label.shape[1], self.device))
+        zero = torch.zeros((), device=self.device)
+
+        lds_ul, r_norm_ul = zero, zero
+        if batch_ul is not None:
+            spec_ul = self.make_spec(batch_ul["audio"])
+            with frozen_batch_stats(self):
+                lds_ul, _, rn = vat_loss(self.transcribe_frames, spec_ul,
+                                         generator, self.vat_cfg)
+            r_norm_ul = rn.abs().mean()
+
+        spec = self.make_spec(batch_l["audio"], t_true)
+        out = self(spec)
+
+        lds_l, r_adv, r_norm_l = zero, None, zero
+        if vat:
+            # the supervised forward's clean prediction on this spec is the
+            # VAT reference (the JAX package's y_ref reuse)
+            y_ref = out[1] if self.reconstruction else out[0]
+            with frozen_batch_stats(self):
+                lds_l, r_adv, rn = vat_loss(self.transcribe_frames, spec,
+                                            generator, self.vat_cfg,
+                                            y_ref=y_ref)
+            r_adv = r_adv[..., 0]
+            r_norm_l = rn.abs().mean()
+
+        if self.reconstruction:
+            reconstruction, pianoroll, pianoroll2, a = out
+            predictions = {
+                "onset": pianoroll, "frame": pianoroll,
+                "frame2": pianoroll2, "onset2": pianoroll2,
+                "attention": a, "r_adv": r_adv,
+                "reconstruction": reconstruction,
+            }
+            losses = {
+                f"loss/{prefix}_reconstruction":
+                    mse_loss(reconstruction[..., 0], spec[..., 0].detach(),
+                             mask),
+                f"loss/{prefix}_frame":
+                    binary_cross_entropy(pianoroll, frame_label, mask),
+                f"loss/{prefix}_frame2":
+                    binary_cross_entropy(pianoroll2, frame_label, mask),
+                f"loss/{prefix}_LDS_l": lds_l,
+            }
+        else:
+            pianoroll, a = out
+            predictions = {"onset": pianoroll, "frame": pianoroll,
+                           "attention": a, "r_adv": r_adv}
+            losses = {
+                f"loss/{prefix}_frame":
+                    binary_cross_entropy(pianoroll, frame_label, mask),
+                f"loss/{prefix}_LDS_l": lds_l,
+            }
+        if train:
+            losses[f"loss/{prefix}_LDS_ul"] = lds_ul
+            losses[f"loss/{prefix}_r_norm_l"] = r_norm_l
+            losses[f"loss/{prefix}_r_norm_ul"] = r_norm_ul
+        else:
+            losses[f"loss/{prefix}_r_norm_l"] = r_norm_l
+        return predictions, losses, spec[..., 0]
+
     @torch.no_grad()
     def transcribe(self, audio, bucket_frames: int = 0):
         """Serving path (reference `UNet.transcribe`,
@@ -180,6 +277,7 @@ class ReconVAT(UNet):
         bucket_frames > 0 pads the clip to a frame-bucket boundary, masks
         the normalization statistics to the true frames and trims the
         padded tail."""
+        self.eval()
         with fp32_math():
             spec, t_true = transcribe_spec(self, audio, bucket_frames)
             pianoroll, _ = self.transcriber(spec[..., None])

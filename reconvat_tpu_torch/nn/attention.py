@@ -13,9 +13,9 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from ..ops.banded_attention_kernel import banded_attention, banded_attention_fwd
+from ..ops.banded_attention_kernel import BandedAttention, banded_attention
 
-__all__ = ["banded_attention", "banded_attention_fwd", "MultiHeadAttention1D"]
+__all__ = ["banded_attention", "BandedAttention", "MultiHeadAttention1D"]
 
 
 class MultiHeadAttention1D(nn.Module):
@@ -23,8 +23,9 @@ class MultiHeadAttention1D(nn.Module):
     attention (B, L, groups, kernel_size)).
 
     `use_kernel` (default True) routes the attention core through
-    `banded_attention_fwd` (the CUDA kernel on a CUDA tensor, its plain
-    version on a CPU tensor); False runs the plain version on any device."""
+    `BandedAttention`, whose forward and backward are the CUDA kernels
+    on a CUDA tensor and their plain versions on a CPU tensor; False runs
+    the plain forward, differentiated by autograd, on any device."""
 
     def __init__(self, in_features: int, out_features: int,
                  kernel_size: int = 31, groups: int = 1):
@@ -53,7 +54,7 @@ class MultiHeadAttention1D(nn.Module):
         k = self.W_k(xpad).reshape(B, L + 2 * hw, H, Dh)
         v = self.W_v(xpad).reshape(B, L + 2 * hw, H, Dh)
         rel = self.rel[0].reshape(H, Dh, W)
-        fn = banded_attention_fwd if self.use_kernel else banded_attention
+        fn = BandedAttention.apply if self.use_kernel else banded_attention
         out, probs = fn(q, k, v, rel, W)
         return out.reshape(B, L, self.out_features), probs
 

@@ -10,6 +10,8 @@ ported: it equals this layout.
 """
 from __future__ import annotations
 
+import contextlib
+
 import torch
 import torch.nn.functional as F
 from torch import nn
@@ -22,6 +24,45 @@ def _act(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """`nn.BatchNorm2d` with the JAX package's training semantics
+    (`reconvat_tpu/nn/unet.py:MaskedBatchNorm`): in training it normalizes
+    with the biased batch variance and updates `running_var` with that
+    biased variance too (torch's own layer updates it with the unbiased
+    one); momentum 0.1 on both sides. `update_stats = False` (see
+    `frozen_batch_stats`) keeps the batch statistics but discards the
+    running-statistics update. Eval mode is `nn.BatchNorm2d`'s."""
+
+    update_stats = True
+
+    def forward(self, x):
+        if not self.training:
+            return super().forward(x)
+        if self.update_stats:
+            with torch.no_grad():
+                var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
+                            self.eps)
+
+
+@contextlib.contextmanager
+def frozen_batch_stats(model: nn.Module):
+    """Within the block, train-mode `BatchNorm2d` layers of `model` use
+    batch statistics and leave their running statistics unchanged (the
+    JAX package's VAT chains, which discard the batch-stat updates)."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    for m in layers:
+        m.update_stats = False
+    try:
+        yield
+    finally:
+        for m in layers:
+            m.update_stats = True
+
+
 class EncBlock(nn.Module):
     """Reference `block` (`model/self_attention_VAT.py:844-859`)."""
 
@@ -29,9 +70,9 @@ class EncBlock(nn.Module):
                  ds_stride=2):
         super().__init__()
         self.conv1 = nn.Conv2d(inp, out, ksize, padding=pad)
-        self.bn1 = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+        self.bn1 = BatchNorm2d(out, eps=BATCHNORM_EPS)
         self.conv2 = nn.Conv2d(out, out, ksize, padding=pad)
-        self.bn2 = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+        self.bn2 = BatchNorm2d(out, eps=BATCHNORM_EPS)
         self.skip = nn.Conv2d(inp, out, 1)
         self.ds = nn.Conv2d(out, out, ds_ksize, stride=ds_stride)
 
@@ -50,12 +91,12 @@ class DBlock(nn.Module):
         mid = inp // 2
         self.is_last = is_last
         self.conv2d = nn.ConvTranspose2d(inp, mid, ksize, 1, pad)
-        self.bn2d = nn.BatchNorm2d(mid, eps=BATCHNORM_EPS)
+        self.bn2d = BatchNorm2d(mid, eps=BATCHNORM_EPS)
         self.conv1d = nn.ConvTranspose2d(mid, out, ksize, 1, pad)
         if is_last:
             us_ch = inp
         else:
-            self.bn1d = nn.BatchNorm2d(out, eps=BATCHNORM_EPS)
+            self.bn1d = BatchNorm2d(out, eps=BATCHNORM_EPS)
             us_ch = inp - out
         self.us = nn.ConvTranspose2d(us_ch, us_ch, ds_ksize, ds_stride)
 

@@ -1,4 +1,5 @@
-"""Banded local attention forward: CUDA kernel wrapper and plain version.
+"""Banded local attention: CUDA kernel wrappers, plain versions and the
+autograd Function that joins forward and backward.
 
 `banded_attention_fwd` computes what the TPU kernel `_attention_kernel`
 (`reconvat_tpu/ops/pallas_attention.py`) computes, and also returns the
@@ -8,17 +9,27 @@ attention probabilities, which the default reference path returns:
     p = softmax_j(s)           (no 1/sqrt(d) scale)
     out[b, t, h] = sum_j p[b, t, h, j] * vpad[b, t + j, h]
 
-with kpad/vpad zero-padded by (window - 1) // 2 rows per side. On a CUDA
-tensor it launches `csrc/banded_attention.cu`; on a CPU tensor it runs
-`banded_attention`, the same function in plain PyTorch.
+with kpad/vpad zero-padded by (window - 1) // 2 rows per side.
+`banded_attention_bwd` computes what the TPU kernel `_bwd_kernel`
+(`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
+`out` with respect to q, kpad, vpad and rel. On a CUDA tensor each wrapper
+launches its kernel (`csrc/banded_attention.cu`,
+`csrc/banded_attention_bwd.cu`); on a CPU tensor it runs its plain PyTorch
+version. `BandedAttention` is the differentiable op built from both.
 """
 from __future__ import annotations
 
 import ctypes
 
 import torch
+import torch.nn.functional as F
+from torch.autograd.function import once_differentiable
 
 from ..kernels import _build
+
+# query rows per tile of the backward's first pass; the CUDA source builds
+# with the same value and refuses another
+BWD_TILE = 32
 
 
 def banded_attention(q, kpad, vpad, rel, window: int):
@@ -75,3 +86,189 @@ def banded_attention_fwd(q, kpad, vpad, rel, window: int):
 
 
 banded_attention_fwd.launches = 0
+
+
+def _probs_and_ds(q, kpad, vpad, rel, d_out, window: int):
+    """Recomputed probabilities p and softmax-backward dS, (B, L, H, W)
+    each, with the (B, L, H, Dh, W) key window."""
+    kw = kpad.unfold(1, window, 1)
+    vw = vpad.unfold(1, window, 1)
+    scores = (torch.einsum("blhd,blhdw->blhw", q, kw)
+              + torch.einsum("blhd,hdw->blhw", q, rel))
+    p = torch.softmax(scores, dim=-1)
+    dp = torch.einsum("blhd,blhdw->blhw", d_out, vw)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    return p, ds, kw
+
+
+def banded_attention_bwd_plain(q, kpad, vpad, rel, d_out, window: int):
+    """Plain PyTorch version of the backward. Returns (dq, dkpad, dvpad,
+    drel) of `out = banded_attention(q, kpad, vpad, rel, window)[0]` for
+    the output gradient d_out:
+
+        dP = dO . V_window,  dS = p * (dP - sum_j p dP)
+        dq = dS . (K_window + rel),  drel = sum_{b,t} dS q
+        dkpad[t + j] += dS[j] q_t,   dvpad[t + j] += p[j] dO_t
+    """
+    L = q.shape[1]
+    p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
+    dq = (torch.einsum("blhw,blhdw->blhd", ds, kw)
+          + torch.einsum("blhw,hdw->blhd", ds, rel))
+    drel = torch.einsum("blhw,blhd->hdw", ds, q)
+    dk = torch.zeros_like(kpad)
+    dv = torch.zeros_like(vpad)
+    for j in range(window):
+        dk[:, j:j + L] += ds[..., j, None] * q
+        dv[:, j:j + L] += p[..., j, None] * d_out
+    return dq, dk, dv, drel
+
+
+def _tiles(x, tile: int):
+    """(B, L, H, X) -> (B, H, n_tiles, tile, X), zero rows past L."""
+    B, L, H, X = x.shape
+    n = -(-L // tile)
+    x = F.pad(x, (0, 0, 0, 0, 0, n * tile - L))
+    return x.reshape(B, n, tile, H, X).permute(0, 3, 1, 2, 4)
+
+
+def banded_attention_bwd_partials_plain(q, kpad, vpad, rel, d_out,
+                                        window: int, tile: int = BWD_TILE):
+    """Plain version of the backward's first pass. Returns (dq, dk_part,
+    dv_part, drel_part): dk_part / dv_part (B, H, n_tiles, tile + window -
+    1, Dh) hold each query tile's contribution to the key rows of its
+    context [i * tile, i * tile + tile + window - 1), drel_part (B, H,
+    n_tiles, Dh, window) its contribution to drel."""
+    p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
+    dq = (torch.einsum("blhw,blhdw->blhd", ds, kw)
+          + torch.einsum("blhw,hdw->blhd", ds, rel))
+    qt, dot, pt, dst = (_tiles(x, tile) for x in (q, d_out, p, ds))
+    B, H, n, _, D = qt.shape
+    dk_part = q.new_zeros((B, H, n, tile + window - 1, D))
+    dv_part = torch.zeros_like(dk_part)
+    for j in range(window):
+        dk_part[:, :, :, j:j + tile] += dst[..., j, None] * qt
+        dv_part[:, :, :, j:j + tile] += pt[..., j, None] * dot
+    drel_part = torch.einsum("bhnrw,bhnrd->bhndw", dst, qt)
+    return dq, dk_part, dv_part, drel_part
+
+
+def banded_attention_bwd_reduce_plain(dk_part, dv_part, drel_part, L: int,
+                                      window: int, tile: int = BWD_TILE):
+    """Plain version of the backward's second pass: overlap-add the tile
+    partials into (dkpad, dvpad) of (B, L + window - 1, H, Dh) and sum the
+    drel partials into (H, Dh, window)."""
+    B, H, n, ctx, D = dk_part.shape
+    Lk = L + window - 1
+
+    def overlap_add(part):
+        out = part.new_zeros((B, H, (n - 1) * tile + ctx, D))
+        for i in range(n):
+            out[:, :, i * tile:i * tile + ctx] += part[:, :, i]
+        return out[:, :, :Lk].permute(0, 2, 1, 3).contiguous()
+
+    return (overlap_add(dk_part), overlap_add(dv_part),
+            drel_part.sum(dim=(0, 2)))
+
+
+def _check_bwd_args(q, kpad, vpad, rel, d_out, window: int):
+    if q.device.type != "cuda" or q.dim() != 4:
+        raise ValueError(f"banded attention backward: expected (B, L, H, "
+                         f"Dh) on CPU or CUDA, got {tuple(q.shape)} on "
+                         f"{q.device}")
+    B, L, H, D = q.shape
+    if not 1 <= window <= 32 or D > 256:
+        raise ValueError(f"kernel takes window <= 32 and Dh <= 256, got "
+                         f"window={window}, Dh={D}")
+    _build.check_tensor("q", q, (B, L, H, D), q.device)
+    _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device)
+    _build.check_tensor("vpad", vpad, (B, L + window - 1, H, D), q.device)
+    _build.check_tensor("rel", rel, (H, D, window), q.device)
+    _build.check_tensor("d_out", d_out, (B, L, H, D), q.device)
+
+
+def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
+    """The backward's first pass, as `banded_attention_bwd_partials_plain`.
+
+    CPU tensors take the plain version; CUDA tensors launch the first
+    pass of `csrc/banded_attention_bwd.cu` (and count the launch in
+    `banded_attention_bwd_partials.launches`) or raise."""
+    if q.device.type == "cpu":
+        return banded_attention_bwd_partials_plain(q, kpad, vpad, rel,
+                                                   d_out, window)
+    _check_bwd_args(q, kpad, vpad, rel, d_out, window)
+    B, L, H, D = q.shape
+    n = -(-L // BWD_TILE)
+    dq = torch.empty_like(q)
+    dk_part = torch.empty((B, H, n, BWD_TILE + window - 1, D),
+                          dtype=torch.float32, device=q.device)
+    dv_part = torch.empty_like(dk_part)
+    drel_part = torch.empty((B, H, n, D, window), dtype=torch.float32,
+                            device=q.device)
+    lib = _build.load("banded_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.banded_attention_bwd_partials_launch(
+        q.data_ptr(), kpad.data_ptr(), vpad.data_ptr(), rel.data_ptr(),
+        d_out.data_ptr(), dq.data_ptr(), dk_part.data_ptr(),
+        dv_part.data_ptr(), drel_part.data_ptr(), B, L, H, D, window,
+        BWD_TILE, ctypes.c_void_p(stream))
+    _build.check(err, "banded_attention_bwd_partials")
+    banded_attention_bwd_partials.launches += 1
+    return dq, dk_part, dv_part, drel_part
+
+
+banded_attention_bwd_partials.launches = 0
+
+
+def banded_attention_bwd(q, kpad, vpad, rel, d_out, window: int):
+    """(dq, dkpad, dvpad, drel) like `banded_attention_bwd_plain`.
+
+    CPU tensors take the plain version; CUDA tensors run both passes of
+    `csrc/banded_attention_bwd.cu` (and count one launch in
+    `banded_attention_bwd.launches`) or raise."""
+    if q.device.type == "cpu":
+        return banded_attention_bwd_plain(q, kpad, vpad, rel, d_out, window)
+    B, L, H, D = q.shape
+    dq, dk_part, dv_part, drel_part = banded_attention_bwd_partials(
+        q, kpad, vpad, rel, d_out, window)
+    dk = torch.empty_like(kpad)
+    dv = torch.empty_like(vpad)
+    drel = torch.empty_like(rel)
+    lib = _build.load("banded_attention_bwd")
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    err = lib.banded_attention_bwd_reduce_launch(
+        dk_part.data_ptr(), dv_part.data_ptr(), drel_part.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), drel.data_ptr(), B, L, H, D, window,
+        BWD_TILE, ctypes.c_void_p(stream))
+    _build.check(err, "banded_attention_bwd")
+    banded_attention_bwd.launches += 1
+    return dq, dk, dv, drel
+
+
+banded_attention_bwd.launches = 0
+
+
+class BandedAttention(torch.autograd.Function):
+    """`BandedAttention.apply(q, kpad, vpad, rel, window)` -> (out, probs):
+    forward `banded_attention_fwd`, backward `banded_attention_bwd`; rel
+    (H, Dh, window) is required (counterpart of the JAX package's `custom_vjp`,
+    `reconvat_tpu/nn/attention.py:banded_attention_pallas`). The
+    probabilities are an output but not differentiable: no loss reads
+    them. The backward is first order only: VAT detaches its direction, so
+    nothing differentiates through a gradient of this op."""
+
+    @staticmethod
+    def forward(ctx, q, kpad, vpad, rel, window: int):
+        out, probs = banded_attention_fwd(q, kpad, vpad, rel, window)
+        ctx.save_for_backward(q, kpad, vpad, rel)
+        ctx.window = window
+        ctx.mark_non_differentiable(probs)
+        return out, probs
+
+    @staticmethod
+    @once_differentiable
+    def backward(ctx, d_out, d_probs):
+        del d_probs
+        q, kpad, vpad, rel = ctx.saved_tensors
+        return (*banded_attention_bwd(q, kpad, vpad, rel,
+                                      d_out.contiguous(), ctx.window),
+                None)

@@ -40,9 +40,14 @@ def mel_power(audio, wcos, wsin, mel_basis, hop: int):
     """(B, N) float32 audio -> (B, N // hop + 1, n_mels) mel power.
 
     CPU tensors take `mel_power_plain`; CUDA tensors launch the kernel (and
-    count the launch in `mel_power.launches`) or raise."""
+    count the launch in `mel_power.launches`) or raise. The kernel has no
+    backward, so audio that needs a gradient raises rather than losing
+    it."""
     if audio.device.type == "cpu":
         return mel_power_plain(audio, wcos, wsin, mel_basis, hop)
+    if audio.requires_grad and torch.is_grad_enabled():
+        raise RuntimeError("mel_power: the CUDA kernel has no backward; "
+                           "audio that requires grad needs mel_power_plain")
     if audio.device.type != "cuda" or audio.dim() != 2:
         raise ValueError(f"mel_power: expected (B, N) audio on CPU or CUDA, "
                          f"got {tuple(audio.shape)} on {audio.device}")

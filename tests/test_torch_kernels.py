@@ -10,6 +10,9 @@ the wrapper-argument checks run anywhere.
 
 Tolerances: mel power rtol 1e-4 (atol 1e-6), attention out and probs
 atol 1e-5 (rtol 1e-4): fp32 on both sides, different summation orders.
+Attention gradients: each divided by its largest magnitude, then atol 1e-5
+(rtol 1e-4): fp32 on both sides; dk and dv add up to 31 terms per row in
+another order, drel sums over every (batch, row) of a head.
 """
 import numpy as np
 import pytest
@@ -23,6 +26,14 @@ from reconvat_tpu_torch.ops.spectrogram import make_frontend
 
 MEL_TOL = dict(rtol=1e-4, atol=1e-6)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+GRAD_TOL = dict(rtol=1e-4, atol=1e-5)   # on gradients over their max |.|
+
+
+def _assert_grads_close(got, ref, names=("dq", "dk", "dv", "drel")):
+    for name, a, b in zip(names, got, ref):
+        scale = max(b.abs().max().item(), 1e-30)
+        torch.testing.assert_close(a / scale, b / scale, **GRAD_TOL,
+                                   msg=lambda m, n=name: f"{n}: {m}")
 
 
 @pytest.fixture
@@ -86,3 +97,76 @@ def test_attention_kernel_matches_plain(cuda_device, L, window, Dh,
     ref_out, ref_probs = bak.banded_attention(q, kpad, vpad, rel, window)
     torch.testing.assert_close(out, ref_out, **ATTN_TOL)
     torch.testing.assert_close(probs, ref_probs, **ATTN_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
+                                           (2, 100, 7, 57),
+                                           (2, 33, 31, 229)])   # ragged tile
+def test_attention_bwd_kernel_matches_plain(cuda_device, B, L, window, Dh):
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(L, window, Dh, B=B))
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(5)
+                        ).to(cuda_device)
+    before = bak.banded_attention_bwd.launches
+    got = bak.banded_attention_bwd(q, kpad, vpad, rel, d_out, window)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_bwd.launches == before + 1
+    _assert_grads_close(got, bak.banded_attention_bwd_plain(
+        q, kpad, vpad, rel, d_out, window))
+
+
+@pytest.mark.cuda
+def test_attention_bwd_first_pass_matches_plain(cuda_device):
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(70, 31, 229))
+    d_out = torch.randn(q.shape, generator=torch.Generator().manual_seed(6)
+                        ).to(cuda_device)
+    before = bak.banded_attention_bwd_partials.launches
+    got = bak.banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, 31)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_bwd_partials.launches == before + 1
+    _assert_grads_close(got, bak.banded_attention_bwd_partials_plain(
+        q, kpad, vpad, rel, d_out, 31), ("dq", "dk_part", "dv_part",
+                                         "drel_part"))
+
+
+@pytest.mark.cuda
+def test_attention_module_backward_launches_kernel(cuda_device):
+    """A backward through MultiHeadAttention1D on the card reaches the
+    projections and the input through the backward kernel, and agrees
+    with the plain forward differentiated by autograd."""
+    from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
+
+    torch.manual_seed(0)
+    mod = MultiHeadAttention1D(229, 916, 31, 4).to(cuda_device)
+    torch.nn.init.normal_(mod.rel, std=0.1)
+    x = torch.randn((2, 80, 229), device=cuda_device, requires_grad=True)
+
+    def grads(use_kernel):
+        mod.use_kernel = use_kernel
+        mod.zero_grad()
+        out, _ = mod(x)
+        (gx,) = torch.autograd.grad(out.square().sum(), x,
+                                    retain_graph=True)
+        out.square().sum().backward()
+        return [gx] + [p.grad.clone() for p in mod.parameters()]
+
+    before = bak.banded_attention_bwd.launches
+    got = grads(True)
+    assert bak.banded_attention_bwd.launches == before + 2
+    for g in got:
+        assert g.abs().max().item() > 0
+    _assert_grads_close(got, grads(False),
+                        ["x"] + [n for n, _ in mod.named_parameters()])
+
+
+@pytest.mark.cuda
+def test_mel_kernel_refuses_audio_that_needs_grad(cuda_device):
+    fe, _ = make_frontend("Mel")
+    fe = fe.to(cuda_device)
+    x = torch.zeros((1, 4096), device=cuda_device, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        fe(x)
+    with torch.no_grad():
+        fe(x)
