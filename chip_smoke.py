@@ -41,6 +41,7 @@ PEAK_BYTES = 3.35e12
 B, SAMPLES = 8, 327680            # 8 clips of 20.48 s -> 640 frames
 H, W = 4, 31                      # attention heads, window
 MEL_TOL = dict(rtol=1e-4, atol=1e-6)
+TRUTH_FACTOR = 1.5                # kernel vs fp32 plain, error against float64
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 # attention gradients over their max |.|: fp32 both sides, dk/dv add up to
 # 31 terms per row and drel 5120 rows per head in another order
@@ -87,13 +88,17 @@ def bound(flops: float, nbytes: float):
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     """Mean device time of fn() over iters launches, with the 50 MB L2
-    flushed (a 64 MB write) before each, timed by CUDA events."""
+    flushed (64 MB writes) before each, timed by CUDA events. Several
+    flushes are queued ahead of the start event, so the host has enqueued
+    the launch before the card gets there: a wrapper's host time is not in
+    the time of a kernel shorter than it."""
     flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
     for _ in range(warmup):
         fn()
     total = 0.0
     for _ in range(iters):
-        flush.zero_()
+        for _ in range(8):
+            flush.zero_()
         start = torch.cuda.Event(enable_timing=True)
         end = torch.cuda.Event(enable_timing=True)
         start.record()
@@ -102,6 +107,19 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
         end.synchronize()
         total += start.elapsed_time(end)
     return total / iters
+
+
+def host_us(fn, calls: int = 100) -> float:
+    """Mean host time of one fn() call (microseconds): what the caller's
+    thread spends enqueuing it, the card's work not waited for."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    us = (time.perf_counter() - t0) / calls * 1e6
+    torch.cuda.synchronize()
+    return us
 
 
 def check_close(name, got, ref, tol) -> float:
@@ -113,13 +131,30 @@ def check_close(name, got, ref, tol) -> float:
     return err
 
 
+def tonal_clip():
+    """A 440 Hz sine at 0.1 whose second half is silent: near-empty mel bins
+    hold rounding leakage only, so no relative bound applies to them."""
+    t = torch.arange(SAMPLES - 1, device="cuda", dtype=torch.float64) / 16000
+    x = (0.1 * torch.sin(2 * np.pi * 440 * t)).float().repeat(B, 1)
+    x[:, x.shape[1] // 2:] = 0
+    return x
+
+
 def phase_mel(fe):
-    from reconvat_tpu_torch.ops.mel_kernel import mel_power, mel_power_plain
+    from reconvat_tpu_torch.ops.mel_kernel import (mel_power,
+                                                   mel_power_fft_plain,
+                                                   mel_power_plain)
 
     rng = torch.Generator(device="cuda").manual_seed(0)
     x = torch.randn((B, SAMPLES - 1), generator=rng, device="cuda") * 0.1
-    args = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis, fe.stft.hop_length)
-    got = mel_power(x, *args)
+    hop = fe.stft.hop_length
+    args = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis, hop)
+    args64 = tuple(a.double() for a in args[:3]) + (hop,)
+
+    def kernel(audio=x):
+        return mel_power(audio, *args, fe.stft.window, fe.twiddle, fe.band)
+
+    got = kernel()
     torch.cuda.synchronize()
     ref = mel_power_plain(x, *args)
     err = check_close("mel_power", got, ref, MEL_TOL)
@@ -127,31 +162,72 @@ def phase_mel(fe):
     n_fft, n_freq = fe.stft.wcos.shape
     if (T, n_mels) != (640, 229):
         fail(f"mel_power shape {tuple(got.shape)}")
+    # the kernel against the step-by-step model of its own arithmetic
+    model_err = check_close(
+        "mel_power vs mel_power_fft_plain", got,
+        mel_power_fft_plain(x, fe.stft.window, fe.mel_basis, hop), MEL_TOL)
+
+    # second yardstick: float64 mel_power_plain is the truth, and the kernel
+    # may be no further from it than fp32 mel_power_plain is (x TRUTH_FACTOR)
+    truth_log = []
+    for label, audio in (("noise", x), ("tonal", tonal_clip())):
+        truth = mel_power_plain(audio.double(), *args64)
+        k_err = (kernel(audio).double() - truth).abs().max().item()
+        p_err = (mel_power_plain(audio, *args).double()
+                 - truth).abs().max().item()
+        if not k_err <= TRUTH_FACTOR * p_err:
+            fail(f"mel_power on the {label} clip is {k_err} from float64, "
+                 f"fp32 mel_power_plain {p_err}")
+        truth_log.append(f"{label}: kernel {k_err}, fp32 plain {p_err} "
+                         f"(largest value {truth.max().item()})")
+        del truth
     window = torch.hann_window(n_fft, periodic=True, device="cuda")
 
     def library():
-        spec = torch.stft(x, n_fft, fe.stft.hop_length, window=window,
-                          center=True, pad_mode="reflect",
+        spec = torch.stft(x, n_fft, hop, window=window, center=True,
+                          pad_mode="reflect",
                           return_complex=True).abs().square()
         return spec.transpose(1, 2) @ fe.mel_basis
 
     lib_err = (library() - ref).abs().max().item()
-    flops = B * T * (2 * 2 * n_fft * n_freq + 2 * n_freq * n_mels)
-    nbytes = 4 * (x.numel() + 2 * n_fft * n_freq + n_freq * n_mels
-                  + got.numel())
+    # the least work these inputs need: a real FFT per frame (about
+    # 1.25 n log2 n operations) and a multiply-add per nonzero of the mel
+    # basis that was passed in; audio, window, mel basis read once, the
+    # output written once
+    nnz = int((fe.mel_basis != 0).sum().item())
+    flops = B * T * (1.25 * n_fft * np.log2(n_fft) + 2 * nnz)
+    nbytes = 4 * (x.numel() + n_fft + n_freq * n_mels + got.numel())
     bound_ms, bound_by = bound(flops, nbytes)
+    # history only, no bound of the function: the count with a complex FFT
+    # per frame and a dense mel product, and that of the DFT-as-GEMM design
+    # this kernel replaced
+    dense_flops = B * T * (2.5 * n_fft * np.log2(n_fft)
+                           + 2 * n_freq * n_mels)
+    dense_ms, _ = bound(dense_flops, nbytes)
+    gemm_flops = B * T * (2 * 2 * n_fft * n_freq + 2 * n_freq * n_mels)
+    gemm_bytes = nbytes + 4 * (2 * n_fft * n_freq - n_fft)
+    gemm_bound_ms, gemm_bound_by = bound(gemm_flops, gemm_bytes)
     row = dict(
         name="mel_power", route="cuda", source="reconvat_tpu_torch/csrc/mel.cu",
         replaces="reconvat_tpu/ops/pallas_mel.py:36",
-        max_abs_err=err, ms=time_ms(lambda: mel_power(x, *args)),
+        max_abs_err=err, ms=time_ms(kernel),
         plain_ms=time_ms(lambda: mel_power_plain(x, *args)),
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=time_ms(library))
     log(f"phase 2 mel_power (B={B}, N={SAMPLES - 1}) -> {tuple(got.shape)}: "
-        f"max_abs_err {err} (tol {MEL_TOL}), library (torch.stft) err "
-        f"{lib_err}, ms {row['ms']}, plain_ms {row['plain_ms']}, library_ms "
-        f"{row['library_ms']}, bound_ms {bound_ms} ({bound_by}; "
-        f"{flops / 1e9} GFLOP, {nbytes / 1e6} MB)")
+        f"max_abs_err {err} (tol {MEL_TOL}), vs its step-by-step model "
+        f"{model_err}, library (torch.stft) err {lib_err}; error against "
+        f"float64 mel_power_plain (kernel within {TRUTH_FACTOR}x of fp32 "
+        f"plain): {'; '.join(truth_log)}; host us per call: wrapper "
+        f"{host_us(kernel)}, plain "
+        f"{host_us(lambda: mel_power_plain(x, *args))}; ms {row['ms']}, "
+        f"plain_ms "
+        f"{row['plain_ms']}, library_ms {row['library_ms']}, bound_ms "
+        f"{bound_ms} ({bound_by}; {flops / 1e9} GFLOP with the basis's {nnz} "
+        f"nonzeros, {nbytes / 1e6} MB; history, not bounds: with a complex "
+        f"FFT per frame and a dense mel product {dense_flops / 1e9} GFLOP, "
+        f"{dense_ms} ms; as a DFT GEMM {gemm_flops / 1e9} GFLOP, "
+        f"{gemm_bytes / 1e6} MB, {gemm_bound_ms} ms, {gemm_bound_by})")
     return row
 
 
@@ -341,7 +417,7 @@ def serve_loop(serve, model, batches, depth: int = 2) -> dict:
     return r
 
 
-KERNEL_GROUPS = (("mel_power", ("mel_partial", "sum_chunks")),
+KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
                  ("banded_attention_bwd", ("bwd_partials_kernel",
                                            "bwd_overlap_add_kernel",
                                            "bwd_drel_sum_kernel")),
@@ -445,6 +521,12 @@ def phase_serve(rows):
     model.use_kernels(False)
     serve_loop(serve, model, batches[:2])
     run_plain = serve_loop(serve, model, batches)
+    # both routes once more, in turns: the host-bound wall time's spread
+    # within one process
+    model.use_kernels(True)
+    run2 = serve_loop(serve, model, batches)
+    model.use_kernels(False)
+    run_plain2 = serve_loop(serve, model, batches)
 
     # same batch through both routes: posteriogram and packed bits
     audio = torch.tensor(batches[0], device="cuda").float() / 32768.0
@@ -487,8 +569,9 @@ def phase_serve(rows):
         f"frames) {cpu_diff}, notes decoded {run['notes']} (first batch "
         f"{sum(len(p) for p, _ in run['first'])}; plain run "
         f"{run_plain['notes']}); kernels {per_batch(run)}; plain "
-        f"{per_batch(run_plain)}; launches {launches} over {n_batches} "
-        f"batches")
+        f"{per_batch(run_plain)}; second round: kernels {per_batch(run2)}; "
+        f"plain {per_batch(run_plain2)}; launches {launches} over "
+        f"{n_batches} batches")
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_profile(serve, model, batches[:4])

@@ -1,49 +1,64 @@
-// Fused STFT power + mel projection for Hopper (sm_90a), fp32.
+// Fused STFT power + mel projection for Hopper (sm_90a), fp32, with the
+// DFT of each frame computed as a 2048-point FFT in shared memory.
 //
 // Replaces the TPU kernel `_mel_kernel` of reconvat_tpu/ops/pallas_mel.py
 // (launched by `PallasMelSpectrogram.__call__`). It computes, for audio
 // (B, N):
 //
 //   frame t, sample n = audio[reflect(t*hop - pad + n)]      (centre pad)
-//   re[t, f] = sum_n frame[t, n] * wcos[n, f]                (windowed DFT)
-//   im[t, f] = sum_n frame[t, n] * wsin[n, f]
-//   out[b, t, m] = sum_f (re^2 + im^2)[t, f] * mel[f, m]     (mel projection)
+//   X[t, f] = sum_n frame[t, n] * window[n] * exp(-2 pi i f n / n_fft)
+//   out[b, t, m] = sum_f |X[t, f]|^2 * mel[f, m]             (mel projection)
 //
-// What bounds it on the H100: operations. At B=8 x 640 frames the DFT is
-// 2 * 640 * 2048 * 1025 * 2 flop per item plus 640 * 1025 * 229 * 2 for the
-// mel projection, about 45 GFLOP in all, against some 33 MB of traffic, so
-// the fp32 CUDA cores (not memory) set the floor.
+// What bounds it on the H100: the bytes it must move (audio in, mel out,
+// the basis once: 16 MB at B=8 x 640 frames), since the operations are few.
+// The DFT bases are constants (a window times cos/sin), so an FFT does the
+// work of the (frames x 2048) by (2048 x 2*1025) GEMM of the TPU design, 43
+// GFLOP at that size, in about 0.3 GFLOP; the mel filters are triangles, so
+// the projection needs the 2,025 nonzeros of the 1025 x 229 basis only.
+// What keeps the kernel above that bound is shared-memory traffic (every
+// FFT pass reads and writes 16 KB of complex values) and the latency of
+// what a block reads from global memory before and after its FFTs.
 //
-// What this design does about it. The DFT is a GEMM of (frames x n_fft) by
-// (n_fft x 2 * bins), far too little work per batch row to fill 132 SMs if
-// a block owned all bins of its frames, so a block owns TM frames of one
-// batch row and ONE chunk of TF frequency bins:
-//   1. a shared-memory tiled fp32 GEMM over the n_fft samples, double
-//      buffered (the next tile's global loads are in flight while the
-//      current tile is multiplied), with a 4 frames x 4 bins register tile
-//      per thread for both re and im, fed by 16-byte shared-memory loads;
-//   2. power = re^2 + im^2 into a shared-memory tile (the spectrum never
-//      leaves the SM);
-//   3. that chunk's share of the mel projection, written as a partial sum.
-// A second small kernel adds the chunks' partials in a fixed order, so the
-// result is deterministic (no atomics). Frames are read straight from the
-// unpadded audio with reflect addressing: no padded or framed copy exists.
-// Ragged edges (1025 bins, 229 mels, the last frame tile) are masked. No
-// tensor cores: fp32 parity with the reference comes first; a wgmma or
-// 3xTF32 version is later work.
+// What this design does about it. A block owns TF consecutive frames of one
+// batch row and never leaves the SM between the audio and the mel output:
+//   1. it stages the frames' audio span, (TF-1)*hop + n_fft samples (the
+//      frames overlap by 75 %), and the twiddle table with asynchronous
+//      copies that are all in flight at once, with reflect addressing at
+//      the clip's ends: no padded or framed copy exists in global memory.
+//      What only later frames need lands while the first are transformed;
+//   2. two real frames per complex FFT: frame t, windowed, is the real part
+//      and frame t+1 the imaginary part of the work buffer;
+//   3. Stockham autosort passes between two buffers (no bit reversal, one
+//      barrier per pass, reads contiguous across threads): five of radix 4,
+//      two butterflies per thread, twiddles from the table that the caller
+//      computed in float64 (no sincos in the kernel, no fast-math). The
+//      buffers are indexed through an XOR swizzle that keeps the first two
+//      passes' strided writes off each other's banks;
+//   4. the last pass (radix 2, twiddle 1) is fused with the unpacking of
+//      the two frames' spectra and with power re^2 + im^2 of bins
+//      0..n_fft/2 into a tile P[TF][n_fft/2+1]: the spectrum never leaves
+//      the SM;
+//   5. thread m owns mel column m and TF accumulators and sums, in order,
+//      over that column's nonzero rows [lo_m, hi_m) only, which the caller
+//      computed from the basis it passes (a dense basis gives (0, n_freq)
+//      and is still right, only slower).
+// One block writes each output row once, in a fixed order: deterministic,
+// no atomics, no partial sums in global memory, one kernel. A ragged last
+// tile of frames is masked. At TF = 10 a block takes 106 KB of shared
+// memory, two blocks share an SM, and B=8 x 640 frames is 512 blocks: 1.94
+// waves of the card's 264 places.
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int TM = 64;        // frames per block
-constexpr int TF = 64;        // frequency bins per block
-constexpr int TK = 16;        // DFT samples per shared-memory stage
-constexpr int NT = 256;       // threads per block
-constexpr int AS_LD = TM + 4; // padded row: 16-byte aligned, fewer conflicts
-constexpr int MEL_COLS = 8;   // mel columns per lane: 32 * 8 = 256 >= n_mels
-constexpr int MEL_ROWS = TM / (NT / 32);  // frames per warp, mel stage
-constexpr int A_PER_T = TM * TK / NT;     // frame samples loaded per thread
-constexpr int B_PER_T = TK * TF / NT;     // basis values (each) per thread
+constexpr int N_FFT = 2048;
+constexpr int HALF = N_FFT / 2;
+constexpr int QUARTER = N_FFT / 4;
+constexpr int N_FREQ = HALF + 1;
+constexpr int NT = 256;   // threads per block
+constexpr int TF = 10;    // frames per block
+static_assert(TF % 2 == 0, "frames are transformed in pairs");
+static_assert(QUARTER % NT == 0 && HALF % NT == 0, "whole passes per thread");
 
 __device__ __forceinline__ int reflect_index(int i, int n) {
   // numpy/jnp 'reflect' (edge sample not repeated); needs n > pad.
@@ -52,180 +67,202 @@ __device__ __forceinline__ int reflect_index(int i, int n) {
   return i;
 }
 
-__global__ void __launch_bounds__(NT)
-mel_partial_kernel(const float* __restrict__ audio,
-                   const float* __restrict__ wcos,   // (n_fft, n_freq)
-                   const float* __restrict__ wsin,   // (n_fft, n_freq)
-                   const float* __restrict__ melb,   // (n_freq, n_mels)
-                   float* __restrict__ partial,      // (chunks, B, T, n_mels)
-                   int batch, int n_samples, int n_frames, int n_fft,
-                   int hop, int pad, int n_freq, int n_mels) {
-  __shared__ __align__(16) float As[2][TK][AS_LD];  // frame samples, k-major
-  __shared__ __align__(16) float Bc[2][TK][TF];
-  __shared__ __align__(16) float Bs[2][TK][TF];
-  __shared__ float P[TM][TF + 1];                   // power tile
-
-  const int t0 = blockIdx.x * TM;
-  const int b = blockIdx.y;
-  const int chunk = blockIdx.z;
-  const int f0 = chunk * TF;
-  const int tid = threadIdx.x;
-  const int tx = tid % 16, ty = tid / 16;      // DFT: bins tx*4.., frames ty*4..
-  const int lane = tid % 32, warp = tid / 32;  // mel stage
-  const float* x = audio + (size_t)b * n_samples;
-
-  float ra[A_PER_T], rc[B_PER_T], rs[B_PER_T];  // next tile, in flight
-
-  auto load_tile = [&](int n0) {
-#pragma unroll
-    for (int r = 0; r < A_PER_T; ++r) {
-      const int e = tid + r * NT;
-      const int m = e / TK, k = e % TK;
-      const int t = t0 + m;
-      ra[r] = t < n_frames
-                  ? x[reflect_index(t * hop - pad + n0 + k, n_samples)]
-                  : 0.f;
-    }
-#pragma unroll
-    for (int r = 0; r < B_PER_T; ++r) {
-      const int e = tid + r * NT;
-      const int k = e / TF, f = e % TF;
-      const bool ok = f0 + f < n_freq;
-      const size_t g = (size_t)(n0 + k) * n_freq + f0 + f;
-      rc[r] = ok ? wcos[g] : 0.f;
-      rs[r] = ok ? wsin[g] : 0.f;
-    }
-  };
-  auto store_tile = [&](int buf) {
-#pragma unroll
-    for (int r = 0; r < A_PER_T; ++r) {
-      const int e = tid + r * NT;
-      As[buf][e % TK][e / TK] = ra[r];
-    }
-#pragma unroll
-    for (int r = 0; r < B_PER_T; ++r) {
-      const int e = tid + r * NT;
-      Bc[buf][e / TF][e % TF] = rc[r];
-      Bs[buf][e / TF][e % TF] = rs[r];
-    }
-  };
-
-  float re[4][4], im[4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) re[i][j] = im[i][j] = 0.f;
-
-  const int n_tiles = n_fft / TK;
-  load_tile(0);
-  store_tile(0);
-  __syncthreads();
-  for (int kt = 0; kt < n_tiles; ++kt) {
-    const int cur = kt & 1;
-    if (kt + 1 < n_tiles) load_tile((kt + 1) * TK);
-#pragma unroll
-    for (int k = 0; k < TK; ++k) {
-      const float4 a = *reinterpret_cast<const float4*>(&As[cur][k][ty * 4]);
-      const float4 c = *reinterpret_cast<const float4*>(&Bc[cur][k][tx * 4]);
-      const float4 s = *reinterpret_cast<const float4*>(&Bs[cur][k][tx * 4]);
-      const float av[4] = {a.x, a.y, a.z, a.w};
-      const float cv[4] = {c.x, c.y, c.z, c.w};
-      const float sv[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          re[i][j] = fmaf(av[i], cv[j], re[i][j]);
-          im[i][j] = fmaf(av[i], sv[j], im[i][j]);
-        }
-    }
-    // the other buffer was last read in iteration kt-1, which ended in a
-    // barrier, so it can be refilled now
-    if (kt + 1 < n_tiles) store_tile(cur ^ 1);
-    __syncthreads();
-  }
-
-  // power tile (bins past n_freq hold exactly zero: their basis was zero)
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-      P[ty * 4 + i][tx * 4 + j] = re[i][j] * re[i][j] + im[i][j] * im[i][j];
-  __syncthreads();
-
-  // this chunk's mel partial: warp w owns frames w*MEL_ROWS.., lane owns mel
-  // columns lane + 32*j
-  float acc[MEL_ROWS][MEL_COLS];
-#pragma unroll
-  for (int i = 0; i < MEL_ROWS; ++i)
-#pragma unroll
-    for (int j = 0; j < MEL_COLS; ++j) acc[i][j] = 0.f;
-  const int fn = min(TF, n_freq - f0);
-  for (int f = 0; f < fn; ++f) {
-    const float* mrow = melb + (size_t)(f0 + f) * n_mels;
-    float mv[MEL_COLS];
-#pragma unroll
-    for (int j = 0; j < MEL_COLS; ++j) {
-      const int col = lane + 32 * j;
-      mv[j] = col < n_mels ? __ldg(mrow + col) : 0.f;
-    }
-#pragma unroll
-    for (int i = 0; i < MEL_ROWS; ++i) {
-      const float p = P[warp * MEL_ROWS + i][f];
-#pragma unroll
-      for (int j = 0; j < MEL_COLS; ++j) acc[i][j] = fmaf(p, mv[j], acc[i][j]);
-    }
-  }
-#pragma unroll
-  for (int i = 0; i < MEL_ROWS; ++i) {
-    const int t = t0 + warp * MEL_ROWS + i;
-    if (t >= n_frames) continue;
-    float* orow =
-        partial + (((size_t)chunk * batch + b) * n_frames + t) * n_mels;
-#pragma unroll
-    for (int j = 0; j < MEL_COLS; ++j) {
-      const int col = lane + 32 * j;
-      if (col < n_mels) orow[col] = acc[i][j];
-    }
-  }
+__device__ __forceinline__ float2 cadd(float2 a, float2 b) {
+  return make_float2(a.x + b.x, a.y + b.y);
+}
+__device__ __forceinline__ float2 csub(float2 a, float2 b) {
+  return make_float2(a.x - b.x, a.y - b.y);
+}
+__device__ __forceinline__ float2 cmul(float2 a, float2 b) {
+  return make_float2(a.x * b.x - a.y * b.y, a.x * b.y + a.y * b.x);
 }
 
-// out[i] = sum over chunks of partial[c][i], in chunk order
-__global__ void sum_chunks_kernel(const float* __restrict__ partial,
-                                  float* __restrict__ out, size_t n,
-                                  int chunks) {
-  for (size_t i = (size_t)blockIdx.x * blockDim.x + threadIdx.x; i < n;
-       i += (size_t)gridDim.x * blockDim.x) {
-    float s = 0.f;
-    for (int c = 0; c < chunks; ++c) s += partial[(size_t)c * n + i];
-    out[i] = s;
+// asynchronous copy global -> shared (no register, no wait until asked)
+template <int BYTES>
+__device__ __forceinline__ void cp_async(void* dst, const void* src) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2;" ::"r"(
+                   (unsigned)__cvta_generic_to_shared(dst)),
+               "l"(src), "n"(BYTES));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;");
+}
+template <int PENDING>   // wait until at most PENDING groups are in flight
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" ::"n"(PENDING));
+}
+
+// Work-buffer position of complex element i: the low four bits (the 8-byte
+// bank of a half-warp's access) XORed with bits 2..5. A half-warp varies
+// bits 2..5 in the first radix-4 pass's writes, bits 0,1,4,5 in the
+// second's, and bits 0..3 in later writes and in every read; each of these
+// lands on 16 distinct banks.
+__device__ __forceinline__ int phys(int i) { return i ^ ((i >> 2) & 15); }
+
+// Shared memory, in floats: two complex work buffers, the twiddle table,
+// the power tile and the audio span.
+constexpr size_t smem_bytes(int hop) {
+  return sizeof(float) * (size_t)(2 * 2 * N_FFT + 2 * HALF + TF * N_FREQ +
+                                  (TF - 1) * hop + N_FFT);
+}
+
+__global__ void __launch_bounds__(NT)
+mel_fft_kernel(const float* __restrict__ audio,
+               const float* __restrict__ window,     // (N_FFT)
+               const float2* __restrict__ twiddle,   // (HALF) cos, -sin
+               const float* __restrict__ melb,       // (N_FREQ, n_mels)
+               const int2* __restrict__ band,        // (n_mels) lo, hi
+               float* __restrict__ out,              // (B, n_frames, n_mels)
+               int n_samples, int n_frames, int hop, int n_mels) {
+  extern __shared__ __align__(16) float smem[];
+  float2* work0 = reinterpret_cast<float2*>(smem);
+  float2* work1 = work0 + N_FFT;
+  float2* tw = work1 + N_FFT;
+  float* P = reinterpret_cast<float*>(tw + HALF);
+  float* span = P + TF * N_FREQ;
+
+  const int tid = threadIdx.x;
+  const int t0 = blockIdx.x * TF;
+  const int b = blockIdx.y;
+  const int nt = min(TF, n_frames - t0);   // frames of this tile
+  const float* x = audio + (size_t)b * n_samples;
+
+  // Stage the twiddles and the audio span (only the clip's first and last
+  // frames reach the reflection) in two groups: what the first pair of
+  // frames needs, and the rest.
+  const int s0 = t0 * hop - HALF;
+  const int n_span = (nt - 1) * hop + N_FFT;
+  const int n_first = min(n_span, hop + N_FFT);
+  for (int i = tid; i < HALF; i += NT) cp_async<8>(tw + i, twiddle + i);
+  for (int i = tid; i < n_first; i += NT)
+    cp_async<4>(span + i, x + reflect_index(s0 + i, n_samples));
+  cp_async_commit();
+  for (int i = n_first + tid; i < n_span; i += NT)
+    cp_async<4>(span + i, x + reflect_index(s0 + i, n_samples));
+  cp_async_commit();
+
+  for (int t = 0; t < nt; t += 2) {
+    if (t == 0) cp_async_wait<1>(); else cp_async_wait<0>();
+    // Every thread's copies have landed. Behind this barrier no thread
+    // still reads work1 (the previous pair's spectrum); work0 was last
+    // read before the last pass's barrier.
+    __syncthreads();
+    // frame t in the real part, frame t + 1 (zero past the last frame) in
+    // the imaginary part
+    const bool pair = t + 1 < nt;
+    const float* fa = span + t * hop;
+    const float* fb = fa + hop;
+    for (int i = tid; i < N_FFT; i += NT) {
+      const float w = __ldg(window + i);
+      work0[phys(i)] = make_float2(fa[i] * w, pair ? fb[i] * w : 0.f);
+    }
+    __syncthreads();
+
+    float2* src = work0;
+    float2* dst = work1;
+#pragma unroll
+    for (int pass = 0; pass < 5; ++pass) {
+      const int s = 1 << (2 * pass);   // stride; sub-length n = N_FFT / s
+#pragma unroll
+      for (int r = 0; r < QUARTER / NT; ++r) {
+        const int j = tid + r * NT;    // j = p * s + q
+        const int q = j & (s - 1);
+        const int ps = j - q;
+        const float2 a0 = src[phys(j)];
+        const float2 a1 = src[phys(j + QUARTER)];
+        const float2 a2 = src[phys(j + 2 * QUARTER)];
+        const float2 a3 = src[phys(j + 3 * QUARTER)];
+        const float2 u0 = cadd(a0, a2);
+        const float2 u1 = csub(a0, a2);
+        const float2 u2 = cadd(a1, a3);
+        const float2 u3 = make_float2(a1.y - a3.y, a3.x - a1.x);  // -i(a1-a3)
+        const float2 w1 = tw[ps];       // w^p, w = exp(-2 pi i / n)
+        const float2 w2 = tw[2 * ps];   // w^2p
+        // w^3p: the table holds half the circle, the other half is minus it
+        float2 w3 = tw[(3 * ps) & (HALF - 1)];
+        if (3 * ps >= HALF) w3 = make_float2(-w3.x, -w3.y);
+        const int o = 4 * j - 3 * q;    // q + s * 4 * p
+        dst[phys(o)] = cadd(u0, u2);
+        dst[phys(o + s)] = cmul(cadd(u1, u3), w1);
+        dst[phys(o + 2 * s)] = cmul(csub(u0, u2), w2);
+        dst[phys(o + 3 * s)] = cmul(csub(u1, u3), w3);
+      }
+      __syncthreads();
+      float2* tmp = src;
+      src = dst;
+      dst = tmp;
+    }
+    // The last pass (radix 2, stride N/2, twiddle 1) is Z[k] = y[k] +
+    // y[k + N/2], Z[k + N/2] = y[k] - y[k + N/2]. It is fused with the
+    // unpacking of the two frames, X_a[k] = (Z[k] + conj Z[N-k]) / 2 and
+    // X_b[k] = (Z[k] - conj Z[N-k]) / 2i, and with their power.
+    float* pa = P + t * N_FREQ;
+    float* pb = pa + N_FREQ;
+    for (int k = tid; k < HALF; k += NT) {
+      const float2 zk = cadd(src[phys(k)], src[phys(k + HALF)]);
+      float2 zn = zk;   // k = 0: Z[0] is its own partner
+      if (k > 0) zn = csub(src[phys(HALF - k)], src[phys(N_FFT - k)]);
+      const float ar = zk.x + zn.x, ai = zk.y - zn.y;
+      const float br = zk.y + zn.y, bi = zk.x - zn.x;
+      pa[k] = 0.25f * (ar * ar + ai * ai);
+      pb[k] = 0.25f * (br * br + bi * bi);
+    }
+    if (tid == 0) {     // k = N/2: Z[N/2] is its own partner
+      const float2 z = csub(src[phys(0)], src[phys(HALF)]);
+      pa[HALF] = z.x * z.x;
+      pb[HALF] = z.y * z.y;
+    }
+  }
+  __syncthreads();
+
+  for (int m = tid; m < n_mels; m += NT) {
+    const int2 lh = band[m];
+    float acc[TF];
+#pragma unroll
+    for (int t = 0; t < TF; ++t) acc[t] = 0.f;
+    for (int f = lh.x; f < lh.y; ++f) {
+      const float w = __ldg(melb + (size_t)f * n_mels + m);
+#pragma unroll
+      for (int t = 0; t < TF; ++t) acc[t] = fmaf(P[t * N_FREQ + f], w, acc[t]);
+    }
+    float* orow = out + ((size_t)b * n_frames + t0) * n_mels + m;
+#pragma unroll
+    for (int t = 0; t < TF; ++t)
+      if (t < nt) orow[(size_t)t * n_mels] = acc[t];
   }
 }
 
 }  // namespace
 
-extern "C" int mel_power_chunks(int n_freq) { return (n_freq + TF - 1) / TF; }
-
-// partial: scratch of mel_power_chunks(n_freq) * batch * n_frames * n_mels
-// floats, allocated by the caller.
-extern "C" int mel_power_launch(const float* audio, const float* wcos,
-                                const float* wsin, const float* melb,
-                                float* partial, float* out, int batch,
+// window (n_fft), twiddle (n_fft / 2, 2) = cos, -sin of 2 pi k / n_fft,
+// melb (n_fft / 2 + 1, n_mels), band (n_mels, 2) int32 = first and one past
+// last nonzero row of each mel column; centre pad n_fft / 2.
+extern "C" int mel_power_launch(const float* audio, const float* window,
+                                const float* twiddle, const float* melb,
+                                const int* band, float* out, int batch,
                                 int n_samples, int n_frames, int n_fft,
-                                int hop, int pad, int n_freq, int n_mels,
-                                void* stream) {
-  if (n_mels > 32 * MEL_COLS || n_fft % TK != 0)
+                                int hop, int n_mels, void* stream) {
+  if (n_fft != N_FFT || hop < 1 || n_samples <= HALF)
     return (int)cudaErrorInvalidValue;
-  const int chunks = mel_power_chunks(n_freq);
-  const dim3 grid((n_frames + TM - 1) / TM, batch, chunks);
-  mel_partial_kernel<<<grid, NT, 0, (cudaStream_t)stream>>>(
-      audio, wcos, wsin, melb, partial, batch, n_samples, n_frames, n_fft,
-      hop, pad, n_freq, n_mels);
-  cudaError_t err = cudaGetLastError();
+  // Above 48 KB a kernel has to opt in, once per device: the largest size
+  // asked for so far is kept, so a launch makes no call for it again. A hop
+  // too large for the card's shared memory is refused here.
+  static size_t opted_in[64] = {};
+  const size_t smem = smem_bytes(hop);
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
-  const size_t n = (size_t)batch * n_frames * n_mels;
-  const int blocks = (int)((n + 255) / 256 < 4096 ? (n + 255) / 256 : 4096);
-  sum_chunks_kernel<<<blocks, 256, 0, (cudaStream_t)stream>>>(partial, out, n,
-                                                              chunks);
+  if (device >= 64 || opted_in[device] < smem) {
+    err = cudaFuncSetAttribute(
+        mel_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) opted_in[device] = smem;
+  }
+  const dim3 grid((n_frames + TF - 1) / TF, batch);
+  mel_fft_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      audio, window, reinterpret_cast<const float2*>(twiddle), melb,
+      reinterpret_cast<const int2*>(band), out, n_samples, n_frames, hop,
+      n_mels);
   return (int)cudaGetLastError();
 }

@@ -28,8 +28,7 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 # int (a cudaError_t for the launches).
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
-    "mel": {"mel_power_launch": [_P] * 6 + [_I] * 8 + [_P],
-            "mel_power_chunks": [_I]},
+    "mel": {"mel_power_launch": [_P] * 6 + [_I] * 6 + [_P]},
     "banded_attention": {"banded_attention_fwd_launch":
                          [_P] * 6 + [_I] * 5 + [_P]},
     "banded_attention_bwd": {
@@ -116,11 +115,11 @@ def load(name: str) -> ctypes.CDLL:
         return lib
 
 
-def check_tensor(name: str, t, shape, device) -> None:
-    """Validate a kernel argument: float32, on `device`, of `shape`,
+def check_tensor(name: str, t, shape, device, dtype=torch.float32) -> None:
+    """Validate a kernel argument: of `dtype`, on `device`, of `shape`,
     contiguous."""
-    if t.dtype != torch.float32:
-        raise TypeError(f"{name}: expected float32, got {t.dtype}")
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: expected {dtype}, got {t.dtype}")
     if t.device != device:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if tuple(t.shape) != tuple(shape):

@@ -4,9 +4,13 @@
 
 The STFT is framing plus two matmuls against precomputed windowed DFT bases
 (the reference's conv1d against Fourier kernels, reference
-`model/Spectrogram.py:219-231`), and the mel projection one more matmul.
-Outputs are time-major (B, T, bins). The bases are non-persistent buffers:
-they follow the module's device but are not part of its state_dict.
+`model/Spectrogram.py:219-231`), and the mel projection one more matmul; on
+a CUDA tensor the fused `mel_power` kernel computes the same function with
+an FFT per frame from the window alone. Outputs are time-major (B, T, bins).
+The bases and what the kernel reads in their place (the window, the FFT's
+twiddle table, each mel column's band of nonzero rows) are non-persistent
+buffers: they follow the module's device but are not part of its
+state_dict.
 """
 from __future__ import annotations
 
@@ -15,7 +19,8 @@ from torch import nn
 
 from .. import constants as C
 from . import filterbanks as fb
-from .mel_kernel import frame_audio, mel_power, mel_power_plain
+from .mel_kernel import (fft_twiddles, frame_audio, mel_band, mel_power,
+                         mel_power_plain)
 
 
 class STFT(nn.Module):
@@ -33,6 +38,9 @@ class STFT(nn.Module):
         self.register_buffer("wcos", torch.from_numpy(wcos.T.copy()),
                              persistent=False)
         self.register_buffer("wsin", torch.from_numpy(wsin.T.copy()),
+                             persistent=False)
+        # the window alone: bin 0 of the cos basis (cos 0 = 1), bit for bit
+        self.register_buffer("window", torch.from_numpy(wcos[0].copy()),
                              persistent=False)
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
@@ -62,14 +70,20 @@ class MelSpectrogram(nn.Module):
         basis = fb.mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
         self.register_buffer("mel_basis", torch.from_numpy(basis.T.copy()),
                              persistent=False)      # (bins, n_mels)
+        # what the CUDA kernel reads in place of the bases, derived once
+        self.register_buffer("twiddle", fft_twiddles(n_fft), persistent=False)
+        self.register_buffer("band", mel_band(self.mel_basis),
+                             persistent=False)
         self.n_mels = n_mels
         self.use_kernel = True
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, T, n_mels)."""
-        fn = mel_power if self.use_kernel else mel_power_plain
-        return fn(x.contiguous(), self.stft.wcos, self.stft.wsin,
-                  self.mel_basis, self.stft.hop_length)
+        args = (x.contiguous(), self.stft.wcos, self.stft.wsin,
+                self.mel_basis, self.stft.hop_length)
+        if self.use_kernel:
+            return mel_power(*args, self.stft.window, self.twiddle, self.band)
+        return mel_power_plain(*args)
 
 
 def make_frontend(spec: str = "Mel", sr: int | None = None,

@@ -10,6 +10,9 @@ the wrapper-argument checks run anywhere.
 
 Tolerances: mel power rtol 1e-4 (atol 1e-6), attention out and probs
 atol 1e-5 (rtol 1e-4): fp32 on both sides, different summation orders.
+The mel kernel is also held to float64: its largest error against
+`mel_power_plain` in float64 may be at most 1.5x that of `mel_power_plain`
+in fp32 (on a clip with near-empty mel bins no relative bound applies).
 Attention gradients: each divided by its largest magnitude, then atol 1e-5
 (rtol 1e-4): fp32 on both sides; dk and dv add up to 31 terms per row in
 another order, drel sums over every (batch, row) of a head.
@@ -74,11 +77,75 @@ def test_mel_kernel_matches_plain(cuda_device, n):
                           * 0.1).astype(np.float32)).to(cuda_device)
     args = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis, 512)
     before = mel_kernel.mel_power.launches
-    got = mel_kernel.mel_power(x, *args)
+    got = mel_kernel.mel_power(x, *args, fe.stft.window, fe.twiddle, fe.band)
     torch.cuda.synchronize()
     assert mel_kernel.mel_power.launches == before + 1
     ref = mel_kernel.mel_power_plain(x, *args)
     torch.testing.assert_close(got, ref, **MEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n", [64 * 512 - 1, 10000])
+def test_mel_kernel_matches_fft_model(cuda_device, n):
+    """The kernel against the step-by-step PyTorch model of its arithmetic
+    (same passes, same twiddle table, same banded mel sum)."""
+    fe, _ = make_frontend("Mel")
+    fe = fe.to(cuda_device)
+    x = torch.from_numpy((np.random.RandomState(7).randn(3, n)
+                          * 0.1).astype(np.float32)).to(cuda_device)
+    got = fe(x)
+    torch.cuda.synchronize()
+    ref = mel_kernel.mel_power_fft_plain(x, fe.stft.window, fe.mel_basis, 512)
+    torch.testing.assert_close(got, ref, **MEL_TOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("clip", ["noise", "tonal"])
+def test_mel_kernel_against_float64(cuda_device, clip):
+    """float64 `mel_power_plain` is the truth; the kernel may be no further
+    from it than fp32 `mel_power_plain` is (x1.5). The tonal clip is a
+    440 Hz sine at 0.1 whose second half is silent."""
+    fe, _ = make_frontend("Mel")
+    fe = fe.to(cuda_device)
+    n = 64 * 512 - 1
+    if clip == "noise":
+        x = np.random.RandomState(8).randn(2, n) * 0.1
+    else:
+        x = np.tile(0.1 * np.sin(2 * np.pi * 440 * np.arange(n) / 16000),
+                    (2, 1))
+        x[:, n // 2:] = 0
+    x = torch.from_numpy(x.astype(np.float32)).to(cuda_device)
+    bases = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis)
+    truth = mel_kernel.mel_power_plain(x.double(),
+                                       *(b.double() for b in bases), 512)
+    plain = mel_kernel.mel_power_plain(x, *bases, 512)
+    got = mel_kernel.mel_power(x, *bases, 512, fe.stft.window, fe.twiddle,
+                               fe.band)
+    torch.cuda.synchronize()
+    err = (got.double() - truth).abs().max().item()
+    plain_err = (plain.double() - truth).abs().max().item()
+    assert err <= 1.5 * plain_err, (err, plain_err)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_mels", [40, 300])
+def test_mel_kernel_takes_any_basis(cuda_device, n_mels):
+    """A dense basis (every column's band is all rows) and more columns
+    than the block has threads."""
+    fe, _ = make_frontend("Mel")
+    fe = fe.to(cuda_device)
+    basis = torch.from_numpy(np.random.RandomState(9).rand(
+        1025, n_mels).astype(np.float32)).to(cuda_device)
+    basis[:, 1] = 0
+    x = torch.from_numpy((np.random.RandomState(10).randn(2, 5000)
+                          * 0.1).astype(np.float32)).to(cuda_device)
+    args = (fe.stft.wcos, fe.stft.wsin, basis, 512)
+    got = mel_kernel.mel_power(x, *args, fe.stft.window, fe.twiddle,
+                               mel_kernel.mel_band(basis))
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, mel_kernel.mel_power_plain(x, *args),
+                               **MEL_TOL)
+    assert got[..., 1].abs().max().item() == 0
 
 
 @pytest.mark.cuda
