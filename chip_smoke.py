@@ -9,7 +9,9 @@ shapes of the serving and training paths and times it, then drives the
 serving path (`serve.transcribe_batch` over `ReconVAT`, random weights from
 a fixed seed) on 8 clips of 20.48 s, once through the kernels and once
 through the plain versions, and checks that both agree and that the
-kernels ran. Then it drives the training path (`train.state.
+kernels ran; then the same in bf16 mixed precision
+(`ReconVAT(compute_dtype='bfloat16')`, the same weights), timed in turns
+with fp32. Then it drives the training path (`train.state.
 make_train_step`: semi-supervised VAT with reconstruction, B = 8 labeled +
 8 unlabeled clips of 20.48 s, fp32), times it, counts each kernel's
 launches per step, profiles it, and holds one step through the kernels
@@ -36,6 +38,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 
 # NVIDIA H100 SXM data-sheet peaks (dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_BF16_FLOPS = 989e12          # tensor cores
 PEAK_BYTES = 3.35e12
 
 B, SAMPLES = 8, 327680            # 8 clips of 20.48 s -> 640 frames
@@ -43,10 +46,30 @@ H, W = 4, 31                      # attention heads, window
 MEL_TOL = dict(rtol=1e-4, atol=1e-6)
 TRUTH_FACTOR = 1.5                # kernel vs fp32 plain, error against float64
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
+# bf16 attention kernel vs its bf16 plain version: probs are fp32 in both
+# (atol 1e-5, rtol 0); out is rounded to bf16 once in both, from fp32 sums
+# taken in another order, and a p on a rounding boundary may round the
+# other way: one bf16 ulp of |out| (2**-7 relative) plus 1e-3 of max |out|;
+# and at most 1 % of the out elements may differ at all: fp32 sums in
+# another order round the other way for ~1e-4 of them, while a kernel that
+# skips the rounding of p moves ~40 % (tests/test_torch_kernels.py,
+# test_bf16_out_share_sees_unrounded_p)
+ATTN_BF16_PROBS_ATOL = 1e-5
+ATTN_BF16_OUT_RTOL, ATTN_BF16_OUT_FLOOR = 2.0 ** -7, 1e-3
+ATTN_BF16_OUT_MOVED = 1e-2
 # attention gradients over their max |.|: fp32 both sides, dk/dv add up to
 # 31 terms per row and drel 5120 rows per head in another order
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
 POST_ATOL = 1e-4                  # posteriogram, plain vs kernel path
+# bf16 serving, on the posteriogram and on the transcriber's attention
+# output h of one batch: the bf16 route under test (the kernels, or the
+# card) against the bf16 reference route (the plain versions, or the CPU)
+# may differ by BF16_FACTOR x the reference's own bf16-vs-fp32 gap plus
+# the two routes' fp32 gap, all measured in the run on the same input and
+# none of them on the route under test. bf16 rounding moves each route
+# from its fp32 result by about that gap, in other places, so twice it
+# covers two roundings that fall apart.
+BF16_FACTOR = 2.0
 # train step, kernels vs plain versions (fp32): losses rtol 1e-3, since
 # the LDS terms go through the VAT direction, a finite difference of size
 # ~xi that turns fp32 rounding into ~1e-4 relative loss differences
@@ -79,9 +102,9 @@ def nvidia_smi() -> str:
     return out.stdout.strip().splitlines()[0]
 
 
-def bound(flops: float, nbytes: float):
+def bound(flops: float, nbytes: float, peak_flops: float = PEAK_FP32_FLOPS):
     """Least time on the card (ms) and what sets it."""
-    t_ops, t_bytes = flops / PEAK_FP32_FLOPS, nbytes / PEAK_BYTES
+    t_ops, t_bytes = flops / peak_flops, nbytes / PEAK_BYTES
     return (max(t_ops, t_bytes) * 1e3,
             "operations" if t_ops >= t_bytes else "bytes")
 
@@ -306,6 +329,74 @@ def phase_attention(q, kpad, vpad, rel):
     return row
 
 
+def phase_attention_bf16(q, kpad, vpad, rel):
+    """Kernel 2's bf16-operand variant (q, kpad, vpad, out bf16; rel, probs
+    fp32) against its bf16 plain version, on phase 3's inputs rounded to
+    bf16."""
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention, banded_attention_fwd)
+
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    L, D = q.shape[1], q.shape[3]
+    out, probs = banded_attention_fwd(q, kpad, vpad, rel, W)
+    torch.cuda.synchronize()
+    if out.dtype != torch.bfloat16 or probs.dtype != torch.float32:
+        fail(f"bf16 attention returned {out.dtype} out, {probs.dtype} probs")
+    ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
+    err_p = check_close("bf16 attention probs", probs, ref_probs,
+                        dict(rtol=0.0, atol=ATTN_BF16_PROBS_ATOL))
+    got, ref = out.float(), ref_out.float()
+    gap = (got - ref).abs()
+    err_out = gap.max().item()
+    allowed = (ATTN_BF16_OUT_RTOL * ref.abs()
+               + ATTN_BF16_OUT_FLOOR * ref.abs().max())
+    if not torch.isfinite(got).all() or bool((gap > allowed).any()):
+        fail(f"bf16 attention out: max abs err {err_out} outside "
+             f"{ATTN_BF16_OUT_RTOL} |ref| + {ATTN_BF16_OUT_FLOOR} max|ref|")
+    ulp_moves = (gap > 0).float().mean().item()
+    if ulp_moves > ATTN_BF16_OUT_MOVED:
+        fail(f"bf16 attention out: {ulp_moves} of the elements differ from "
+             f"the plain version (at most {ATTN_BF16_OUT_MOVED})")
+
+    # library yardstick: SDPA on the bf16 operands, the dense band mask
+    # (band and q.rel bias) made in fp32 and cast to bf16
+    qh, kh, vh, mask = (t.to(torch.bfloat16) for t in sdpa_inputs(
+        q.float(), kpad.float(), vpad.float(), rel))
+
+    def library():
+        return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                              scale=1.0)
+
+    lib_err = (library().transpose(1, 2).float() - ref).abs().max().item()
+    flops = B * L * H * W * (3 * 2 * D + 5)
+    nbytes = (2 * (q.numel() + kpad.numel() + vpad.numel() + out.numel())
+              + 4 * (rel.numel() + probs.numel()))
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    row = dict(
+        name="banded_attention_fwd_bf16", route="cuda",
+        source="reconvat_tpu_torch/csrc/banded_attention.cu",
+        replaces="reconvat_tpu/ops/pallas_attention.py:56",
+        max_abs_err=max(err_out, err_p),
+        ms=time_ms(lambda: banded_attention_fwd(q, kpad, vpad, rel, W)),
+        plain_ms=time_ms(lambda: banded_attention(q, kpad, vpad, rel, W)),
+        bound_ms=bound_ms, bound_by=bound_by,
+        library_ms=time_ms(library))
+    log(f"phase 3d banded_attention_fwd in bf16 (B={B}, L={L}, H={H}, "
+        f"Dh={D}, W={W}; q, kpad, vpad, out bf16, rel and probs fp32): "
+        f"max_abs_err out {err_out} (within {ATTN_BF16_OUT_RTOL} |ref| + "
+        f"{ATTN_BF16_OUT_FLOOR} max|ref|, max|ref| "
+        f"{ref.abs().max().item()}; share of out elements not equal "
+        f"{ulp_moves}, at most {ATTN_BF16_OUT_MOVED}) probs {err_p} (atol "
+        f"{ATTN_BF16_PROBS_ATOL}), library (SDPA in bf16, dense bf16 mask) "
+        f"err {lib_err}, ms {row['ms']}, "
+        f"plain_ms {row['plain_ms']}, library_ms {row['library_ms']}, "
+        f"bound_ms {bound_ms} ({bound_by}; {flops / 1e9} GFLOP at the bf16 "
+        f"peak, {nbytes / 1e6} MB)")
+    return row
+
+
 def check_grads(name, got, ref, labels) -> float:
     """Each gradient against its plain version over its max |.|, at
     GRAD_TOL; returns the largest absolute error."""
@@ -391,7 +482,7 @@ def serve_loop(serve, model, batches, depth: int = 2) -> dict:
     copy_stream = torch.cuda.Stream()
     torch.cuda.synchronize()
     r = dict(first=None, notes=0, seconds=0.0, submit=0.0, wait=0.0,
-             decode=0.0)
+             decode=0.0, batches=len(batches))
 
     def finish(p):
         t = time.perf_counter()
@@ -417,6 +508,16 @@ def serve_loop(serve, model, batches, depth: int = 2) -> dict:
     return r
 
 
+def per_batch(r) -> str:
+    """A `serve_loop` result per batch: wall ms, audio-s/s, host ms."""
+    n = r["batches"]
+    ms = r["seconds"] / n * 1e3
+    host = ", ".join(f"{k} {r[k] / n * 1e3}"
+                     for k in ("submit", "wait", "decode"))
+    return (f"{ms} ms/batch {B * SAMPLES / 16000 / (ms / 1e3)} audio-s/s "
+            f"(host ms/batch: {host})")
+
+
 KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
                  ("banded_attention_bwd", ("bwd_partials_kernel",
                                            "bwd_overlap_add_kernel",
@@ -426,13 +527,15 @@ KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
                                       "wgrad", "fprop", "fft", "gemm_cf32",
                                       "bn_fw", "bn_bw", "batch_norm")),
                  ("matmuls", ("gemm", "gemv")),
+                 ("copy_kernels", ("copy_kernel",)),   # dtype casts among them
                  ("copies", ("memcpy", "memset")))
 
 
 def profile_groups(fn):
     """Run fn() under torch.profiler. Returns (wall s, device busy ms,
-    device ms by kernel group, top kernels), or None when the profiler
-    recorded no device kernels."""
+    device ms by kernel group, top kernels, device operations run: kernels,
+    copies and sets), or None when the profiler recorded no device
+    kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -441,7 +544,7 @@ def profile_groups(fn):
         fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-    kernels = {}
+    kernels, n_ops = {}, 0
     for e in prof.key_averages():
         if not str(e.device_type).endswith("CUDA"):
             continue
@@ -449,6 +552,7 @@ def profile_groups(fn):
         if us is None:
             us = e.self_cuda_time_total
         kernels[e.key] = kernels.get(e.key, 0.0) + us
+        n_ops += e.count
     busy_ms = sum(kernels.values()) / 1e3
     if busy_ms == 0:
         return None
@@ -459,7 +563,7 @@ def profile_groups(fn):
                       if any(k in low for k in keys)), "other")
         groups[group] += us / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return sec, busy_ms, groups, top
+    return sec, busy_ms, groups, top, n_ops
 
 
 def log_profile(label: str, unit: str, n: int, prof) -> None:
@@ -467,9 +571,10 @@ def log_profile(label: str, unit: str, n: int, prof) -> None:
         log(f"{label}: the profiler recorded no device kernels; device "
             f"time not measured")
         return
-    sec, busy_ms, groups, top = prof
+    sec, busy_ms, groups, top, n_ops = prof
     log(f"{label}: wall {sec * 1e3 / n} ms/{unit}, device busy "
-        f"{busy_ms / n} ms/{unit}, busy share {busy_ms / (sec * 1e3)}; "
+        f"{busy_ms / n} ms/{unit}, busy share {busy_ms / (sec * 1e3)}, "
+        f"device operations {n_ops / n} /{unit}; "
         f"device ms/{unit} by group "
         f"{ {g: v / n for g, v in groups.items()} }; top kernels "
         f"(ms/{unit}) {[(k[:60], v / 1e3 / n) for k, v in top]}")
@@ -507,7 +612,6 @@ def phase_serve(rows):
     n_batches = 10
     batches = [(rng.randn(B, SAMPLES) * 3276.8).astype(np.int16)
                for _ in range(n_batches)]
-    audio_s = B * SAMPLES / 16000
 
     # the main path: counts reset just before, read just after
     serve_loop(serve, model, batches[:2])          # warm-up
@@ -556,13 +660,6 @@ def phase_serve(rows):
     if cpu_diff > POST_ATOL:
         fail(f"CUDA and CPU posteriograms differ by {cpu_diff}")
 
-    def per_batch(r):
-        ms = r["seconds"] / n_batches * 1e3
-        host = ", ".join(f"{k} {r[k] / n_batches * 1e3}"
-                         for k in ("submit", "wait", "decode"))
-        return (f"{ms} ms/batch {audio_s / (ms / 1e3)} audio-s/s "
-                f"(host ms/batch: {host})")
-
     log(f"phase 4 serving (B={B} x {SAMPLES} int16, {n_batches} batches, "
         f"depth 2): posteriogram max abs diff kernel vs plain {diff}, packed "
         f"bits agreeing {agree}, roll density {density}, CUDA vs CPU (1 x 64 "
@@ -575,6 +672,138 @@ def phase_serve(rows):
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_profile(serve, model, batches[:4])
+    return serve, model, batches
+
+
+def bf16_held(what, test16, ref16, test32, ref32):
+    """The bf16 route under test against the bf16 reference route, within
+    the limit BF16_FACTOR describes; returns (max abs diff, limit)."""
+    def gap(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    diff = gap(test16, ref16)
+    tol = BF16_FACTOR * gap(ref16, ref32) + gap(test32, ref32)
+    if not diff <= tol:
+        fail(f"bf16 {what} differ by {diff} (tol {tol}: {BF16_FACTOR} x the "
+             f"reference's bf16-vs-fp32 gap + the fp32 routes' gap)")
+    return diff, tol
+
+
+def phase_serve_bf16(row, serve, model, batches) -> None:
+    """Phase 4b: the serving path in bf16 mixed precision with phase 4's
+    weights (the shifted output bias included), on the same batches: the
+    main path's launches, kernels against plain versions, bf16 against
+    fp32, the card against the CPU, wall time in turns with fp32, and a
+    profile."""
+    from reconvat_tpu_torch.models.common import pack_roll_device
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention_fwd)
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+
+    model16 = ReconVAT(seed=0, compute_dtype="bfloat16")
+    model16.load_state_dict(model.state_dict(), strict=True)
+    model.use_kernels(True)
+    n_batches = len(batches)
+
+    # the main path: counts reset just before, read just after
+    serve_loop(serve, model16, batches[:2])          # warm-up
+    mel_power.launches = banded_attention_fwd.launches = 0
+    banded_attention_fwd.launches_bf16 = 0
+    run16 = serve_loop(serve, model16, batches)
+    launches = {"mel_power": mel_power.launches,
+                "banded_attention_fwd_bf16":
+                    banded_attention_fwd.launches_bf16,
+                "banded_attention_fwd": banded_attention_fwd.launches}
+    if 0 in (launches["mel_power"], launches["banded_attention_fwd_bf16"]):
+        fail(f"bf16 serving path missed a kernel: launches {launches}")
+    if launches["banded_attention_fwd"] != 0:
+        fail(f"bf16 serving path launched the fp32 attention kernel: "
+             f"{launches}")
+    row["launches"] = launches["banded_attention_fwd_bf16"]
+    # fp32 and bf16 in turns: bf16 above, then fp32, fp32, bf16
+    run32 = serve_loop(serve, model, batches)
+    run32b = serve_loop(serve, model, batches)
+    run16b = serve_loop(serve, model16, batches)
+
+    # one batch through four routes: bf16 and fp32, kernels and plain; the
+    # posteriogram and the transcriber's attention output h of each
+    audio = torch.tensor(batches[0], device="cuda").float() / 32768.0
+    rolls, hs = {}, {}
+    for kernels in (True, False):
+        for m, dt in ((model16, "bf16"), (model, "fp32")):
+            m.use_kernels(kernels)
+            hook = m.transcriber.lstm1.register_forward_hook(
+                lambda mod, args, out, key=(dt, kernels):
+                hs.__setitem__(key, out[0]))
+            rolls[dt, kernels] = m.transcribe(audio)["frame"]
+            hook.remove()
+    model.use_kernels(True)
+    model16.use_kernels(True)
+    roll = rolls["bf16", True]
+    if (roll.dtype != torch.float32 or tuple(roll.shape) != (B, 640, 88)
+            or not torch.isfinite(roll).all()):
+        fail(f"bf16 posteriogram {roll.dtype} {tuple(roll.shape)} is not "
+             f"finite fp32 of (8, 640, 88)")
+    if hs["bf16", True].dtype != torch.bfloat16:
+        fail(f"bf16 attention output is {hs['bf16', True].dtype}")
+    gap = (roll - rolls["fp32", True]).abs().max().item()
+    gap_plain = (rolls["bf16", False]
+                 - rolls["fp32", False]).abs().max().item()
+    if gap <= 1e-7:
+        fail(f"bf16 and fp32 posteriograms are equal ({gap}): bf16 did not "
+             f"run")
+    diff, tol = bf16_held("kernels vs plain posteriograms", roll,
+                          rolls["bf16", False], rolls["fp32", True],
+                          rolls["fp32", False])
+    h_diff, h_tol = bf16_held("kernels vs plain attention outputs h",
+                              hs["bf16", True], hs["bf16", False],
+                              hs["fp32", True], hs["fp32", False])
+    h_gap = (hs["bf16", False].float() - hs["fp32", False]).abs().max().item()
+    on, on_plain = roll > 0.5, rolls["bf16", False] > 0.5
+    sure = (rolls["bf16", False] - 0.5).abs() >= tol
+    if bool((on != on_plain)[sure].any()):
+        fail(f"bf16 kernel and plain serving disagree on a packed bit "
+             f"outside |p - 0.5| < {tol}")
+    agree = (pack_roll_device(roll)
+             == pack_roll_device(rolls["bf16", False])).float().mean().item()
+    flips32 = (on != (rolls["fp32", True] > 0.5)).float().mean().item()
+    density = on.float().mean().item()
+    if not 0.001 < density < 0.2:
+        fail(f"bf16 roll density {density} is not a sparse transcription")
+
+    # the card against the CPU in bf16 on phase 4's short clip
+    cpu16 = ReconVAT(seed=0, device="cpu", compute_dtype="bfloat16")
+    cpu16.load_state_dict(model.state_dict(), strict=True)
+    cpu32 = ReconVAT(seed=0, device="cpu")
+    cpu32.load_state_dict(model.state_dict(), strict=True)
+    short = audio[:1, :64 * 512]
+    card16 = model16.transcribe(short)["frame"].cpu()
+    card32 = model.transcribe(short)["frame"].cpu()
+    c16 = cpu16.transcribe(short.cpu())["frame"]
+    c32 = cpu32.transcribe(short.cpu())["frame"]
+    cpu_diff, cpu_tol = bf16_held("card vs CPU posteriograms", card16, c16,
+                                  card32, c32)
+
+    log(f"phase 4b serving in bf16 (B={B} x {SAMPLES} int16, {n_batches} "
+        f"batches, depth 2, phase 4's weights): posteriogram max abs diff "
+        f"kernels vs plain {diff} (tol {tol}: {BF16_FACTOR} x the plain "
+        f"route's bf16-vs-fp32 gap + the fp32 routes' gap), attention output "
+        f"h kernels vs plain {h_diff} (tol {h_tol}; plain route's "
+        f"bf16-vs-fp32 gap {h_gap}, max|h| "
+        f"{hs['bf16', False].abs().max().item()}), packed bits agreeing "
+        f"{agree}; bf16 vs fp32 max abs gap {gap} (plain routes "
+        f"{gap_plain}), share of bins "
+        f"on the other side of 0.5 {flips32}; roll density {density}; CUDA "
+        f"vs CPU in bf16 (1 x 64 frames) {cpu_diff} (tol {cpu_tol}); notes "
+        f"decoded {run16['notes']} (fp32 {run32['notes']}); launches "
+        f"{launches} over {n_batches} batches; in turns: bf16 "
+        f"{per_batch(run16)}; fp32 {per_batch(run32)}; fp32 "
+        f"{per_batch(run32b)}; bf16 {per_batch(run16b)}")
+    log_profile(f"phase 5b bf16 serving profile ({len(batches[:4])} batches, "
+                f"depth 2)", "batch", 4,
+                profile_groups(lambda: serve_loop(serve, model16,
+                                                  batches[:4])))
 
 
 def train_batches(seed: int):
@@ -677,11 +906,17 @@ def phase_train(rows) -> None:
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
 
-    counters = {"mel_power": mel_power,
-                "banded_attention_fwd": bak.banded_attention_fwd,
-                "banded_attention_bwd": bak.banded_attention_bwd,
+    # (wrapper, counter) per row; the fp32 step must launch every kernel
+    # but the bf16 forward, whose count is read as well
+    counters = {"mel_power": (mel_power, "launches"),
+                "banded_attention_fwd": (bak.banded_attention_fwd,
+                                         "launches"),
+                "banded_attention_fwd_bf16": (bak.banded_attention_fwd,
+                                              "launches_bf16"),
+                "banded_attention_bwd": (bak.banded_attention_bwd,
+                                         "launches"),
                 "banded_attention_bwd_partials":
-                    bak.banded_attention_bwd_partials}
+                    (bak.banded_attention_bwd_partials, "launches")}
     model = ReconVAT(seed=0)
     state = create_train_state(model)
     step = make_train_step(model, alpha=1.0, vat=True, use_unlabeled=True)
@@ -694,17 +929,17 @@ def phase_train(rows) -> None:
 
     # the main path: counts reset just before, read just after
     n_steps = 6
-    for f in counters.values():
-        f.launches = 0
+    for f, counter in counters.values():
+        setattr(f, counter, 0)
     t0 = time.perf_counter()
     losses = [step(state, *batches[i % 2], gen) for i in range(n_steps)]
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) / n_steps * 1e3
-    launches = {k: f.launches for k, f in counters.items()}
+    launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, n in launches.items():
-        if n == 0:
-            fail(f"training path never launched {name}")
+        if (n == 0) != (name == "banded_attention_fwd_bf16"):
+            fail(f"fp32 training path launched {name} {n} times")
     last = {k: v.item() for k, v in losses[-1].items()}
     if not all(np.isfinite(v.item()) for ls in losses for v in ls.values()):
         fail(f"non-finite training loss: {last}")
@@ -768,9 +1003,9 @@ def main() -> int:
     fe = make_frontend("Mel")[0].cuda()
     attn = attention_inputs()
     rows = [phase_mel(fe), phase_attention(*attn[:4]),
-            *phase_attention_bwd(*attn)]
+            *phase_attention_bwd(*attn), phase_attention_bf16(*attn[:4])]
     del attn
-    phase_serve(rows[:2])
+    phase_serve_bf16(rows[4], *phase_serve(rows[:2]))
     phase_train(rows)
     for row in rows:
         row["max_err"] = row["max_abs_err"]

@@ -29,8 +29,9 @@ BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 _P, _I = ctypes.c_void_p, ctypes.c_int
 ENTRY_POINTS = {
     "mel": {"mel_power_launch": [_P] * 6 + [_I] * 6 + [_P]},
-    "banded_attention": {"banded_attention_fwd_launch":
-                         [_P] * 6 + [_I] * 5 + [_P]},
+    "banded_attention": {
+        "banded_attention_fwd_launch": [_P] * 6 + [_I] * 5 + [_P],
+        "banded_attention_fwd_bf16_launch": [_P] * 6 + [_I] * 5 + [_P]},
     "banded_attention_bwd": {
         "banded_attention_bwd_partials_launch": [_P] * 9 + [_I] * 6 + [_P],
         "banded_attention_bwd_reduce_launch": [_P] * 6 + [_I] * 6 + [_P]},

@@ -8,10 +8,14 @@
                   Spec2Roll(reconstruction) -> pianoroll2
 
 Submodule names match the reference state_dict, so the keys map one to one
-onto the JAX variable tree (`weights.flax_to_torch`). Parameters and compute
-are fp32; TF32 is switched off around the serving call and the train step.
-`run_on_batch` is the training batch contract (supervised losses,
-reconstruction and VAT); `transcribe` the serving path.
+onto the JAX variable tree (`weights.flax_to_torch`). Parameters are fp32.
+Compute is fp32 by default, with TF32 switched off around the serving call
+and the train step; `compute_dtype='bfloat16'` is the JAX package's mixed
+precision: U-Net convolutions and attention projections in bf16, the
+attention core on bf16 operands, and the mel frontend, BatchNorm, heads,
+posteriogram and packing in fp32. `run_on_batch` is the training batch
+contract (supervised losses, reconstruction and VAT; fp32 only so far);
+`transcribe` the serving path.
 """
 from __future__ import annotations
 
@@ -23,6 +27,7 @@ from torch import nn
 
 from .. import constants as C
 from ..nn.attention import MultiHeadAttention1D
+from ..nn.precision import promote_fp32, resolve_compute_dtype
 from ..nn.unet import Decoder, Encoder, frozen_batch_stats
 from ..ops.normalize import Normalization
 from ..ops.spectrogram import make_frontend
@@ -57,12 +62,15 @@ def fp32_math():
 class Spec2Roll(nn.Module):
     """Reference `Spec2Roll` (`model/self_attention_VAT.py:929-945`)."""
 
-    def __init__(self, n_bins: int = C.N_BINS, complexity: int = 4):
+    def __init__(self, n_bins: int = C.N_BINS, complexity: int = 4,
+                 compute_dtype=None):
         super().__init__()
-        self.Unet1_encoder = Encoder()
-        self.Unet1_decoder = Decoder(num_instruments=1)
+        cd = dict(compute_dtype=compute_dtype)
+        self.Unet1_encoder = Encoder(**cd)
+        self.Unet1_decoder = Decoder(num_instruments=1, **cd)
         self.lstm1 = MultiHeadAttention1D(n_bins, n_bins * complexity,
-                                          kernel_size=31, groups=complexity)
+                                          kernel_size=31, groups=complexity,
+                                          **cd)
         self.linear1 = nn.Linear(n_bins * complexity, C.N_KEYS)
 
     def forward(self, x):
@@ -70,37 +78,47 @@ class Spec2Roll(nn.Module):
         z, s, c = self.Unet1_encoder(x.permute(0, 3, 1, 2))
         y = self.Unet1_decoder(z, s, c)[:, 0]            # (B, T, F)
         h, a = self.lstm1(y)
-        return torch.sigmoid(self.linear1(h)), a
+        # the head is fp32 on the attention output in either compute dtype
+        return torch.sigmoid(self.linear1(promote_fp32(h))), a
 
 
 class Roll2Spec(nn.Module):
     """Reference `Roll2Spec` (`model/self_attention_VAT.py:947-969`)."""
 
-    def __init__(self, n_bins: int = C.N_BINS, complexity: int = 4):
+    def __init__(self, n_bins: int = C.N_BINS, complexity: int = 4,
+                 compute_dtype=None):
         super().__init__()
-        self.Unet2_encoder = Encoder()
-        self.Unet2_decoder = Decoder(num_instruments=1)
+        cd = dict(compute_dtype=compute_dtype)
+        self.Unet2_encoder = Encoder(**cd)
+        self.Unet2_decoder = Decoder(num_instruments=1, **cd)
         self.lstm2 = MultiHeadAttention1D(C.N_KEYS, n_bins * complexity,
-                                          kernel_size=31, groups=4)
+                                          kernel_size=31, groups=4, **cd)
         self.linear2 = nn.Linear(n_bins * complexity, n_bins)
 
     def forward(self, x):
-        """x (B, T, 88) -> (reconstruction (B, T, F, 1), attention)."""
+        """x (B, T, 88) -> (reconstruction (B, T, F, 1), attention); the
+        reconstruction is in the compute dtype."""
         h, a = self.lstm2(x)
-        spec = torch.sigmoid(self.linear2(h))            # (B, T, F)
+        spec = torch.sigmoid(self.linear2(promote_fp32(h)))     # (B, T, F)
         z, s, c = self.Unet2_encoder(spec[:, None])
         return self.Unet2_decoder(z, s, c).permute(0, 2, 3, 1), a
 
 
 class UNet(nn.Module):
-    """Reference `UNet` forward (`model/self_attention_VAT.py:1061-1086`)."""
+    """Reference `UNet` forward (`model/self_attention_VAT.py:1061-1086`).
+    compute_dtype is None or 'bfloat16', resolved here once; the modules
+    under it take the torch dtype."""
 
-    def __init__(self, n_bins: int = C.N_BINS, reconstruction: bool = True):
+    def __init__(self, n_bins: int = C.N_BINS, reconstruction: bool = True,
+                 compute_dtype=None):
         super().__init__()
         self.reconstruction = reconstruction
-        self.transcriber = Spec2Roll(n_bins)
+        self.compute_dtype = resolve_compute_dtype(compute_dtype)
+        self.transcriber = Spec2Roll(n_bins,
+                                     compute_dtype=self.compute_dtype)
         if reconstruction:
-            self.reconstructor = Roll2Spec(n_bins)
+            self.reconstructor = Roll2Spec(n_bins,
+                                           compute_dtype=self.compute_dtype)
 
     def forward(self, x):
         pianoroll, a = self.transcriber(x)
@@ -149,15 +167,18 @@ class ReconVAT(UNet):
     otherwise; parameters from `seed` through a `torch.Generator`. It
     starts in eval mode (BatchNorm on running statistics); `run_on_batch`
     sets the mode its `train` argument asks for and `transcribe` sets eval
-    mode. xi, eps and kl_div configure VAT as in the JAX package."""
+    mode. xi, eps and kl_div configure VAT as in the JAX package.
+    compute_dtype None is fp32, 'bfloat16' the JAX package's mixed
+    precision (serving and the eval-mode forward; `run_on_batch` raises
+    for it until the bf16 attention backward is ported)."""
 
     def __init__(self, log: bool = True, reconstruction: bool = True,
                  mode: str = "imagewise", xi: float = 1e-6,
                  eps: float = 2.0, kl_div: bool = False, seed: int = 0,
-                 device=None):
+                 device=None, compute_dtype=None):
         device = resolve_device(device)
         frontend, n_bins = make_frontend("Mel")
-        super().__init__(n_bins, reconstruction)
+        super().__init__(n_bins, reconstruction, compute_dtype)
         self.frontend = frontend
         self.n_bins = n_bins
         self.log = log
@@ -200,7 +221,11 @@ class ReconVAT(UNet):
         then the labeled chain's. t_true masks the spec normalization and
         the losses to the true frames of a padded clip. Grad mode must be
         on when `vat` or `batch_ul` is given (the power iteration
-        differentiates)."""
+        differentiates). fp32 only: a bf16 model raises."""
+        if self.compute_dtype is not None:
+            raise NotImplementedError(
+                "run_on_batch runs in fp32 only: the bf16 train step (and "
+                "the bf16 attention backward) is the next slice")
         self.train(train)
         prefix = "train" if train else "test"
         frame_label = batch_l["frame"]

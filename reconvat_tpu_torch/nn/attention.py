@@ -6,6 +6,10 @@ Window-W attention where K/V are projected from the zero-padded input, a
 learned relative-position embedding `rel` enters as q.rel, and energies are
 plain dot products (no 1/sqrt(d) scaling). The attention probabilities are
 returned beside the output.
+
+With `compute_dtype=torch.bfloat16` the projections run in bf16 (the JAX
+package's `Dense(dtype=bfloat16)`), so q, k, v and the output are bf16;
+`rel`, the softmax and the probabilities stay fp32.
 """
 from __future__ import annotations
 
@@ -14,6 +18,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.banded_attention_kernel import BandedAttention, banded_attention
+from .precision import cast
 
 __all__ = ["banded_attention", "BandedAttention", "MultiHeadAttention1D"]
 
@@ -28,7 +33,8 @@ class MultiHeadAttention1D(nn.Module):
     the plain forward, differentiated by autograd, on any device."""
 
     def __init__(self, in_features: int, out_features: int,
-                 kernel_size: int = 31, groups: int = 1):
+                 kernel_size: int = 31, groups: int = 1,
+                 compute_dtype=None):
         super().__init__()
         assert out_features % groups == 0
         assert (kernel_size - 1) % 2 == 0, "kernel size must be odd"
@@ -40,6 +46,7 @@ class MultiHeadAttention1D(nn.Module):
         self.W_v = nn.Linear(in_features, out_features, bias=False)
         self.rel = nn.Parameter(torch.empty(1, out_features, kernel_size))
         self.use_kernel = True
+        self.compute_dtype = compute_dtype
 
     def forward(self, x):
         B, L, _ = x.shape
@@ -49,10 +56,12 @@ class MultiHeadAttention1D(nn.Module):
         hw = (W - 1) // 2
         # K/V from the zero-padded sequence (reference pads x before the
         # bias-free projections, `model/self_attention.py:44-47`)
+        x, wq, wk, wv = cast(self.compute_dtype, x, self.W_q.weight,
+                             self.W_k.weight, self.W_v.weight)
         xpad = F.pad(x, (0, 0, hw, hw))
-        q = self.W_q(x).reshape(B, L, H, Dh)
-        k = self.W_k(xpad).reshape(B, L + 2 * hw, H, Dh)
-        v = self.W_v(xpad).reshape(B, L + 2 * hw, H, Dh)
+        q = F.linear(x, wq).reshape(B, L, H, Dh)
+        k = F.linear(xpad, wk).reshape(B, L + 2 * hw, H, Dh)
+        v = F.linear(xpad, wv).reshape(B, L + 2 * hw, H, Dh)
         rel = self.rel[0].reshape(H, Dh, W)
         fn = BandedAttention.apply if self.use_kernel else banded_attention
         out, probs = fn(q, k, v, rel, W)

@@ -7,6 +7,12 @@ decoder blocks whose upsampler is driven to an explicit target size
 (`output_size=`). Submodule names match the reference state_dict names. The
 frequency-folded layout of the JAX package is a TPU lane device and is not
 ported: it equals this layout.
+
+`compute_dtype=torch.bfloat16` follows the JAX package's mixed precision:
+each convolution and transposed convolution casts its input, weight and
+bias to bf16 and returns bf16; BatchNorm promotes its input to fp32 and
+returns fp32, so the activations and the residual sum run in fp32 and the
+next convolution casts back. Parameters and BatchNorm statistics stay fp32.
 """
 from __future__ import annotations
 
@@ -16,12 +22,45 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from .precision import cast, promote_fp32
+
 BATCHNORM_EPS = 1e-5
 LEAKY_SLOPE = 0.01
 
 
 def _act(x):
     return F.leaky_relu(x, LEAKY_SLOPE)
+
+
+class Conv2d(nn.Conv2d):
+    """`nn.Conv2d` computing in `compute_dtype` (the JAX package's
+    `TorchConv`): input, weight and bias cast to it, output in it. None
+    is `nn.Conv2d` itself."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x):
+        return self._conv_forward(*cast(self.compute_dtype, x, self.weight,
+                                        self.bias))
+
+
+class ConvTranspose2d(nn.ConvTranspose2d):
+    """`nn.ConvTranspose2d` computing in `compute_dtype` (the JAX package's
+    `TorchConvTranspose`), with `output_size` resolved as torch does."""
+
+    def __init__(self, *args, compute_dtype=None, **kwargs):
+        super().__init__(*args, **kwargs)
+        self.compute_dtype = compute_dtype
+
+    def forward(self, x, output_size=None):
+        output_padding = self._output_padding(
+            x, output_size, self.stride, self.padding, self.kernel_size, 2,
+            self.dilation)
+        x, w, b = cast(self.compute_dtype, x, self.weight, self.bias)
+        return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+                                  output_padding, self.groups, self.dilation)
 
 
 class BatchNorm2d(nn.BatchNorm2d):
@@ -31,11 +70,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     biased variance too (torch's own layer updates it with the unbiased
     one); momentum 0.1 on both sides. `update_stats = False` (see
     `frozen_batch_stats`) keeps the batch statistics but discards the
-    running-statistics update. Eval mode is `nn.BatchNorm2d`'s."""
+    running-statistics update. Eval mode is `nn.BatchNorm2d`'s. A bf16
+    input is promoted to fp32 first, and the output is fp32."""
 
     update_stats = True
 
     def forward(self, x):
+        x = promote_fp32(x)
         if not self.training:
             return super().forward(x)
         if self.update_stats:
@@ -67,17 +108,19 @@ class EncBlock(nn.Module):
     """Reference `block` (`model/self_attention_VAT.py:844-859`)."""
 
     def __init__(self, inp: int, out: int, ksize=3, pad=1, ds_ksize=2,
-                 ds_stride=2):
+                 ds_stride=2, compute_dtype=None):
         super().__init__()
-        self.conv1 = nn.Conv2d(inp, out, ksize, padding=pad)
+        cd = dict(compute_dtype=compute_dtype)
+        self.conv1 = Conv2d(inp, out, ksize, padding=pad, **cd)
         self.bn1 = BatchNorm2d(out, eps=BATCHNORM_EPS)
-        self.conv2 = nn.Conv2d(out, out, ksize, padding=pad)
+        self.conv2 = Conv2d(out, out, ksize, padding=pad, **cd)
         self.bn2 = BatchNorm2d(out, eps=BATCHNORM_EPS)
-        self.skip = nn.Conv2d(inp, out, 1)
-        self.ds = nn.Conv2d(out, out, ds_ksize, stride=ds_stride)
+        self.skip = Conv2d(inp, out, 1, **cd)
+        self.ds = Conv2d(out, out, ds_ksize, stride=ds_stride, **cd)
 
     def forward(self, x):
         x11 = _act(self.bn1(self.conv1(x)))
+        # fp32 + the skip's compute dtype: fp32, as in the JAX package
         x12 = _act(self.bn2(self.conv2(x11))) + self.skip(x)
         return self.ds(x12), tuple(x12.shape[2:])  # (time, freq) pre-ds
 
@@ -86,19 +129,20 @@ class DBlock(nn.Module):
     """Reference `d_block` (`model/self_attention_VAT.py:861-882`)."""
 
     def __init__(self, inp: int, out: int, is_last: bool, ksize=3, pad=1,
-                 ds_ksize=2, ds_stride=2):
+                 ds_ksize=2, ds_stride=2, compute_dtype=None):
         super().__init__()
+        cd = dict(compute_dtype=compute_dtype)
         mid = inp // 2
         self.is_last = is_last
-        self.conv2d = nn.ConvTranspose2d(inp, mid, ksize, 1, pad)
+        self.conv2d = ConvTranspose2d(inp, mid, ksize, 1, pad, **cd)
         self.bn2d = BatchNorm2d(mid, eps=BATCHNORM_EPS)
-        self.conv1d = nn.ConvTranspose2d(mid, out, ksize, 1, pad)
+        self.conv1d = ConvTranspose2d(mid, out, ksize, 1, pad, **cd)
         if is_last:
             us_ch = inp
         else:
             self.bn1d = BatchNorm2d(out, eps=BATCHNORM_EPS)
             us_ch = inp - out
-        self.us = nn.ConvTranspose2d(us_ch, us_ch, ds_ksize, ds_stride)
+        self.us = ConvTranspose2d(us_ch, us_ch, ds_ksize, ds_stride, **cd)
 
     def forward(self, x, size, skip):
         x = self.us(x, output_size=size)
@@ -113,16 +157,17 @@ class DBlock(nn.Module):
 class Encoder(nn.Module):
     """Reference `Encoder` (`model/self_attention_VAT.py:884-906`)."""
 
-    def __init__(self, ds_ksize=2, ds_stride=2):
+    def __init__(self, ds_ksize=2, ds_stride=2, compute_dtype=None):
         super().__init__()
-        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride)
+        cd = dict(compute_dtype=compute_dtype)
+        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride, **cd)
         self.block1 = EncBlock(1, 16, **kw)
         self.block2 = EncBlock(16, 32, **kw)
         self.block3 = EncBlock(32, 64, **kw)
         self.block4 = EncBlock(64, 128, **kw)
-        self.conv1 = nn.Conv2d(64, 64, 3, padding=1)
-        self.conv2 = nn.Conv2d(32, 32, 3, padding=1)
-        self.conv3 = nn.Conv2d(16, 16, 3, padding=1)
+        self.conv1 = Conv2d(64, 64, 3, padding=1, **cd)
+        self.conv2 = Conv2d(32, 32, 3, padding=1, **cd)
+        self.conv3 = Conv2d(16, 16, 3, padding=1, **cd)
 
     def forward(self, x):
         """x (B, 1, T, F) -> (bottleneck, pre-downsample sizes, skips)."""
@@ -138,9 +183,11 @@ class Decoder(nn.Module):
     """Reference `Decoder` (`model/self_attention_VAT.py:908-926`); output
     width `num_instruments`, no final activation."""
 
-    def __init__(self, num_instruments: int = 1, ds_ksize=2, ds_stride=2):
+    def __init__(self, num_instruments: int = 1, ds_ksize=2, ds_stride=2,
+                 compute_dtype=None):
         super().__init__()
-        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride)
+        kw = dict(ds_ksize=ds_ksize, ds_stride=ds_stride,
+                  compute_dtype=compute_dtype)
         self.d_block1 = DBlock(192, 64, False, **kw)
         self.d_block2 = DBlock(96, 32, False, **kw)
         self.d_block3 = DBlock(48, 16, False, **kw)

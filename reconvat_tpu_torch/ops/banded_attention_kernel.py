@@ -9,7 +9,9 @@ attention probabilities, which the default reference path returns:
     p = softmax_j(s)           (no 1/sqrt(d) scale)
     out[b, t, h] = sum_j p[b, t, h, j] * vpad[b, t + j, h]
 
-with kpad/vpad zero-padded by (window - 1) // 2 rows per side.
+with kpad/vpad zero-padded by (window - 1) // 2 rows per side. q, kpad,
+vpad and out are fp32, or bf16 in the mixed-precision model; rel and probs
+are fp32 in both (the bf16 arithmetic: `banded_attention`).
 `banded_attention_bwd` computes what the TPU kernel `_bwd_kernel`
 (`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
 `out` with respect to q, kpad, vpad and rel. On a CUDA tensor each wrapper
@@ -39,53 +41,76 @@ def banded_attention(q, kpad, vpad, rel, window: int):
     window) or None. Returns (out (B, L, H, Dh), probs (B, L, H, window)).
     The band is unfolded to (B, L, H, Dh, window) windows; q.k and q.rel are
     formed apart and added, as the reference adds its skewed bias.
+
+    bf16 q, kpad and vpad (rel fp32) take the bf16 kernel's arithmetic: the
+    operands widened to fp32 (exact), scores and softmax in fp32, p rounded
+    to bf16 before the PV product (the JAX package casts probs to v's
+    dtype), the PV sums in fp32 and out rounded to bf16; probs is p before
+    its rounding, fp32.
     """
+    dtype = q.dtype
+    if dtype == torch.bfloat16:
+        q, kpad, vpad = q.float(), kpad.float(), vpad.float()
     kw = kpad.unfold(1, window, 1)          # (B, L, H, Dh, W)
     vw = vpad.unfold(1, window, 1)
     scores = torch.einsum("blhd,blhdw->blhw", q, kw)
     if rel is not None:
         scores = scores + torch.einsum("blhd,hdw->blhw", q, rel)
     probs = torch.softmax(scores, dim=-1)
-    out = torch.einsum("blhw,blhdw->blhd", probs, vw)
-    return out, probs
+    p = probs.to(dtype).float() if dtype == torch.bfloat16 else probs
+    out = torch.einsum("blhw,blhdw->blhd", p, vw)
+    return out.to(dtype), probs
 
 
 def banded_attention_fwd(q, kpad, vpad, rel, window: int):
     """Returns (out, probs) like `banded_attention`.
 
-    CPU tensors take `banded_attention`; CUDA tensors launch the kernel (and
-    count the launch in `banded_attention_fwd.launches`) or raise. A
-    missing rel is a zero rel."""
+    CPU tensors take `banded_attention`; CUDA tensors launch the kernel for
+    their dtype or raise: fp32 q, kpad and vpad the fp32 kernel (counted in
+    `banded_attention_fwd.launches`), bf16 ones the bf16 kernel (counted in
+    `banded_attention_fwd.launches_bf16`); rel is fp32 for both. A missing
+    rel is a zero rel."""
     if q.device.type == "cpu":
         return banded_attention(q, kpad, vpad, rel, window)
     if q.device.type != "cuda" or q.dim() != 4:
         raise ValueError(f"banded_attention_fwd: expected (B, L, H, Dh) on "
                          f"CPU or CUDA, got {tuple(q.shape)} on {q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"banded_attention_fwd: the kernels take float32 or "
+                        f"bfloat16 operands, got {q.dtype}")
     B, L, H, D = q.shape
     if not 1 <= window <= 32 or D > 256:
         raise ValueError(f"kernel takes window <= 32 and Dh <= 256, got "
                          f"window={window}, Dh={D}")
     if rel is None:
-        rel = torch.zeros((H, D, window), dtype=q.dtype, device=q.device)
-    _build.check_tensor("q", q, (B, L, H, D), q.device)
-    _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device)
-    _build.check_tensor("vpad", vpad, (B, L + window - 1, H, D), q.device)
+        rel = torch.zeros((H, D, window), device=q.device)
+    _build.check_tensor("q", q, (B, L, H, D), q.device, q.dtype)
+    _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device,
+                        q.dtype)
+    _build.check_tensor("vpad", vpad, (B, L + window - 1, H, D), q.device,
+                        q.dtype)
     _build.check_tensor("rel", rel, (H, D, window), q.device)
-    out = torch.empty((B, L, H, D), dtype=torch.float32, device=q.device)
+    out = torch.empty((B, L, H, D), dtype=q.dtype, device=q.device)
     probs = torch.empty((B, L, H, window), dtype=torch.float32,
                         device=q.device)
     lib = _build.load("banded_attention")
+    bf16 = q.dtype == torch.bfloat16
+    launch = (lib.banded_attention_fwd_bf16_launch if bf16
+              else lib.banded_attention_fwd_launch)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.banded_attention_fwd_launch(
-        q.data_ptr(), kpad.data_ptr(), vpad.data_ptr(), rel.data_ptr(),
-        out.data_ptr(), probs.data_ptr(), B, L, H, D, window,
-        ctypes.c_void_p(stream))
+    err = launch(q.data_ptr(), kpad.data_ptr(), vpad.data_ptr(),
+                 rel.data_ptr(), out.data_ptr(), probs.data_ptr(), B, L, H,
+                 D, window, ctypes.c_void_p(stream))
     _build.check(err, "banded_attention_fwd")
-    banded_attention_fwd.launches += 1
+    if bf16:
+        banded_attention_fwd.launches_bf16 += 1
+    else:
+        banded_attention_fwd.launches += 1
     return out, probs
 
 
 banded_attention_fwd.launches = 0
+banded_attention_fwd.launches_bf16 = 0
 
 
 def _probs_and_ds(q, kpad, vpad, rel, d_out, window: int):
@@ -254,7 +279,8 @@ class BandedAttention(torch.autograd.Function):
     `reconvat_tpu/nn/attention.py:banded_attention_pallas`). The
     probabilities are an output but not differentiable: no loss reads
     them. The backward is first order only: VAT detaches its direction, so
-    nothing differentiates through a gradient of this op."""
+    nothing differentiates through a gradient of this op. For bf16
+    operands it raises."""
 
     @staticmethod
     def forward(ctx, q, kpad, vpad, rel, window: int):
@@ -269,6 +295,10 @@ class BandedAttention(torch.autograd.Function):
     def backward(ctx, d_out, d_probs):
         del d_probs
         q, kpad, vpad, rel = ctx.saved_tensors
+        if q.dtype == torch.bfloat16:
+            raise NotImplementedError(
+                f"BandedAttention: no backward for {q.dtype} operands yet "
+                f"(the bf16 backward is the next slice)")
         return (*banded_attention_bwd(q, kpad, vpad, rel,
                                       d_out.contiguous(), ctx.window),
                 None)

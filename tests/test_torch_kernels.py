@@ -16,6 +16,12 @@ in fp32 (on a clip with near-empty mel bins no relative bound applies).
 Attention gradients: each divided by its largest magnitude, then atol 1e-5
 (rtol 1e-4): fp32 on both sides; dk and dv add up to 31 terms per row in
 another order, drel sums over every (batch, row) of a head.
+bf16 attention (q, kpad, vpad, out bf16; rel, probs fp32): probs atol 1e-5
+(fp32 on both sides); out within 2**-7 |ref| + 1e-3 max |ref|, one bf16 ulp
+of a value rounded from fp32 sums taken in another order, plus a p that
+rounds to bf16 the other way; and at most 1 % of the out elements may
+differ at all: sums in another order round the other way for ~1e-4 of
+them, a kernel that skips the rounding of p for ~40 %.
 """
 import numpy as np
 import pytest
@@ -30,6 +36,15 @@ from reconvat_tpu_torch.ops.spectrogram import make_frontend
 MEL_TOL = dict(rtol=1e-4, atol=1e-6)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)   # on gradients over their max |.|
+BF16_OUT_MOVED = 1e-2     # share of bf16 out elements that may differ
+
+
+def _assert_bf16_out_close(out, ref_out):
+    got, ref = out.float(), ref_out.float()
+    err = (got - ref).abs()
+    assert (err <= 2 ** -7 * ref.abs() + 1e-3 * ref.abs().max()).all(), \
+        err.max()
+    assert (err > 0).float().mean().item() <= BF16_OUT_MOVED
 
 
 def _assert_grads_close(got, ref, names=("dq", "dk", "dv", "drel")):
@@ -164,6 +179,99 @@ def test_attention_kernel_matches_plain(cuda_device, L, window, Dh,
     ref_out, ref_probs = bak.banded_attention(q, kpad, vpad, rel, window)
     torch.testing.assert_close(out, ref_out, **ATTN_TOL)
     torch.testing.assert_close(probs, ref_probs, **ATTN_TOL)
+
+
+def test_bf16_wrapper_is_plain_on_cpu():
+    q, kpad, vpad, rel = _attn_inputs(40, 31, 229)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    before = (bak.banded_attention_fwd.launches,
+              bak.banded_attention_fwd.launches_bf16)
+    out, probs = bak.banded_attention_fwd(q, kpad, vpad, rel, 31)
+    ref_out, ref_probs = bak.banded_attention(q, kpad, vpad, rel, 31)
+    assert out.dtype == torch.bfloat16 and probs.dtype == torch.float32
+    assert torch.equal(out, ref_out) and torch.equal(probs, ref_probs)
+    assert (bak.banded_attention_fwd.launches,
+            bak.banded_attention_fwd.launches_bf16) == before
+
+
+@pytest.mark.parametrize("p_rounded", [True, False])
+def test_bf16_out_share_sees_unrounded_p(p_rounded):
+    """The share gate on bf16 out tells the two forms apart: the PV sums
+    in float64 (another order) move few elements, skipping the rounding
+    of p to bf16 moves many."""
+    q, kpad, vpad, rel = _attn_inputs(160, 31, 229, B=1, seed=1)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    ref_out, probs = bak.banded_attention(q, kpad, vpad, rel, 31)
+    p = probs.to(torch.bfloat16) if p_rounded else probs
+    out = torch.einsum("blhw,blhdw->blhd", p.double(),
+                       vpad.double().unfold(1, 31, 1)).to(torch.bfloat16)
+    moved = (out != ref_out).float().mean().item()
+    if p_rounded:
+        _assert_bf16_out_close(out, ref_out)
+    else:
+        assert moved > 10 * BF16_OUT_MOVED, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh,with_rel", [
+    (8, 640, 31, 229, True),      # full width
+    (2, 33, 7, 57, True),         # ragged tile
+    (2, 40, 15, 64, False)])
+def test_attention_bf16_kernel_matches_plain(cuda_device, B, L, window, Dh,
+                                             with_rel):
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(L, window, Dh, B=B))
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    rel = rel if with_rel else None
+    fp32_before = bak.banded_attention_fwd.launches
+    before = bak.banded_attention_fwd.launches_bf16
+    out, probs = bak.banded_attention_fwd(q, kpad, vpad, rel, window)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_fwd.launches_bf16 == before + 1
+    assert bak.banded_attention_fwd.launches == fp32_before
+    assert out.dtype == torch.bfloat16 and probs.dtype == torch.float32
+    ref_out, ref_probs = bak.banded_attention(q, kpad, vpad, rel, window)
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=1e-5)
+    _assert_bf16_out_close(out, ref_out)
+
+
+@pytest.mark.cuda
+def test_attention_module_bf16_launches_kernel(cuda_device):
+    """On the card: the bf16 attention module runs the bf16 kernel (and not
+    the fp32 one), agrees with its plain route, and its backward raises."""
+    from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
+
+    torch.manual_seed(0)
+    mod = MultiHeadAttention1D(229, 916, 31, 4, compute_dtype=torch.bfloat16
+                               ).to(cuda_device)
+    torch.nn.init.normal_(mod.rel, std=0.1)
+    x = torch.randn((2, 80, 229), device=cuda_device)
+    fp32_before = bak.banded_attention_fwd.launches
+    before = bak.banded_attention_fwd.launches_bf16
+    with torch.no_grad():
+        out, probs = mod(x)
+        mod.use_kernel = False
+        ref_out, ref_probs = mod(x)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_fwd.launches_bf16 == before + 1
+    assert bak.banded_attention_fwd.launches == fp32_before
+    assert out.dtype == torch.bfloat16 and probs.dtype == torch.float32
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=1e-5)
+    _assert_bf16_out_close(out, ref_out)
+    mod.use_kernel = True
+    x.requires_grad_(True)
+    with pytest.raises(NotImplementedError, match="next slice"):
+        mod(x)[0].float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_attention_kernel_refuses_mixed_dtypes(cuda_device):
+    q, kpad, vpad, rel = (t.to(cuda_device) for t in _attn_inputs(40, 31, 64))
+    with pytest.raises(TypeError):     # bf16 q with fp32 kpad / vpad
+        bak.banded_attention_fwd(q.to(torch.bfloat16), kpad, vpad, rel, 31)
+    with pytest.raises(TypeError):     # rel must stay fp32
+        bak.banded_attention_fwd(*(t.to(torch.bfloat16)
+                                   for t in (q, kpad, vpad, rel)), 31)
 
 
 @pytest.mark.cuda

@@ -207,7 +207,8 @@ PORT_MODULES = [
     "reconvat_tpu_torch.models.common", "reconvat_tpu_torch.models.reconvat",
     "reconvat_tpu_torch.models.losses", "reconvat_tpu_torch.vat",
     "reconvat_tpu_torch.train", "reconvat_tpu_torch.train.state",
-    "reconvat_tpu_torch.nn.attention", "reconvat_tpu_torch.nn.unet",
+    "reconvat_tpu_torch.nn.attention", "reconvat_tpu_torch.nn.precision",
+    "reconvat_tpu_torch.nn.unet",
     "reconvat_tpu_torch.ops.filterbanks", "reconvat_tpu_torch.ops.mel_kernel",
     "reconvat_tpu_torch.ops.banded_attention_kernel",
     "reconvat_tpu_torch.ops.normalize", "reconvat_tpu_torch.ops.spectrogram",
