@@ -13,9 +13,10 @@ kernels ran; then the same in bf16 mixed precision
 (`ReconVAT(compute_dtype='bfloat16')`, the same weights), timed in turns
 with fp32. Then it drives the training path (`train.state.
 make_train_step`: semi-supervised VAT with reconstruction, B = 8 labeled +
-8 unlabeled clips of 20.48 s, fp32), times it, counts each kernel's
-launches per step, profiles it, and holds one step through the kernels
-against the same step through the plain versions.
+8 unlabeled clips of 20.48 s), in fp32 and then in bf16 timed in turns
+with fp32, counts each kernel's launches per step, profiles it, and holds
+one step through the kernels against the same step through the plain
+versions, and the card against the CPU.
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -57,6 +58,22 @@ ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 ATTN_BF16_PROBS_ATOL = 1e-5
 ATTN_BF16_OUT_RTOL, ATTN_BF16_OUT_FLOOR = 2.0 ** -7, 1e-3
 ATTN_BF16_OUT_MOVED = 1e-2
+# bf16 attention backward (both passes) vs its bf16 plain version: dq, dk
+# and dv are bf16 and take the rule of bf16 out above. Both sides round dS
+# and p to bf16 before their products; where the two sides' fp32 dS lies on
+# either side of a bf16 rounding boundary, one term of a sum moves by a
+# bf16 ulp of dS. The first pass's partials are fp32 sums over at most 32
+# rows: each within 2**-7 of its max |ref| everywhere, and at most 1 % of
+# its elements further than 1e-5 of max |ref| (the fp32 gradients' atol)
+# from it; another order moves ~0.03 % of them that far, by up to ~8e-4 of
+# max |ref|, while a backward that skips the rounding of dS (or of p) moves
+# 80-93 %. drel sums over all B x L rows of a head, so such moves fall in
+# most of its columns: it is held to 5e-4 of its max |ref|, where another
+# order reads up to 2.3e-4 and a missing rounding of dS 1.6e-3 (measured
+# on the CPU at B=2..8 x 640 frames; tests/test_torch_kernels.py,
+# test_bf16_bwd_rule_sees_unrounded_ds_and_p)
+ATTN_BF16_DREL_RTOL = 5e-4
+ATTN_BF16_FP32_CAP, ATTN_BF16_FP32_ATOL = 2.0 ** -7, 1e-5
 # attention gradients over their max |.|: fp32 both sides, dk/dv add up to
 # 31 terms per row and drel 5120 rows per head in another order
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
@@ -74,6 +91,24 @@ BF16_FACTOR = 2.0
 # the LDS terms go through the VAT direction, a finite difference of size
 # ~xi that turns fp32 rounding into ~1e-4 relative loss differences
 STEP_LOSS_RTOL = 1e-3
+# bf16 train step (phases 8b, 9b), losses and gradient leaves: the rule of
+# BF16_FACTOR, with the reference route's bf16-vs-fp32 gap read as the
+# largest over the batch and BF16_DRAWS copies of it whose audio is
+# perturbed by 1e-3 (relative). At random init in train mode the step
+# amplifies a bf16 rounding by orders of magnitude (train-mode BatchNorm on
+# near-constant signals, a nearly one-hot softmax), so a loss's bf16 error
+# is a draw of a rounding noise, and one draw of a scalar says little about
+# the noise's scale (tests/test_torch_bf16_train.py). Gradient leaves also
+# take phase 8's floor, GRAD_FLOOR of the largest gradient magnitude: the
+# bias of a convolution that feeds a train-mode BatchNorm has a true
+# gradient of zero, and each route's is a sum of terms that cancel, taken
+# in its own order.
+BF16_DRAWS, BF16_DRAW_PROBE = 5, 1e-3
+# VAT in the bf16 comparisons: at the default xi (1e-6) the perturbation is
+# rounded away at the first convolution's cast and the bf16 direction is
+# zero; at 0.1 the JAX package's bf16 direction carries its fp32 one
+# (tests/test_torch_bf16_train.py)
+BF16_VAT_XI = 0.1
 # gradients: the step's gradient is ill-conditioned at random init (the
 # reconstructor and the second transcriber pass normalize near-constant
 # signals in train-mode BatchNorm), so each leaf is held to the plain
@@ -471,6 +506,123 @@ def phase_attention_bwd(q, kpad, vpad, rel, d_out):
         f"max_abs_err {err_p}, ms {row_p['ms']}, plain_ms "
         f"{row_p['plain_ms']}, bound_ms {p_bound_ms} ({p_bound_by}; "
         f"{p_flops / 1e9} GFLOP, {p_bytes / 1e6} MB)")
+    return row, row_p
+
+
+def check_bf16_grads(name, got, ref, labels) -> tuple[float, dict]:
+    """A bf16-operand backward's outputs against its bf16 plain version:
+    bf16 outputs by the rule of bf16 out, drel by ATTN_BF16_DREL_RTOL, the
+    partials by the rule of ATTN_BF16_FP32_CAP; returns (largest abs
+    error, by label the error over max|ref| and the share of elements
+    moved)."""
+    err, moved = 0.0, {}
+    for label, a, b in zip(labels, got, ref):
+        if a.dtype != b.dtype:
+            fail(f"{name} {label}: {a.dtype}, its plain version {b.dtype}")
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        gap, top = (a - b).abs(), b.abs().max()
+        if bf16:
+            within = gap <= ATTN_BF16_OUT_RTOL * b.abs() + \
+                ATTN_BF16_OUT_FLOOR * top
+            share = (gap > 0).float().mean().item()
+        elif label == "drel":
+            within = gap <= ATTN_BF16_DREL_RTOL * top
+            share = 0.0
+        else:
+            within = gap <= ATTN_BF16_FP32_CAP * top
+            share = (gap > ATTN_BF16_FP32_ATOL * top).float().mean().item()
+        if not torch.isfinite(a).all() or not bool(within.all()):
+            fail(f"{name} {label}: max abs err {gap.max().item()} outside "
+                 f"its bf16 rule (max|ref| {top.item()})")
+        if share > ATTN_BF16_OUT_MOVED:
+            fail(f"{name} {label}: {share} of the elements moved (at most "
+                 f"{ATTN_BF16_OUT_MOVED})")
+        err = max(err, gap.max().item())
+        moved[label] = ((gap.max() / top).item(), share)
+    return err, moved
+
+
+def phase_attention_bwd_bf16(q, kpad, vpad, rel, d_out):
+    """Kernels 3 and 4 with bf16 operands (q, kpad, vpad, d_out, dq, dk,
+    dv bf16; rel, drel and the partials fp32) against their bf16 plain
+    versions, on phase 3's inputs rounded to bf16."""
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    q, kpad, vpad, d_out = (t.to(torch.bfloat16)
+                            for t in (q, kpad, vpad, d_out))
+    L, D = q.shape[1], q.shape[3]
+    args = (q, kpad, vpad, rel, d_out, W)
+    got = bak.banded_attention_bwd(*args)
+    torch.cuda.synchronize()
+    if [t.dtype for t in got] != [torch.bfloat16] * 3 + [torch.float32]:
+        fail(f"bf16 backward returned {[t.dtype for t in got]}")
+    err, moved = check_bf16_grads("bf16 banded_attention_bwd", got,
+                                  bak.banded_attention_bwd_plain(*args),
+                                  ("dq", "dk", "dv", "drel"))
+    parts = bak.banded_attention_bwd_partials(*args)
+    torch.cuda.synchronize()
+    err_p, moved_p = check_bf16_grads(
+        "bf16 banded_attention_bwd_partials", parts,
+        bak.banded_attention_bwd_partials_plain(*args),
+        ("dq", "dk_part", "dv_part", "drel_part"))
+
+    # library yardstick: the gradient of SDPA on the bf16 operands with the
+    # dense band mask made in fp32 and cast to bf16 (dq, dk, dv)
+    qh, kh, vh, mask = (t.to(torch.bfloat16).requires_grad_(i < 3)
+                        for i, t in enumerate(sdpa_inputs(
+                            q.float(), kpad.float(), vpad.float(), rel)))
+    out = F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                         scale=1.0)
+    g = d_out.transpose(1, 2)
+
+    def library():
+        return torch.autograd.grad(out, (qh, kh, vh), g, retain_graph=True)
+
+    flops = B * L * H * W * (15 * D + 10)
+    inputs = 2 * sum(t.numel() for t in (q, kpad, vpad, d_out)) \
+        + 4 * rel.numel()
+    nbytes = inputs + 2 * sum(t.numel() for t in got[:3]) \
+        + 4 * got[3].numel()
+    bound_ms, bound_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+    row = dict(
+        name="banded_attention_bwd_bf16", route="cuda",
+        source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        replaces="reconvat_tpu/ops/pallas_attention_bwd.py:37",
+        max_abs_err=err, ms=time_ms(lambda: bak.banded_attention_bwd(*args)),
+        plain_ms=time_ms(lambda: bak.banded_attention_bwd_plain(*args)),
+        bound_ms=bound_ms, bound_by=bound_by, library_ms=time_ms(library))
+    p_flops = flops - B * L * H * W * 10
+    p_bytes = inputs + 2 * parts[0].numel() \
+        + 4 * sum(t.numel() for t in parts[1:])
+    p_bound_ms, p_bound_by = bound(p_flops, p_bytes, PEAK_BF16_FLOPS)
+    row_p = dict(
+        name="banded_attention_bwd_partials_bf16", route="cuda",
+        source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        replaces="tools/bench_attention_parts.py:73",
+        max_abs_err=err_p,
+        ms=time_ms(lambda: bak.banded_attention_bwd_partials(*args)),
+        plain_ms=time_ms(
+            lambda: bak.banded_attention_bwd_partials_plain(*args)),
+        bound_ms=p_bound_ms, bound_by=p_bound_by, library_ms=None)
+    log(f"phase 3e banded_attention_bwd in bf16 (B={B}, L={L}, H={H}, "
+        f"Dh={D}, W={W}; q, kpad, vpad, d_out, dq, dk, dv bf16, rel and "
+        f"drel fp32): max_abs_err {err}; by output (largest error over "
+        f"max|ref|, share of elements moved: bf16 differing at all, fp32 "
+        f"beyond {ATTN_BF16_FP32_ATOL} max|ref|) {moved}, share at most "
+        f"{ATTN_BF16_OUT_MOVED}, drel within {ATTN_BF16_DREL_RTOL} max|ref|; "
+        f"ms {row['ms']}, "
+        f"plain_ms {row['plain_ms']}, library_ms (autograd.grad of SDPA in "
+        f"bf16, dense bf16 mask) {row['library_ms']}, bound_ms {bound_ms} "
+        f"({bound_by}; {flops / 1e9} GFLOP at the bf16 peak, "
+        f"{nbytes / 1e6} MB)")
+    log(f"phase 3f banded_attention_bwd_partials in bf16 (first pass "
+        f"alone): max_abs_err {err_p}; by output {moved_p}; ms "
+        f"{row_p['ms']}, plain_ms {row_p['plain_ms']}, bound_ms "
+        f"{p_bound_ms} ({p_bound_by}; {p_flops / 1e9} GFLOP, "
+        f"{p_bytes / 1e6} MB)")
     return row, row_p
 
 
@@ -896,27 +1048,60 @@ def compare_routes(model, batch_l, batch_ul) -> str:
             f"at xi 1e-2: losses kernels {lvk} plain {lvp}")
 
 
-def phase_train(rows) -> None:
+def kernel_counters() -> dict:
+    """(wrapper, counter attribute) of every row of the kernels line."""
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+
+    return {"mel_power": (mel_power, "launches"),
+            "banded_attention_fwd": (bak.banded_attention_fwd, "launches"),
+            "banded_attention_fwd_bf16": (bak.banded_attention_fwd,
+                                          "launches_bf16"),
+            "banded_attention_bwd": (bak.banded_attention_bwd, "launches"),
+            "banded_attention_bwd_bf16": (bak.banded_attention_bwd,
+                                          "launches_bf16"),
+            "banded_attention_bwd_partials":
+                (bak.banded_attention_bwd_partials, "launches"),
+            "banded_attention_bwd_partials_bf16":
+                (bak.banded_attention_bwd_partials, "launches_bf16")}
+
+
+def counted_steps(step, state, batches, gen, n_steps: int, dtype: str):
+    """Run n_steps train steps with every launch count set to 0 just
+    before and read just after, and peak memory reset before. Fails
+    unless the step launched `mel_power` and each attention kernel of its
+    dtype, and no attention kernel of the other dtype. Returns (ms/step,
+    peak GB, launches, losses of the steps)."""
+    counters = kernel_counters()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for f, counter in counters.values():
+        setattr(f, counter, 0)
+    t0 = time.perf_counter()
+    losses = [step(state, *batches[i % len(batches)], gen)
+              for i in range(n_steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) / n_steps * 1e3
+    launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    for name, n in launches.items():
+        expected = name == "mel_power" or name.endswith("_bf16") == (
+            dtype == "bf16")
+        if (n > 0) != expected:
+            fail(f"{dtype} training path launched {name} {n} times")
+    if not all(np.isfinite(v.item()) for ls in losses for v in ls.values()):
+        fail(f"non-finite {dtype} training loss: {losses[-1]}")
+    return ms, peak_gb, launches, losses
+
+
+def phase_train(rows):
     """The training path at full width: timed steps, launches per step,
     peak memory, a profile, kernels against plain versions, and the card
     against the CPU on a short clip."""
     from reconvat_tpu_torch.models.reconvat import ReconVAT
-    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
-    from reconvat_tpu_torch.ops.mel_kernel import mel_power
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
 
-    # (wrapper, counter) per row; the fp32 step must launch every kernel
-    # but the bf16 forward, whose count is read as well
-    counters = {"mel_power": (mel_power, "launches"),
-                "banded_attention_fwd": (bak.banded_attention_fwd,
-                                         "launches"),
-                "banded_attention_fwd_bf16": (bak.banded_attention_fwd,
-                                              "launches_bf16"),
-                "banded_attention_bwd": (bak.banded_attention_bwd,
-                                         "launches"),
-                "banded_attention_bwd_partials":
-                    (bak.banded_attention_bwd_partials, "launches")}
     model = ReconVAT(seed=0)
     state = create_train_state(model)
     step = make_train_step(model, alpha=1.0, vat=True, use_unlabeled=True)
@@ -924,25 +1109,12 @@ def phase_train(rows) -> None:
     gen = torch.Generator(device="cuda").manual_seed(0)
     for i in range(2):                                   # warm-up
         step(state, *batches[i % 2], gen)
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
 
     # the main path: counts reset just before, read just after
     n_steps = 6
-    for f, counter in counters.values():
-        setattr(f, counter, 0)
-    t0 = time.perf_counter()
-    losses = [step(state, *batches[i % 2], gen) for i in range(n_steps)]
-    torch.cuda.synchronize()
-    ms = (time.perf_counter() - t0) / n_steps * 1e3
-    launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
-    for name, n in launches.items():
-        if (n == 0) != (name == "banded_attention_fwd_bf16"):
-            fail(f"fp32 training path launched {name} {n} times")
+    ms, peak_gb, launches, losses = counted_steps(step, state, batches, gen,
+                                                  n_steps, "fp32")
     last = {k: v.item() for k, v in losses[-1].items()}
-    if not all(np.isfinite(v.item()) for ls in losses for v in ls.values()):
-        fail(f"non-finite training loss: {last}")
     per_step = {k: n / n_steps for k, n in launches.items()}
     audio_s = 2 * B * SAMPLES / 16000
     log(f"phase 6 training (B={B} labeled + {B} unlabeled x {SAMPLES} "
@@ -952,7 +1124,8 @@ def phase_train(rows) -> None:
         f"{per_step}, step {state.step}, last losses {last}")
     for row in rows:
         row["launches_train"] = launches[row["name"]]
-        if row["name"].startswith("banded_attention_bwd"):
+        if row["name"] in ("banded_attention_bwd",
+                           "banded_attention_bwd_partials"):
             row["launches"] = launches[row["name"]]
 
     log_profile("phase 7 training profile (2 steps)", "step", 2,
@@ -976,6 +1149,233 @@ def phase_train(rows) -> None:
                  f"{card_l[k]} vs {cpu_l[k]}")
     log(f"phase 9 train losses, card vs CPU (2 x 32 frames, no VAT): "
         f"{card_l} vs {cpu_l}")
+    return model, state, step, batches, gen, short_l
+
+
+def vat_shares(model, batch_l, batch_ul, seed: int) -> str:
+    """The shares of (b, t) vectors whose VAT perturbation has norm eps
+    and norm 0, in the labeled and the unlabeled chain of one
+    `run_on_batch` at the model's xi (the unlabeled chain rebuilt from the
+    same first draw)."""
+    from reconvat_tpu_torch.models.reconvat import fp32_math
+    from reconvat_tpu_torch.nn.unet import frozen_batch_stats
+    from reconvat_tpu_torch.vat import l2_normalize, vat_loss
+
+    def shares(r_adv):
+        norms = torch.linalg.vector_norm(r_adv.double(), dim=2)
+        eps = ((norms - model.vat_cfg.eps).abs()
+               <= 1e-3 * model.vat_cfg.eps).double().mean().item()
+        return eps, (norms == 0).double().mean().item()
+
+    def gen():
+        return torch.Generator(device="cuda").manual_seed(seed)
+
+    with fp32_math():
+        preds, _, _ = model.run_on_batch(batch_l, batch_ul, gen(), vat=True)
+        spec_ul = model.make_spec(batch_ul["audio"])
+        with frozen_batch_stats(model):
+            _, r_ul, _ = vat_loss(model.transcribe_frames, spec_ul, gen(),
+                                  model.vat_cfg)
+        # where the direction comes from: two clean transcriber passes,
+        # and a clean against a pass perturbed by xi (the first draw)
+        with torch.no_grad(), frozen_batch_stats(model):
+            y1 = model.transcribe_frames(spec_ul)
+            y2 = model.transcribe_frames(spec_ul)
+            d = torch.randn(spec_ul.shape, generator=gen(), device="cuda")
+            r = model.vat_cfg.xi * l2_normalize(d, model.vat_cfg.norm_axis)
+            y3 = model.transcribe_frames((spec_ul + r).clamp(0.0, 1.0))
+    (le, lz), (ue, uz) = shares(preds["r_adv"].detach()), shares(
+        r_ul[..., 0].detach())
+    return (f"labeled chain {le} eps / {lz} zero, unlabeled chain {ue} eps "
+            f"/ {uz} zero (unlabeled: two clean passes differ by "
+            f"{(y1 - y2).abs().max().item()} in "
+            f"{(y1 != y2).float().mean().item()} of the outputs, clean and "
+            f"perturbed by {(y3 - y1).abs().max().item()} in "
+            f"{(y3 != y1).float().mean().item()})")
+
+
+def probe_batches(batch_l, batch_ul, n: int, seed: int):
+    """n copies of (batch_l, batch_ul) whose audio is perturbed by
+    BF16_DRAW_PROBE (relative)."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def probe(b):
+        if b is None:
+            return None
+        a = b["audio"]
+        noise = torch.randn(a.shape, generator=g, device=a.device)
+        return {**b, "audio": a * (1 + BF16_DRAW_PROBE * noise)}
+
+    return [(probe(batch_l), probe(batch_ul)) for _ in range(n)]
+
+
+def held_draws(what, test16, ref16, test32, ref32, draws,
+               floor: float = 0.0):
+    """bf16_held for each key of the dicts (losses, or gradients by
+    leaf), with the reference route's bf16-vs-fp32 gap the largest over
+    (ref16, ref32) and the (bf16, fp32) pairs of `draws` (BF16_DRAWS),
+    and `floor` added to each limit; returns the largest share of its
+    limit that a key used, and the key."""
+    def gap(a, b):
+        if isinstance(a, torch.Tensor):
+            return (a.float() - b.float()).abs().max().item()
+        return abs(a - b)
+
+    worst = (0.0, "")
+    for k in ref16:
+        diff = gap(test16[k], ref16[k])
+        ref_gap = max(gap(a[k], b[k]) for a, b in [(ref16, ref32), *draws])
+        tol = BF16_FACTOR * ref_gap + gap(test32[k], ref32[k]) + floor
+        if not diff <= tol:
+            fail(f"bf16 {what}, {k}: differ by {diff} (tol {tol}: "
+                 f"{BF16_FACTOR} x the reference's bf16-vs-fp32 gap "
+                 f"{ref_gap}, largest of {len(draws) + 1} draws, + the fp32 "
+                 f"routes' gap + {floor})")
+        worst = max(worst, (diff / tol if tol > 0 else 0.0, k))
+    return worst
+
+
+def compare_routes_bf16(model16, model, batch_l, batch_ul) -> str:
+    """Phase 8b: one bf16 step through the kernels against the same step
+    through the plain versions, from the fp32 model's state, within the
+    limit of `held_draws`: without VAT losses and every gradient, with VAT
+    (xi BF16_VAT_XI) losses."""
+    import copy
+    import dataclasses
+
+    start = {k: v.clone() for k, v in model.state_dict().items()}
+    routes = {"kernels16": model16, "kernels32": model}
+    routes["plain16"] = copy.deepcopy(model16)
+    routes["plain32"] = copy.deepcopy(model)
+    for name, m in routes.items():
+        m.use_kernels(name.startswith("kernels"))
+    draws = probe_batches(batch_l, batch_ul, BF16_DRAWS, seed=13)
+
+    def run(name, bl, bul, vat):
+        m = routes[name]
+        m.load_state_dict(start)
+        return step_grads(m, bl, bul, seed=5, vat=vat)
+
+    notes = []
+    for vat in (False, True):
+        cfgs = {n: m.vat_cfg for n, m in routes.items()}
+        for m in routes.values():
+            m.vat_cfg = dataclasses.replace(m.vat_cfg, xi=BF16_VAT_XI)
+        bul = batch_ul if vat else None
+        out = {n: run(n, batch_l, bul, vat) for n in routes}
+        drawn = [tuple(run(n, dl, dul if vat else None, vat)
+                       for n in ("plain16", "plain32")) for dl, dul in draws]
+        for n, m in routes.items():
+            m.vat_cfg = cfgs[n]
+        (l16, g16), (lp16, gp16) = out["kernels16"], out["plain16"]
+        (l32, g32), (lp32, gp32) = out["kernels32"], out["plain32"]
+        if l16 == l32:
+            fail(f"bf16 and fp32 train losses are equal ({l16}): bf16 did "
+                 f"not run")
+        worst = held_draws(f"train losses, kernels vs plain (VAT {vat})",
+                           l16, lp16, l32, lp32,
+                           [(a[0], b[0]) for a, b in drawn])
+        label = f"with VAT at xi {BF16_VAT_XI}" if vat else "without VAT"
+        notes.append(f"{label}: losses kernels {l16} plain {lp16} (fp32 "
+                     f"kernels {l32}), largest share of a limit {worst}")
+        if vat:
+            continue
+        for name, g in g16.items():
+            if not torch.isfinite(g).all():
+                fail(f"bf16 kernel route: non-finite gradient of {name}")
+            if g.abs().max().item() == 0 and gp16[name].abs().max().item() > 0:
+                fail(f"bf16 kernel route lost the gradient of {name}")
+        top = max(g.abs().max().item() for g in gp16.values())
+        worst_g = held_draws("gradients, kernels vs plain", g16, gp16, g32,
+                             gp32, [(a[1], b[1]) for a, b in drawn],
+                             floor=GRAD_FLOOR * top)
+        notes.append(f"every gradient leaf held (floor {GRAD_FLOOR} x "
+                     f"{top}), largest share of a limit {worst_g}")
+    model.load_state_dict(start)
+    model16.load_state_dict(start)
+    return "; ".join(notes)
+
+
+def phase_train_bf16(rows, model, state, step, batches, gen,
+                     short_l) -> None:
+    """Phases 6b-9b: the train step in bf16 mixed precision at phase 6's
+    shape and settings, timed in turns with fp32 (fp32, bf16, bf16,
+    fp32), its launches, peak memory and VAT direction shares, a profile,
+    kernels against plain versions, and the card against the CPU."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model16 = ReconVAT(seed=0, compute_dtype="bfloat16")
+    state16 = create_train_state(model16)
+    step16 = make_train_step(model16, alpha=1.0, vat=True,
+                             use_unlabeled=True)
+    for i in range(2):                                   # warm-up
+        step16(state16, *batches[i % 2], gen)
+
+    n_steps = 4
+    runs = []
+    for dtype in ("fp32", "bf16", "bf16", "fp32"):
+        # each run is a main path: counts reset just before, read after
+        if dtype == "bf16":
+            runs.append(counted_steps(step16, state16, batches, gen, n_steps,
+                                      dtype))
+        else:
+            runs.append(counted_steps(step, state, batches, gen, n_steps,
+                                      dtype))
+    launches = runs[1][2]
+    for row in rows:
+        if row["name"] in ("banded_attention_bwd_bf16",
+                           "banded_attention_bwd_partials_bf16"):
+            row["launches"] = launches[row["name"]]
+        row["launches_train_bf16"] = launches[row["name"]]
+    audio_s = 2 * B * SAMPLES / 16000
+    turns = "; ".join(
+        f"{dt} {ms} ms/step {audio_s / (ms / 1e3)} audio-s/s peak {gb} GB"
+        for dt, (ms, gb, _, _) in zip(("fp32", "bf16", "bf16", "fp32"),
+                                      runs))
+    last16 = {k: v.item() for k, v in runs[2][3][-1].items()}
+    shares = "; ".join(
+        f"{dt}: {vat_shares(m, *batches[0], seed=3)}"
+        for dt, m in (("bf16", model16), ("fp32", model)))
+    log(f"phase 6b training in bf16 (B={B} labeled + {B} unlabeled x "
+        f"{SAMPLES} samples, VAT + reconstruction, "
+        f"compute_dtype='bfloat16', {n_steps} steps per run after 2 "
+        f"warm-up), in turns: {turns}; launches per bf16 step "
+        f"{ {k: n / n_steps for k, n in launches.items()} }, per fp32 step "
+        f"{ {k: n / n_steps for k, n in runs[0][2].items()} }; last bf16 "
+        f"losses {last16}; VAT perturbation vectors at xi "
+        f"{model16.vat_cfg.xi}: {shares}")
+
+    log_profile("phase 7b bf16 training profile (2 steps)", "step", 2,
+                profile_groups(lambda: [step16(state16, *batches[i], gen)
+                                        for i in range(2)]))
+    log(f"phase 8b bf16 train step, kernels vs plain versions (fp32 "
+        f"weights of phase 8): "
+        f"{compare_routes_bf16(model16, model, *batches[0])}")
+
+    # the card against the CPU in bf16 on phase 9's short clip, no VAT,
+    # all four routes from the fp32 model's present weights
+    cpu16 = ReconVAT(seed=0, device="cpu", compute_dtype="bfloat16")
+    cpu = ReconVAT(seed=0, device="cpu")
+    for m in (cpu16, cpu, model16):
+        m.load_state_dict(model.state_dict())
+    card16, _ = step_grads(model16, short_l, None, 0, vat=False)
+    card32, _ = step_grads(model, short_l, None, 0, vat=False)
+    cpu_short = {k: v.cpu() for k, v in short_l.items()}
+    c16, _ = step_grads(cpu16, cpu_short, None, 0, vat=False)
+    c32, _ = step_grads(cpu, cpu_short, None, 0, vat=False)
+    draws = [(step_grads(cpu16, {k: v.cpu() for k, v in dl.items()}, None,
+                         0, vat=False)[0],
+              step_grads(cpu, {k: v.cpu() for k, v in dl.items()}, None,
+                         0, vat=False)[0])
+             for dl, _ in probe_batches(short_l, None, BF16_DRAWS, seed=17)]
+    log(f"phase 9b bf16 train losses, card vs CPU (2 x 32 frames, no VAT): "
+        f"{card16} vs {c16} (fp32: card {card32}, CPU {c32}; the CPU's "
+        f"bf16 draws {[a for a, _ in draws]}, fp32 {[b for _, b in draws]})")
+    worst = held_draws("train losses, card vs CPU", card16, c16, card32,
+                       c32, draws)
+    log(f"phase 9b: held, largest share of a limit {worst}")
 
 
 def main() -> int:
@@ -1003,10 +1403,11 @@ def main() -> int:
     fe = make_frontend("Mel")[0].cuda()
     attn = attention_inputs()
     rows = [phase_mel(fe), phase_attention(*attn[:4]),
-            *phase_attention_bwd(*attn), phase_attention_bf16(*attn[:4])]
+            *phase_attention_bwd(*attn), phase_attention_bf16(*attn[:4]),
+            *phase_attention_bwd_bf16(*attn)]
     del attn
     phase_serve_bf16(rows[4], *phase_serve(rows[:2]))
-    phase_train(rows)
+    phase_train_bf16(rows, *phase_train(rows))
     for row in rows:
         row["max_err"] = row["max_abs_err"]
     log(json.dumps({"kernels": rows}))

@@ -34,7 +34,11 @@ ENTRY_POINTS = {
         "banded_attention_fwd_bf16_launch": [_P] * 6 + [_I] * 5 + [_P]},
     "banded_attention_bwd": {
         "banded_attention_bwd_partials_launch": [_P] * 9 + [_I] * 6 + [_P],
-        "banded_attention_bwd_reduce_launch": [_P] * 6 + [_I] * 6 + [_P]},
+        "banded_attention_bwd_partials_bf16_launch":
+            [_P] * 9 + [_I] * 6 + [_P],
+        "banded_attention_bwd_reduce_launch": [_P] * 6 + [_I] * 6 + [_P],
+        "banded_attention_bwd_reduce_bf16_launch":
+            [_P] * 6 + [_I] * 6 + [_P]},
 }
 
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

@@ -12,10 +12,11 @@ onto the JAX variable tree (`weights.flax_to_torch`). Parameters are fp32.
 Compute is fp32 by default, with TF32 switched off around the serving call
 and the train step; `compute_dtype='bfloat16'` is the JAX package's mixed
 precision: U-Net convolutions and attention projections in bf16, the
-attention core on bf16 operands, and the mel frontend, BatchNorm, heads,
-posteriogram and packing in fp32. `run_on_batch` is the training batch
-contract (supervised losses, reconstruction and VAT; fp32 only so far);
-`transcribe` the serving path.
+attention core (forward and backward) on bf16 operands, and the mel
+frontend, BatchNorm, heads, posteriogram, losses and packing in fp32.
+`run_on_batch` is the training batch contract (supervised losses,
+reconstruction and VAT, in either compute dtype); `transcribe` the serving
+path.
 """
 from __future__ import annotations
 
@@ -169,8 +170,8 @@ class ReconVAT(UNet):
     sets the mode its `train` argument asks for and `transcribe` sets eval
     mode. xi, eps and kl_div configure VAT as in the JAX package.
     compute_dtype None is fp32, 'bfloat16' the JAX package's mixed
-    precision (serving and the eval-mode forward; `run_on_batch` raises
-    for it until the bf16 attention backward is ported)."""
+    precision, for serving and training alike; the parameters are fp32 in
+    both."""
 
     def __init__(self, log: bool = True, reconstruction: bool = True,
                  mode: str = "imagewise", xi: float = 1e-6,
@@ -221,11 +222,12 @@ class ReconVAT(UNet):
         then the labeled chain's. t_true masks the spec normalization and
         the losses to the true frames of a padded clip. Grad mode must be
         on when `vat` or `batch_ul` is given (the power iteration
-        differentiates). fp32 only: a bf16 model raises."""
-        if self.compute_dtype is not None:
-            raise NotImplementedError(
-                "run_on_batch runs in fp32 only: the bf16 train step (and "
-                "the bf16 attention backward) is the next slice")
+        differentiates).
+
+        In bf16 the spec and the VAT direction stay fp32 (the first
+        convolution casts the perturbed spec, as the JAX package does), the
+        reconstruction is bf16 and enters the MSE against the fp32 spec and
+        the second transcriber pass as it is, and every loss is fp32."""
         self.train(train)
         prefix = "train" if train else "test"
         frame_label = batch_l["frame"]

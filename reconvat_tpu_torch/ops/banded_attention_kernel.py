@@ -14,7 +14,9 @@ vpad and out are fp32, or bf16 in the mixed-precision model; rel and probs
 are fp32 in both (the bf16 arithmetic: `banded_attention`).
 `banded_attention_bwd` computes what the TPU kernel `_bwd_kernel`
 (`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
-`out` with respect to q, kpad, vpad and rel. On a CUDA tensor each wrapper
+`out` with respect to q, kpad, vpad and rel, with d_out, dq, dk and dv in
+the operand dtype and drel fp32 (the bf16 arithmetic:
+`banded_attention_bwd_plain`). On a CUDA tensor each wrapper
 launches its kernel (`csrc/banded_attention.cu`,
 `csrc/banded_attention_bwd.cu`); on a CPU tensor it runs its plain PyTorch
 version. `BandedAttention` is the differentiable op built from both.
@@ -115,7 +117,14 @@ banded_attention_fwd.launches_bf16 = 0
 
 def _probs_and_ds(q, kpad, vpad, rel, d_out, window: int):
     """Recomputed probabilities p and softmax-backward dS, (B, L, H, W)
-    each, with the (B, L, H, Dh, W) key window."""
+    each, as the products weigh them, with the operands widened to fp32
+    and the (B, L, H, Dh, W) key window: p and dS are fp32 (dP unrounded),
+    and for bf16 operands both are then rounded to bf16, as the Pallas
+    kernel casts them before its products (`pallas_attention_bwd.py:114,
+    126, 129`)."""
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        q, kpad, vpad, d_out = (t.float() for t in (q, kpad, vpad, d_out))
     kw = kpad.unfold(1, window, 1)
     vw = vpad.unfold(1, window, 1)
     scores = (torch.einsum("blhd,blhdw->blhw", q, kw)
@@ -123,7 +132,9 @@ def _probs_and_ds(q, kpad, vpad, rel, d_out, window: int):
     p = torch.softmax(scores, dim=-1)
     dp = torch.einsum("blhd,blhdw->blhw", d_out, vw)
     ds = p * (dp - (p * dp).sum(-1, keepdim=True))
-    return p, ds, kw
+    if bf16:
+        p, ds = (t.to(torch.bfloat16).float() for t in (p, ds))
+    return q, d_out, p, ds, kw
 
 
 def banded_attention_bwd_plain(q, kpad, vpad, rel, d_out, window: int):
@@ -134,18 +145,23 @@ def banded_attention_bwd_plain(q, kpad, vpad, rel, d_out, window: int):
         dP = dO . V_window,  dS = p * (dP - sum_j p dP)
         dq = dS . (K_window + rel),  drel = sum_{b,t} dS q
         dkpad[t + j] += dS[j] q_t,   dvpad[t + j] += p[j] dO_t
+
+    bf16 q, kpad, vpad and d_out (rel fp32) take the bf16 kernel's
+    arithmetic: the operands widened to fp32, p and dS in fp32 and then
+    rounded to bf16 before the products, the sums in fp32, dq, dk and dv
+    rounded to bf16 once and drel fp32.
     """
-    L = q.shape[1]
-    p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
+    dtype, L = q.dtype, q.shape[1]
+    q, d_out, p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
     dq = (torch.einsum("blhw,blhdw->blhd", ds, kw)
           + torch.einsum("blhw,hdw->blhd", ds, rel))
     drel = torch.einsum("blhw,blhd->hdw", ds, q)
-    dk = torch.zeros_like(kpad)
-    dv = torch.zeros_like(vpad)
+    dk = kw.new_zeros(kpad.shape)
+    dv = torch.zeros_like(dk)
     for j in range(window):
         dk[:, j:j + L] += ds[..., j, None] * q
         dv[:, j:j + L] += p[..., j, None] * d_out
-    return dq, dk, dv, drel
+    return dq.to(dtype), dk.to(dtype), dv.to(dtype), drel
 
 
 def _tiles(x, tile: int):
@@ -162,8 +178,10 @@ def banded_attention_bwd_partials_plain(q, kpad, vpad, rel, d_out,
     dv_part, drel_part): dk_part / dv_part (B, H, n_tiles, tile + window -
     1, Dh) hold each query tile's contribution to the key rows of its
     context [i * tile, i * tile + tile + window - 1), drel_part (B, H,
-    n_tiles, Dh, window) its contribution to drel."""
-    p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
+    n_tiles, Dh, window) its contribution to drel. dq is in the operand
+    dtype, the partials fp32 (bf16 arithmetic: `banded_attention_bwd_plain`)."""
+    dtype = q.dtype
+    q, d_out, p, ds, kw = _probs_and_ds(q, kpad, vpad, rel, d_out, window)
     dq = (torch.einsum("blhw,blhdw->blhd", ds, kw)
           + torch.einsum("blhw,hdw->blhd", ds, rel))
     qt, dot, pt, dst = (_tiles(x, tile) for x in (q, d_out, p, ds))
@@ -174,14 +192,15 @@ def banded_attention_bwd_partials_plain(q, kpad, vpad, rel, d_out,
         dk_part[:, :, :, j:j + tile] += dst[..., j, None] * qt
         dv_part[:, :, :, j:j + tile] += pt[..., j, None] * dot
     drel_part = torch.einsum("bhnrw,bhnrd->bhndw", dst, qt)
-    return dq, dk_part, dv_part, drel_part
+    return dq.to(dtype), dk_part, dv_part, drel_part
 
 
 def banded_attention_bwd_reduce_plain(dk_part, dv_part, drel_part, L: int,
                                       window: int, tile: int = BWD_TILE):
     """Plain version of the backward's second pass: overlap-add the tile
     partials into (dkpad, dvpad) of (B, L + window - 1, H, Dh) and sum the
-    drel partials into (H, Dh, window)."""
+    drel partials into (H, Dh, window), all in the partials' dtype (the
+    bf16 kernel rounds dk and dv to bf16 once, after these sums)."""
     B, H, n, ctx, D = dk_part.shape
     Lk = L + window - 1
 
@@ -200,23 +219,31 @@ def _check_bwd_args(q, kpad, vpad, rel, d_out, window: int):
         raise ValueError(f"banded attention backward: expected (B, L, H, "
                          f"Dh) on CPU or CUDA, got {tuple(q.shape)} on "
                          f"{q.device}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"banded attention backward: the kernels take "
+                        f"float32 or bfloat16 operands, got {q.dtype}")
     B, L, H, D = q.shape
     if not 1 <= window <= 32 or D > 256:
         raise ValueError(f"kernel takes window <= 32 and Dh <= 256, got "
                          f"window={window}, Dh={D}")
-    _build.check_tensor("q", q, (B, L, H, D), q.device)
-    _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device)
-    _build.check_tensor("vpad", vpad, (B, L + window - 1, H, D), q.device)
+    _build.check_tensor("q", q, (B, L, H, D), q.device, q.dtype)
+    _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device,
+                        q.dtype)
+    _build.check_tensor("vpad", vpad, (B, L + window - 1, H, D), q.device,
+                        q.dtype)
     _build.check_tensor("rel", rel, (H, D, window), q.device)
-    _build.check_tensor("d_out", d_out, (B, L, H, D), q.device)
+    _build.check_tensor("d_out", d_out, (B, L, H, D), q.device, q.dtype)
 
 
 def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
     """The backward's first pass, as `banded_attention_bwd_partials_plain`.
 
     CPU tensors take the plain version; CUDA tensors launch the first
-    pass of `csrc/banded_attention_bwd.cu` (and count the launch in
-    `banded_attention_bwd_partials.launches`) or raise."""
+    pass of `csrc/banded_attention_bwd.cu` for their dtype or raise: fp32
+    q, kpad, vpad and d_out the fp32 instance (counted in
+    `banded_attention_bwd_partials.launches`), bf16 ones the bf16 instance
+    (counted in `banded_attention_bwd_partials.launches_bf16`); rel fp32
+    for both."""
     if q.device.type == "cpu":
         return banded_attention_bwd_partials_plain(q, kpad, vpad, rel,
                                                    d_out, window)
@@ -230,26 +257,34 @@ def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
     drel_part = torch.empty((B, H, n, D, window), dtype=torch.float32,
                             device=q.device)
     lib = _build.load("banded_attention_bwd")
+    bf16 = q.dtype == torch.bfloat16
+    launch = (lib.banded_attention_bwd_partials_bf16_launch if bf16
+              else lib.banded_attention_bwd_partials_launch)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.banded_attention_bwd_partials_launch(
-        q.data_ptr(), kpad.data_ptr(), vpad.data_ptr(), rel.data_ptr(),
-        d_out.data_ptr(), dq.data_ptr(), dk_part.data_ptr(),
-        dv_part.data_ptr(), drel_part.data_ptr(), B, L, H, D, window,
-        BWD_TILE, ctypes.c_void_p(stream))
+    err = launch(q.data_ptr(), kpad.data_ptr(), vpad.data_ptr(),
+                 rel.data_ptr(), d_out.data_ptr(), dq.data_ptr(),
+                 dk_part.data_ptr(), dv_part.data_ptr(),
+                 drel_part.data_ptr(), B, L, H, D, window, BWD_TILE,
+                 ctypes.c_void_p(stream))
     _build.check(err, "banded_attention_bwd_partials")
-    banded_attention_bwd_partials.launches += 1
+    if bf16:
+        banded_attention_bwd_partials.launches_bf16 += 1
+    else:
+        banded_attention_bwd_partials.launches += 1
     return dq, dk_part, dv_part, drel_part
 
 
 banded_attention_bwd_partials.launches = 0
+banded_attention_bwd_partials.launches_bf16 = 0
 
 
 def banded_attention_bwd(q, kpad, vpad, rel, d_out, window: int):
     """(dq, dkpad, dvpad, drel) like `banded_attention_bwd_plain`.
 
     CPU tensors take the plain version; CUDA tensors run both passes of
-    `csrc/banded_attention_bwd.cu` (and count one launch in
-    `banded_attention_bwd.launches`) or raise."""
+    `csrc/banded_attention_bwd.cu` for their dtype (and count one launch in
+    `banded_attention_bwd.launches` for fp32 operands,
+    `banded_attention_bwd.launches_bf16` for bf16 ones) or raise."""
     if q.device.type == "cpu":
         return banded_attention_bwd_plain(q, kpad, vpad, rel, d_out, window)
     B, L, H, D = q.shape
@@ -259,17 +294,24 @@ def banded_attention_bwd(q, kpad, vpad, rel, d_out, window: int):
     dv = torch.empty_like(vpad)
     drel = torch.empty_like(rel)
     lib = _build.load("banded_attention_bwd")
+    bf16 = q.dtype == torch.bfloat16
+    launch = (lib.banded_attention_bwd_reduce_bf16_launch if bf16
+              else lib.banded_attention_bwd_reduce_launch)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = lib.banded_attention_bwd_reduce_launch(
-        dk_part.data_ptr(), dv_part.data_ptr(), drel_part.data_ptr(),
-        dk.data_ptr(), dv.data_ptr(), drel.data_ptr(), B, L, H, D, window,
-        BWD_TILE, ctypes.c_void_p(stream))
+    err = launch(dk_part.data_ptr(), dv_part.data_ptr(),
+                 drel_part.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+                 drel.data_ptr(), B, L, H, D, window, BWD_TILE,
+                 ctypes.c_void_p(stream))
     _build.check(err, "banded_attention_bwd")
-    banded_attention_bwd.launches += 1
+    if bf16:
+        banded_attention_bwd.launches_bf16 += 1
+    else:
+        banded_attention_bwd.launches += 1
     return dq, dk, dv, drel
 
 
 banded_attention_bwd.launches = 0
+banded_attention_bwd.launches_bf16 = 0
 
 
 class BandedAttention(torch.autograd.Function):
@@ -279,8 +321,8 @@ class BandedAttention(torch.autograd.Function):
     `reconvat_tpu/nn/attention.py:banded_attention_pallas`). The
     probabilities are an output but not differentiable: no loss reads
     them. The backward is first order only: VAT detaches its direction, so
-    nothing differentiates through a gradient of this op. For bf16
-    operands it raises."""
+    nothing differentiates through a gradient of this op. With bf16 q, k
+    and v it returns dq, dk and dv in bf16 and drel in fp32."""
 
     @staticmethod
     def forward(ctx, q, kpad, vpad, rel, window: int):
@@ -295,10 +337,6 @@ class BandedAttention(torch.autograd.Function):
     def backward(ctx, d_out, d_probs):
         del d_probs
         q, kpad, vpad, rel = ctx.saved_tensors
-        if q.dtype == torch.bfloat16:
-            raise NotImplementedError(
-                f"BandedAttention: no backward for {q.dtype} operands yet "
-                f"(the bf16 backward is the next slice)")
         return (*banded_attention_bwd(q, kpad, vpad, rel,
                                       d_out.contiguous(), ctx.window),
                 None)

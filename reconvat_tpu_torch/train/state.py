@@ -7,8 +7,11 @@ Adam, StepLR(step_size=1000, gamma=0.98) stepped per batch (a staircase
 exponential decay), LDS losses scaled by alpha/2, and the gradient's global
 norm clipped to 3.0 *before* the update (the reference clips after
 `optimizer.step()`, which leaves the step it just took unclipped; the JAX
-package clips before, and so does this port). The whole step runs in full
-fp32, with TF32 off.
+package clips before, and so does this port). TF32 is off throughout. A
+fp32 model runs the whole step in fp32; a bf16 model
+(`compute_dtype='bfloat16'`) runs its convolutions, attention projections
+and attention core in bf16, while its parameters, and so the gradients
+that reach them through the casts, the clipping and Adam, stay fp32.
 """
 from __future__ import annotations
 

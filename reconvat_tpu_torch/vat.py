@@ -6,7 +6,11 @@ the gradient of the objective with respect to a random direction d, taken
 with `torch.autograd.grad` and detached, as the reference's
 `loss.backward(); d = d.grad`. The perturbed input is clamped to [0, 1],
 and the direction is scaled by 1e10 against fp32 underflow before it is
-normalized again.
+normalized again. The direction is drawn in x's dtype (fp32 in both compute
+dtypes: a bf16 model casts the perturbed input at its first convolution,
+as the JAX package does, so at the default xi the perturbation is mostly
+rounded away there and the direction is zero wherever the clean and
+perturbed predictions agree bit for bit).
 """
 from __future__ import annotations
 

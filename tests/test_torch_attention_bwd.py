@@ -5,6 +5,12 @@ atol 3e-6 (rtol 1e-4), the bound the JAX package holds its Pallas backward
 to against the XLA VJP (tests/test_pallas_attention_bwd.py). Both sides are
 fp32; dk and dv add up to `window` terms per row in another order, and
 drel sums over every (batch, row) of a head.
+bf16 operands (q, kpad, vpad, d_out bf16; rel fp32): each gradient within
+2x JAX's own bf16-vs-fp32 gap on the same inputs (the rule of
+tests/test_torch_bf16.py), against each JAX route: the XLA formulation's
+VJP rounds each einsum's output to bf16 (the scores among them), and the
+Pallas kernel also rounds rel to bf16, where the port keeps rel fp32 and
+rounds only dS and p before their products.
 The kernel-against-plain tests are in tests/test_torch_kernels.py.
 """
 import numpy as np
@@ -22,6 +28,7 @@ from reconvat_tpu_torch.weights import flax_to_torch
 
 ATOL, RTOL = 3e-6, 1e-4
 NAMES = ("dq", "dk", "dv", "drel")
+GAP_FACTOR = 2.0
 
 
 def _inputs(B=2, L=100, H=4, Dh=57, window=31, seed=0):
@@ -67,6 +74,64 @@ def test_backward_plain_matches_jax(L, window, block):
                                                      d_out, window, block))
 
 
+def _bf16(*arrays):
+    return [torch.from_numpy(a).to(torch.bfloat16) for a in arrays]
+
+
+def _np(x):
+    if isinstance(x, torch.Tensor):
+        return x.float().numpy()
+    return np.asarray(x, np.float32)
+
+
+@pytest.mark.parametrize("L,window,block", [(100, 31, 64), (64, 7, 64)])
+def test_backward_plain_bf16_matches_jax(L, window, block):
+    """bf16 q, kpad, vpad and d_out, fp32 rel: the port's plain backward
+    and the autograd op on the CPU (which runs it) against jax.vjp of the
+    XLA formulation in bf16 and against the Pallas backward kernel in
+    interpret mode on the same bf16 operands, each held to 2x its own
+    route's bf16-vs-fp32 gap; dq, dk and dv come back bf16, drel fp32."""
+    q, kpad, vpad, rel, d_out = _inputs(L=L, window=window, seed=6)
+
+    def xla(dtype):
+        def ref_fn(q_, k_, v_, r_):
+            out, _ = jattn.banded_attention(q_, k_, v_, r_, window, 64,
+                                            return_probs=False)
+            return out
+        args = [jnp.asarray(a, dtype) for a in (q, kpad, vpad)]
+        _, vjp = jax.vjp(ref_fn, *args, jnp.asarray(rel))
+        return vjp(jnp.asarray(d_out, dtype))
+
+    def pallas(dtype):
+        return pallas_banded_backward(
+            *(jnp.asarray(a, dtype) for a in (q, kpad, vpad)),
+            jnp.asarray(rel), jnp.asarray(d_out, dtype), window, block)
+
+    qb, kb, vb, db = _bf16(q, kpad, vpad, d_out)
+    rel_t = torch.from_numpy(rel)
+    got = bak.banded_attention_bwd_plain(qb, kb, vb, rel_t, db, window)
+    got32 = bak.banded_attention_bwd_plain(
+        *(torch.from_numpy(a) for a in (q, kpad, vpad, rel, d_out)), window)
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
+
+    leaves = [t.clone().requires_grad_() for t in (qb, kb, vb, rel_t)]
+    out, _ = bak.BandedAttention.apply(*leaves, window)
+    op = torch.autograd.grad(out, leaves, db)
+    for name, a, b in zip(NAMES, op, got):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+    for route in (xla, pallas):
+        ref16, ref32 = route(jnp.bfloat16), route(jnp.float32)
+        for name, a, b, c, d in zip(NAMES, got, ref16, ref32, got32):
+            a, b, c, d = map(_np, (a, b, c, d))
+            gap = np.abs(b - c).max()
+            err = np.abs(a - b).max()
+            assert err <= GAP_FACTOR * gap, (
+                f"{route.__name__} {name}: port bf16 is {err} from JAX "
+                f"bf16, JAX's own bf16-vs-fp32 gap is {gap}")
+            assert np.abs(a - d).max() > 0, f"{name}: bf16 did not run"
+
+
 @pytest.mark.parametrize("L,window,tile", [(100, 31, 32), (33, 7, 8),
                                            (64, 31, 16)])
 def test_two_pass_plain_equals_backward(L, window, tile):
@@ -85,6 +150,30 @@ def test_two_pass_plain_equals_backward(L, window, tile):
     for name, a, b in zip(NAMES, got, expect):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=1e-5,
                                    msg=lambda m, n=name: f"{n}: {m}")
+
+
+@pytest.mark.parametrize("L,window,tile", [(100, 31, 32), (33, 7, 8)])
+def test_two_pass_plain_bf16_equals_backward(L, window, tile):
+    """The two passes in plain PyTorch on bf16 operands: dq bf16 and equal
+    to the backward's, fp32 partials, dk and dv overlap-added in fp32 and
+    then rounded to bf16 once, as the kernel's second pass does (one bf16
+    ulp of |ref| where the fp32 sums in another order round the other
+    way), drel fp32 (rtol 1e-4)."""
+    q, kpad, vpad, rel, d_out = _inputs(L=L, window=window, seed=7)
+    t = [*_bf16(q, kpad, vpad), torch.from_numpy(rel), *_bf16(d_out)]
+    dq, dk_part, dv_part, drel_part = bak.banded_attention_bwd_partials_plain(
+        *t, window, tile)
+    assert dq.dtype == torch.bfloat16
+    assert {x.dtype for x in (dk_part, dv_part, drel_part)} == {torch.float32}
+    dk, dv, drel = bak.banded_attention_bwd_reduce_plain(
+        dk_part, dv_part, drel_part, L, window, tile)
+    expect = bak.banded_attention_bwd_plain(*t, window)
+    assert torch.equal(dq, expect[0])
+    for name, a, b in zip(("dk", "dv"), (dk, dv), expect[1:3]):
+        a = a.to(torch.bfloat16)       # the kernel's one rounding
+        err = (a.float() - b.float()).abs()
+        assert (err <= 2 ** -7 * b.float().abs()).all(), (name, err.max())
+    torch.testing.assert_close(drel, expect[3], rtol=RTOL, atol=1e-5)
 
 
 def test_autograd_op_matches_autograd_of_plain_forward():

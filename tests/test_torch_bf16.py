@@ -9,8 +9,9 @@ the Pallas kernel does; summation orders differ), so the port's bf16 output
 may lie as far from JAX's as JAX's bf16 lies from its own fp32, and twice
 that covers two roundings that fall apart. Each output must also differ
 from the port's own fp32 output by more than 1e-7: bf16 really ran.
-The card's tests of the bf16 kernel and of the bf16 attention module are
-in `tests/test_torch_kernels.py`, which imports no JAX.
+The card's tests of the bf16 kernels and of the bf16 attention module are
+in `tests/test_torch_kernels.py`, which imports no JAX; the bf16 train step
+is held against JAX's in `tests/test_torch_bf16_train.py`.
 The JAX models run their default XLA, NHWC path, jitted; BatchNorm is in
 eval mode with perturbed statistics (`_perturb`). The weights are the
 port's seeded init carried into the JAX tree (`torch_to_flax`), perturbed,
@@ -247,14 +248,6 @@ def test_serving_submit_runs_bf16_model(models, transcribed):
     assert torch.equal(packed, pack_roll_device(probs))
     np.testing.assert_array_equal(unpack_roll(packed.numpy()),
                                   probs.numpy() > 0.5)
-
-
-def test_run_on_batch_bf16_raises(models):
-    port16 = models[-1]
-    batch = {"audio": torch.zeros((1, 32 * 512)),
-             "frame": torch.zeros((1, 32, 88))}
-    with pytest.raises(NotImplementedError, match="next slice"):
-        port16.run_on_batch(batch, train=False)
 
 
 @pytest.mark.parametrize("name", ["float16", torch.bfloat16])

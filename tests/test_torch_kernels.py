@@ -22,6 +22,20 @@ of a value rounded from fp32 sums taken in another order, plus a p that
 rounds to bf16 the other way; and at most 1 % of the out elements may
 differ at all: sums in another order round the other way for ~1e-4 of
 them, a kernel that skips the rounding of p for ~40 %.
+bf16 attention backward (q, kpad, vpad, d_out, dq, dk, dv bf16; rel, drel
+and the first pass's partials fp32), against its bf16 plain version: dq,
+dk and dv by the rule of bf16 out above. Both sides round dS and p to bf16
+before their products; where the two sides' fp32 dS lies on either side of
+a bf16 rounding boundary, one term of a sum moves by a bf16 ulp of dS. The
+partials are fp32 sums over at most 32 rows: each within 2**-7 of its max
+|ref| everywhere, and at most 1 % of its elements further than 1e-5 of
+max |ref| (the fp32 gradients' atol) from it; another order moves ~0.03 %
+of them that far, by up to ~8e-4 of max |ref|, while a backward that skips
+the rounding of dS (or p) moves 80-93 %. drel sums over all B x L rows of
+a head, so such moves fall in most of its columns (1.5 % of its elements
+beyond 1e-5 at B=8 x 640): it is held to 5e-4 of its max |ref| instead,
+where another order reads up to 2.3e-4 (B=2 x 640) and 6e-5 (B=8 x 640)
+and a missing rounding of dS 1.6e-3 (`test_bf16_bwd_rule_sees_unrounded_ds_and_p`).
 """
 import numpy as np
 import pytest
@@ -37,6 +51,9 @@ MEL_TOL = dict(rtol=1e-4, atol=1e-6)
 ATTN_TOL = dict(rtol=1e-4, atol=1e-5)
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)   # on gradients over their max |.|
 BF16_OUT_MOVED = 1e-2     # share of bf16 out elements that may differ
+BF16_DREL_RTOL = 5e-4     # bf16 backward's drel, over its max |ref|
+BF16_BWD_NAMES = ("dq", "dk", "dv", "drel")
+BF16_PART_NAMES = ("dq", "dk_part", "dv_part", "drel_part")
 
 
 def _assert_bf16_out_close(out, ref_out):
@@ -45,6 +62,32 @@ def _assert_bf16_out_close(out, ref_out):
     assert (err <= 2 ** -7 * ref.abs() + 1e-3 * ref.abs().max()).all(), \
         err.max()
     assert (err > 0).float().mean().item() <= BF16_OUT_MOVED
+
+
+def _bf16_bwd_misses(got, ref, names):
+    """The outputs of a bf16-operand backward that break the module
+    docstring's rule, by name: bf16 outputs (dq, dk, dv) by the rule of
+    bf16 out, drel by BF16_DREL_RTOL, the fp32 partials by the share
+    rule."""
+    missed = []
+    for name, a, b in zip(names, got, ref):
+        assert a.dtype == b.dtype, name
+        bf16 = a.dtype == torch.bfloat16
+        a, b = a.float(), b.float()
+        err, top = (a - b).abs(), b.abs().max()
+        if bf16:
+            within = err <= 2 ** -7 * b.abs() + 1e-3 * top
+            moved = err > 0
+        elif name == "drel":
+            within = err <= BF16_DREL_RTOL * top
+            moved = torch.zeros(())
+        else:
+            within = err <= 2 ** -7 * top
+            moved = err > 1e-5 * top
+        if not (torch.isfinite(a).all() and within.all()
+                and moved.float().mean().item() <= BF16_OUT_MOVED):
+            missed.append(name)
+    return missed
 
 
 def _assert_grads_close(got, ref, names=("dq", "dk", "dv", "drel")):
@@ -238,7 +281,9 @@ def test_attention_bf16_kernel_matches_plain(cuda_device, B, L, window, Dh,
 @pytest.mark.cuda
 def test_attention_module_bf16_launches_kernel(cuda_device):
     """On the card: the bf16 attention module runs the bf16 kernel (and not
-    the fp32 one), agrees with its plain route, and its backward raises."""
+    the fp32 one) and agrees with its plain route, and its backward runs
+    the bf16 backward kernel (and not the fp32 one), reaching the input
+    and every parameter with fp32 gradients."""
     from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
 
     torch.manual_seed(0)
@@ -260,8 +305,15 @@ def test_attention_module_bf16_launches_kernel(cuda_device):
     _assert_bf16_out_close(out, ref_out)
     mod.use_kernel = True
     x.requires_grad_(True)
-    with pytest.raises(NotImplementedError, match="next slice"):
-        mod(x)[0].float().sum().backward()
+    bwd = (bak.banded_attention_bwd, bak.banded_attention_bwd_partials)
+    counts = [(f.launches, f.launches_bf16) for f in bwd]
+    mod(x)[0].float().square().sum().backward()
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in bwd] == [
+        (n, n16 + 1) for n, n16 in counts]
+    for g in [x.grad] + [p.grad for p in mod.parameters()]:
+        assert g.dtype == torch.float32 and torch.isfinite(g).all()
+        assert g.abs().max().item() > 0
 
 
 @pytest.mark.cuda
@@ -304,6 +356,128 @@ def test_attention_bwd_first_pass_matches_plain(cuda_device):
     _assert_grads_close(got, bak.banded_attention_bwd_partials_plain(
         q, kpad, vpad, rel, d_out, 31), ("dq", "dk_part", "dv_part",
                                          "drel_part"))
+
+
+def _d_out(q, seed):
+    return torch.randn(q.shape, generator=torch.Generator().manual_seed(seed)
+                       ).to(q.device, q.dtype)
+
+
+def _bwd_float64(q, kpad, vpad, rel, d_out, window, round_p, round_ds,
+                 tile=bak.BWD_TILE):
+    """The bf16 backward with p and dS in float64, each rounded to bf16 or
+    not, and every sum in float64 (another order than the plain version's
+    fp32 sums). Returns (dq, dk, dv, drel) and (dq, dk_part, dv_part,
+    drel_part) in the bf16 backward's dtypes."""
+    L = q.shape[1]
+    q, kpad, vpad, rel, d_out = (t.double() for t in
+                                 (q, kpad, vpad, rel, d_out))
+    kw, vw = kpad.unfold(1, window, 1), vpad.unfold(1, window, 1)
+    s = (torch.einsum("blhd,blhdw->blhw", q, kw)
+         + torch.einsum("blhd,hdw->blhw", q, rel))
+    p = torch.softmax(s, dim=-1)
+    dp = torch.einsum("blhd,blhdw->blhw", d_out, vw)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    if round_p:
+        p = p.to(torch.bfloat16).double()
+    if round_ds:
+        ds = ds.to(torch.bfloat16).double()
+    dq = torch.einsum("blhw,blhdw->blhd", ds, kw + rel).to(torch.bfloat16)
+    dk, dv = torch.zeros_like(kpad), torch.zeros_like(vpad)
+    for j in range(window):
+        dk[:, j:j + L] += ds[..., j, None] * q
+        dv[:, j:j + L] += p[..., j, None] * d_out
+    drel = torch.einsum("blhw,blhd->hdw", ds, q)
+    qt, dot, pt, dst = (bak._tiles(x, tile) for x in (q, d_out, p, ds))
+    dk_part = qt.new_zeros(qt.shape[:3] + (tile + window - 1, qt.shape[4]))
+    dv_part = torch.zeros_like(dk_part)
+    for j in range(window):
+        dk_part[:, :, :, j:j + tile] += dst[..., j, None] * qt
+        dv_part[:, :, :, j:j + tile] += pt[..., j, None] * dot
+    drel_part = torch.einsum("bhnrw,bhnrd->bhndw", dst, qt)
+    return ((dq, dk.to(torch.bfloat16), dv.to(torch.bfloat16), drel.float()),
+            (dq, dk_part.float(), dv_part.float(), drel_part.float()))
+
+
+@pytest.mark.parametrize("variant", ["another_order", "dS_unrounded",
+                                     "p_unrounded"])
+def test_bf16_bwd_rule_sees_unrounded_ds_and_p(variant):
+    """The rule held on the bf16 backward kernel (module docstring) tells
+    the forms apart, on both passes: p and dS in float64 and every sum in
+    another order pass it; skipping the rounding of dS breaks it on dq,
+    dk and drel (and their partials), skipping that of p on dv."""
+    q, kpad, vpad, rel = _attn_inputs(160, 31, 229, B=2, seed=1)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    d_out = _d_out(q, 2)
+    args = (q, kpad, vpad, rel, d_out, 31)
+    full, parts = _bwd_float64(*args, round_p=variant != "p_unrounded",
+                               round_ds=variant != "dS_unrounded")
+    missed = (_bf16_bwd_misses(full, bak.banded_attention_bwd_plain(*args),
+                               BF16_BWD_NAMES)
+              + _bf16_bwd_misses(parts,
+                                 bak.banded_attention_bwd_partials_plain(
+                                     *args), BF16_PART_NAMES))
+    expect = {"another_order": [],
+              "dS_unrounded": ["dq", "dk", "drel", "dq", "dk_part",
+                               "drel_part"],
+              "p_unrounded": ["dv", "dv_part"]}[variant]
+    assert missed == expect
+
+
+def test_bf16_bwd_wrappers_are_plain_on_cpu():
+    q, kpad, vpad, rel = _attn_inputs(40, 7, 57)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    args = (q, kpad, vpad, rel, _d_out(q, 3), 7)
+    wrappers = (bak.banded_attention_bwd, bak.banded_attention_bwd_partials)
+    before = [(f.launches, f.launches_bf16) for f in wrappers]
+    for wrapper, plain in ((bak.banded_attention_bwd,
+                            bak.banded_attention_bwd_plain),
+                           (bak.banded_attention_bwd_partials,
+                            bak.banded_attention_bwd_partials_plain)):
+        for a, b in zip(wrapper(*args), plain(*args)):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    assert [(f.launches, f.launches_bf16) for f in wrappers] == before
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
+                                           (2, 33, 7, 57)])     # ragged tile
+def test_attention_bwd_bf16_kernel_matches_plain(cuda_device, B, L, window,
+                                                 Dh):
+    """Both passes of the bf16 backward kernel against the bf16 plain
+    versions; only the bf16 instances launch."""
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(L, window, Dh, B=B))
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    args = (q, kpad, vpad, rel, _d_out(q, 5), window)
+    wrappers = (bak.banded_attention_bwd, bak.banded_attention_bwd_partials)
+    before = [(f.launches, f.launches_bf16) for f in wrappers]
+    got = bak.banded_attention_bwd(*args)
+    parts = bak.banded_attention_bwd_partials(*args)
+    torch.cuda.synchronize()
+    assert [(f.launches, f.launches_bf16) for f in wrappers] == [
+        (before[0][0], before[0][1] + 1), (before[1][0], before[1][1] + 2)]
+    assert [g.dtype for g in got] == [torch.bfloat16] * 3 + [torch.float32]
+    assert _bf16_bwd_misses(got, bak.banded_attention_bwd_plain(*args),
+                            BF16_BWD_NAMES) == []
+    assert _bf16_bwd_misses(parts,
+                            bak.banded_attention_bwd_partials_plain(*args),
+                            BF16_PART_NAMES) == []
+
+
+@pytest.mark.cuda
+def test_attention_bwd_refuses_mixed_dtypes(cuda_device):
+    q, kpad, vpad, rel = (t.to(cuda_device) for t in _attn_inputs(40, 31, 64))
+    d_out = _d_out(q, 6)
+    b16 = [t.to(torch.bfloat16) for t in (q, kpad, vpad, d_out)]
+    for wrapper in (bak.banded_attention_bwd,
+                    bak.banded_attention_bwd_partials):
+        with pytest.raises(TypeError):     # bf16 q with fp32 kpad / vpad
+            wrapper(b16[0], kpad, vpad, rel, b16[3], 31)
+        with pytest.raises(TypeError):     # fp32 d_out with bf16 operands
+            wrapper(*b16[:3], rel, d_out, 31)
+        with pytest.raises(TypeError):     # rel must stay fp32
+            wrapper(*b16[:3], rel.to(torch.bfloat16), b16[3], 31)
 
 
 @pytest.mark.cuda
