@@ -672,6 +672,7 @@ def per_batch(r) -> str:
 
 KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
                  ("banded_attention_bwd", ("bwd_partials_kernel",
+                                           "bwd_partials_mma_kernel",
                                            "bwd_overlap_add_kernel",
                                            "bwd_drel_sum_kernel")),
                  ("banded_attention_fwd", ("banded_attention",)),

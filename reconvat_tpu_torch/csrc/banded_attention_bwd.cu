@@ -20,40 +20,71 @@
 // so the work is split in two passes and stays deterministic without
 // atomics:
 //
-//   pass 1 (`bwd_partials_kernel`): a block owns one (b, h) and TQ query
-//     rows. It writes dq for its rows, and per-tile partials of dk and dv
-//     over its TQ + W - 1 context rows and of drel over (Dh, W).
+//   pass 1 (`bwd_partials_kernel<float>` for fp32 operands,
+//     `bwd_partials_mma_kernel` for bf16 ones): a block owns one (b, h) and
+//     TQ query rows. It writes dq for its rows, and per-tile partials of dk
+//     and dv over its TQ + W - 1 context rows and of drel over (Dh, W).
 //   pass 2 (`bwd_overlap_add_kernel`, `bwd_drel_sum_kernel`): each output
 //     row of dk / dv adds the partials of the (at most two) tiles whose
 //     context covers it, in tile order; drel sums its partials over batch
 //     and tiles in a fixed order.
 //
-// Operand types. `T` is the type of q, kpad, vpad, dO, dq, dk and dv: float,
-// or __nv_bfloat16 for the mixed-precision model. rel, drel and the partials
-// are fp32 in both. A bf16 operand is widened to fp32 as it is staged
-// (exact), so p and dS are computed in fp32 in both. In bf16, dS is rounded
-// to bf16 before the dq, dk and drel products and p before the dv product,
-// the rounding points of the Pallas kernel (pallas_attention_bwd.py:114,
-// 126, 129); the products accumulate in fp32, and dq, dk and dv are rounded
-// to bf16 once, at their stores. The fp32 instance runs the expressions it
-// always ran, in the same order.
+// Operand types. q, kpad, vpad, dO, dq, dk and dv are fp32, or
+// __nv_bfloat16 for the mixed-precision model; rel, drel and the partials
+// are fp32 in both. p and dS are computed in fp32 in both. With bf16
+// operands dS is rounded to bf16 before the dq, dk and drel products and p
+// before the dv product, the rounding points of the Pallas kernel
+// (pallas_attention_bwd.py:114, 126, 129); the products accumulate in fp32,
+// and dq, dk and dv are rounded to bf16 once, at their stores.
 //
 // What bounds it on the H100: bytes. At B=8, L=640, H=4, Dh=229, W=31 the
 // function reads q, kpad, vpad, rel, dO and writes dq, dk, dv, drel, about
 // 135 MB in fp32 and 68 MB with bf16 operands (0.040 / 0.020 ms at
 // 3.35 TB/s), for about 2.1 GFLOP (0.031 ms at the fp32 peak).
 //
-// What this simple design does about it: pass 1 stages the K and V halos
-// (TQ + W - 1 rows), q, dO and rel[h] in shared memory once per tile, so
-// the device reads every input about once; the partials it writes (about
-// 90 MB at the sizes above, read once more by pass 2) are the price of
-// determinism without atomics. The band's skew and unskew are plain
-// indexing. In the score phase lane j of a warp owns window offset j (the
-// head width 229 is odd, so the lanes reading 31 rows of a 229-float
+// Both first passes stage the K and V halos (TQ + W - 1 rows), q, dO and
+// rel[h] in shared memory once per tile, so the device reads every input
+// about once; the partials they write (about 90 MB at the sizes above,
+// read once more by pass 2) are the price of determinism without atomics.
+// Heads are Dh-element slices of an H * Dh row (229 of 916: 458 bytes at
+// 2-byte alignment), so rows are not 16-byte aligned: neither TMA (16-byte
+// strides) nor a 16-byte cp.async can address them, and loads are scalar.
+// The ragged last tile is masked (dS = p = 0).
+//
+// The fp32 first pass (`bwd_partials_kernel<float>`, 208 KB of shared
+// memory) widens nothing and rounds nothing. The band's skew and unskew are
+// plain indexing. In the score phase lane j of a warp owns window offset j
+// (the head width 229 is odd, so the lanes reading 31 rows of a 229-float
 // stride hit distinct banks); in the gradient phases threads run over the
-// feature axis, consecutive threads on consecutive addresses. Heads are
-// 229-float slices of a 916-wide row, so rows are not 16-byte aligned:
-// all loads are scalar. The ragged last tile is masked (dS = p = 0).
+// feature axis, consecutive threads on consecutive addresses. What holds it
+// back: every product is a scalar fp32 FMA fed from shared memory with no
+// reuse in registers (about 5 shared loads per 3 FMAs in the score loop).
+//
+// The bf16 first pass (`bwd_partials_mma_kernel`, about 186 KB) runs every
+// product on the tensor cores as bf16 x bf16 -> fp32 mma.sync m16n8k16
+// tiles, their operands read by ldmatrix:
+//   - q, dO (TQ rows) and the K, V context (padded to KC = 64 rows) are
+//     staged as bf16, Dh padded with zeros to D16 (a multiple of 16). A
+//     thread issues all its loads of a batch before it stores any. rel[h]
+//     is split once into three bf16 terms r1 + r2 + r3 = rel exactly
+//     (`split_bf16x3` in ops/banded_attention_kernel.py), so the products
+//     that read rel weigh q and dS by the fp32 rel.
+//   - S = Q K^T, dP = dO V^T (32 x 64) and Q r_i^T (32 x 32 each) go to
+//     fp32 tiles; the band, softmax and dS run per row on the CUDA cores
+//     as in the fp32 pass, and write P_dense, dS_dense (32 x 64, p and dS
+//     at [r, r + j]) and dS_band (32 x 32, dS at [r, j]) as bf16.
+//   - dq = dS_dense K + dS_band (r1 + r2 + r3)^T, dk = dS_dense^T Q,
+//     dv = P_dense^T dO and drel = Q^T dS_band; each output tile is stored
+//     through a per-warp shared-memory patch, so the fp32 partials leave
+//     as 64-byte rows.
+// Each depth-16 product is summed from zero and then added in fp32, which
+// keeps the sums closer to the fp32 FMA chains of the plain version than
+// one accumulator run through the tensor cores. `wgmma` is not used: it
+// wants 64-row A tiles per warpgroup and descriptor-swizzled shared memory,
+// which the 32-row tile and the unaligned head slices do not give. What
+// holds it back (PERF.md §6): one block per SM, and every SM of a wave in
+// the same phase, so the staging reads and the partials' writes do not
+// overlap with the products.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,9 +96,6 @@ constexpr int NT = 512;        // threads per block (16 warps)
 constexpr int MAX_DCHUNK = 8;  // head width <= 32 * 8 = 256
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
@@ -85,6 +113,9 @@ __device__ __forceinline__ float round_if_bf16(float x) {
   return to_f32(from_f32<T>(x));
 }
 
+// Launched for fp32 operands only (bf16 operands take
+// bwd_partials_mma_kernel); with T = float, to_f32 and round_if_bf16 are the
+// identity.
 template <typename T>
 __global__ void __launch_bounds__(NT)
 bwd_partials_kernel(const T* __restrict__ q,          // (B, L, H, D)
@@ -235,6 +266,353 @@ bwd_partials_kernel(const T* __restrict__ q,          // (B, L, H, D)
   }
 }
 
+// ---- bf16 first pass on tensor cores ----------------------------------
+// Tile shapes: the context padded to KC rows, the window to WP columns;
+// each product is a run of bf16 mma.sync m16n8k16 tiles with fp32 sums.
+constexpr int KC = 64;                 // context rows, TQ + W - 1 <= 63
+constexpr int WP = 32;                 // window columns
+constexpr int LDC = KC + 8;            // bf16 row pitch of P_dense, dS_dense
+constexpr int LDB = WP + 8;            // bf16 row pitch of dS_band
+constexpr int LDS = KC + 4;            // fp32 row pitch of S and dP
+constexpr int LDR = WP + 4;            // fp32 row pitch of Q r_i^T
+constexpr int LDP = 24;                // fp32 row pitch of a warp's patch
+constexpr int NWARPS = NT / 32;
+static_assert(NWARPS * 16 * LDP <= TQ * (2 * LDS + 3 * LDR),
+              "the store patches reuse the S, dP and Q r_i^T tiles");
+
+using bf16 = __nv_bfloat16;
+
+// Four 8 x 8 bf16 matrices from shared memory, one row address per lane
+// (lanes 8i..8i+7 give matrix i's rows), optionally transposed
+template <bool TRANS>
+__device__ __forceinline__ void ldsm_x4(unsigned (&r)[4], unsigned addr) {
+  if (TRANS)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 "
+                 "{%0, %1, %2, %3}, [%4];"
+                 : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+                 : "r"(addr));
+}
+
+// d = A (16 x 16) B (16 x 8), bf16 operands, fp32 result
+__device__ __forceinline__ void mma_16816(float (&d)[4], const unsigned (&a)[4],
+                                          unsigned b0, unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%10, %10, %10, %10};"
+               : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1), "f"(0.f));
+}
+
+// acc += A B for one warp's 16 x 16 output tile, over `steps` products of
+// depth 16. acc[n][i] is the mma fragment of output columns 8n..8n+7:
+// rows lane / 4 (i = 0, 1) and lane / 4 + 8 (i = 2, 3), columns
+// 2 (lane % 4) + (i % 2). A is stored (m, k) in shared memory, or (k, m)
+// for A_T; B is stored (k, n), or (n, k) for B_T; lda / ldb are the row
+// pitches, a and b point at the first tile, a_step / b_step are the
+// element offsets of the next tile along the depth. Each step's product
+// is summed from zero and then added in fp32, so the tensor cores' own
+// rounding of a sum spans 16 products, not the whole run.
+template <bool A_T, bool B_T>
+__device__ __forceinline__ void mma_run(float (&acc)[2][4], const bf16* a,
+                                        int lda, int a_step, const bf16* b,
+                                        int ldb, int b_step, int steps,
+                                        int lane) {
+  // lane l addresses one 16-byte row of one of the tile's four 8 x 8
+  // matrices. A stored (m, k) and B stored (k, n) take them in the order
+  // (rows, columns of the stored tile) (0-7, 0-7), (8-15, 0-7), (0-7, 8-15),
+  // (8-15, 8-15): row l % 16, column 8 (l / 16). A stored (k, m) and B
+  // stored (n, k) take (0-7, 0-7), (0-7, 8-15), (8-15, 0-7), (8-15, 8-15):
+  // row l % 8 + 8 (l / 16), column 8 (l / 8 % 2).
+  const int r_row = lane & 15, c_row = (lane >> 4) * 8;
+  const int r_col = (lane & 7) + (lane >> 4) * 8, c_col = (lane >> 3 & 1) * 8;
+  const unsigned pa = (unsigned)__cvta_generic_to_shared(
+      a + (A_T ? r_col * lda + c_col : r_row * lda + c_row));
+  const unsigned pb = (unsigned)__cvta_generic_to_shared(
+      b + (B_T ? r_col * ldb + c_col : r_row * ldb + c_row));
+  for (int s = 0; s < steps; ++s) {
+    unsigned fa[4], fb[4];
+    ldsm_x4<A_T>(fa, pa + 2 * s * a_step);
+    ldsm_x4<!B_T>(fb, pb + 2 * s * b_step);
+    float part[2][4];
+    mma_16816(part[0], fa, fb[0], fb[1]);
+    mma_16816(part[1], fa, fb[2], fb[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n)
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += part[n][i];
+  }
+}
+
+// The warp's 16 x 16 tile to fp32 shared memory (pitch ldc)
+__device__ __forceinline__ void store_smem(const float (&acc)[2][4], float* c,
+                                           int ldc, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    float* p = c + g * ldc + n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(p) = make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(p + 8 * ldc) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// The warp's 16 x 16 tile to out (row pitch ld_out, as T), rows < rows and
+// columns < cols only, through the warp's shared-memory patch (pitch LDP):
+// a fragment holds pairs of columns 8 rows apart, so it is stored to the
+// patch and read back a row per half warp, 64 contiguous bytes of fp32
+// partials per store
+template <typename T>
+__device__ __forceinline__ void store_tile(const float (&acc)[2][4],
+                                           float* patch, T* out,
+                                           size_t ld_out, int rows, int cols,
+                                           int lane) {
+  store_smem(acc, patch, LDP, lane);
+  __syncwarp();
+  const int r0 = lane >> 4, c = lane & 15;
+  if (c < cols) {
+#pragma unroll
+    for (int r = r0; r < 16; r += 2)
+      if (r < rows) out[r * ld_out + c] = from_f32<T>(patch[r * LDP + c]);
+  }
+  __syncwarp();
+}
+
+// Rows r = warp + i * NWARPS (i < ROWS) of two bf16 (rows, D) slices, row
+// r at ga / gb + r * stride, into sa / sb (pitch ld), zero at rows >= live
+// and columns in [D, D16). A thread issues all its loads before it stores
+// any, so staging waits about one memory latency, not one per row.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(bf16* sa, bf16* sb,
+                                           const bf16* __restrict__ ga,
+                                           const bf16* __restrict__ gb,
+                                           size_t stride, int live, int D,
+                                           int D16, int ld, int warp,
+                                           int lane) {
+  const bf16 zero = __float2bfloat16_rn(0.f);
+  bf16 va[ROWS][MAX_DCHUNK], vb[ROWS][MAX_DCHUNK];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + i * NWARPS;
+#pragma unroll
+    for (int c = 0; c < MAX_DCHUNK; ++c) {
+      const int d = lane + 32 * c;
+      const bool in = r < live && d < D;
+      va[i][c] = in ? ga[r * stride + d] : zero;
+      vb[i][c] = in ? gb[r * stride + d] : zero;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + i * NWARPS;
+#pragma unroll
+    for (int c = 0; c < MAX_DCHUNK; ++c) {
+      const int d = lane + 32 * c;
+      if (d < D16) {
+        sa[r * ld + d] = va[i][c];
+        sb[r * ld + d] = vb[i][c];
+      }
+    }
+  }
+}
+
+// Pass 1 for bf16 operands: one block per (b, h) and TQ query rows, as
+// bwd_partials_kernel, with every product on the tensor cores (the file's
+// note, "The bf16 first pass").
+__global__ void __launch_bounds__(NT, 1)
+bwd_partials_mma_kernel(const bf16* __restrict__ q,        // (B, L, H, D)
+                        const bf16* __restrict__ kpad,     // (B, L+W-1, H, D)
+                        const bf16* __restrict__ vpad,     // (B, L+W-1, H, D)
+                        const float* __restrict__ rel,     // (H, D, W)
+                        const bf16* __restrict__ dout,     // (B, L, H, D)
+                        bf16* __restrict__ dq,             // (B, L, H, D)
+                        float* __restrict__ dk_part,       // (B, H, nT, ctx, D)
+                        float* __restrict__ dv_part,       // (B, H, nT, ctx, D)
+                        float* __restrict__ drel_part,     // (B, H, nT, D, W)
+                        int L, int H, int D, int W) {
+  extern __shared__ __align__(128) unsigned char smem_mma[];
+  const int D16 = (D + 15) & ~15;      // head width padded to the depth 16
+  const int ld = D16 + 8;              // bf16 row pitch of the operand tiles
+  bf16* qs = reinterpret_cast<bf16*>(smem_mma);  // (TQ, ld)
+  bf16* dos = qs + TQ * ld;            // (TQ, ld)
+  bf16* ks = dos + TQ * ld;            // (KC, ld)
+  bf16* vs = ks + KC * ld;             // (KC, ld)
+  bf16* rs = vs + KC * ld;             // 3 x (WP, ld): rel^T in three terms
+  bf16* pd = rs + 3 * WP * ld;         // (TQ, LDC) P_dense
+  bf16* dsd = pd + TQ * LDC;           // (TQ, LDC) dS_dense
+  bf16* dsb = dsd + TQ * LDC;          // (TQ, LDB) dS_band
+  float* sf = reinterpret_cast<float*>(dsb + TQ * LDB);  // (TQ, LDS) S
+  float* dpf = sf + TQ * LDS;          // (TQ, LDS) dP
+  float* qrf = dpf + TQ * LDS;         // 3 x (TQ, LDR): Q r_i^T
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int t0 = tile * TQ;
+  const int ctx = TQ + W - 1;
+  const int Lk = L + W - 1;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const size_t row_stride = (size_t)H * D;
+
+  // staging: bf16 as it is, zero past the context, past L or Lk and past D
+  stage_rows<KC / NWARPS>(ks, vs, kpad + ((size_t)b * Lk + t0) * row_stride
+                                      + (size_t)h * D,
+                          vpad + ((size_t)b * Lk + t0) * row_stride
+                              + (size_t)h * D,
+                          row_stride, min(ctx, Lk - t0), D, D16, ld, warp,
+                          lane);
+  stage_rows<TQ / NWARPS>(qs, dos, q + ((size_t)b * L + t0) * row_stride
+                                       + (size_t)h * D,
+                          dout + ((size_t)b * L + t0) * row_stride
+                              + (size_t)h * D,
+                          row_stride, min(TQ, L - t0), D, D16, ld, warp,
+                          lane);
+  // rel[h] (D, W) fp32 -> rs[i][j][d] = r_i, rel = r_1 + r_2 + r_3 exactly;
+  // every load issued before the first split
+  constexpr int REL_PER_THREAD = 32 * MAX_DCHUNK * WP / NT;
+  const float* relh = rel + (size_t)h * D * W;
+  float x[REL_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < REL_PER_THREAD; ++i) {
+    const int e = tid + i * NT, d = e / WP, j = e % WP;
+    x[i] = d < D && j < W ? relh[d * W + j] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < REL_PER_THREAD; ++i) {
+    const int e = tid + i * NT, d = e / WP, j = e % WP;
+    if (d >= D16) continue;
+    const bf16 r1 = __float2bfloat16_rn(x[i]);
+    const float e1 = x[i] - __bfloat162float(r1);
+    const bf16 r2 = __float2bfloat16_rn(e1);
+    rs[j * ld + d] = r1;
+    rs[(WP + j) * ld + d] = r2;
+    rs[(2 * WP + j) * ld + d] =
+        __float2bfloat16_rn(e1 - __bfloat162float(r2));
+  }
+  __syncthreads();
+
+  // scores and dP, 28 tiles of 16 x 16 over the depth D16, at most two per
+  // warp: S = Q K^T and dP = dO V^T (TQ x KC, 16 tiles), and Q r_i^T
+  // (TQ x WP, 4 tiles for each of the three rel terms, each term into its
+  // own fp32 tile)
+  const int ksteps = D16 / 16;
+  for (int u = warp; u < 28; u += NWARPS) {
+    const bf16 *a, *bt;
+    float* c;
+    int ldc;
+    if (u < 16) {
+      const bool is_dp = u >= 8;
+      const int mi = (u >> 2) & 1, ni = u & 3;
+      a = (is_dp ? dos : qs) + mi * 16 * ld;
+      bt = (is_dp ? vs : ks) + ni * 16 * ld;
+      c = (is_dp ? dpf : sf) + mi * 16 * LDS + ni * 16;
+      ldc = LDS;
+    } else {
+      const int i = (u - 16) >> 2, mi = (u >> 1) & 1, ni = u & 1;
+      a = qs + mi * 16 * ld;
+      bt = rs + (i * WP + ni * 16) * ld;
+      c = qrf + (i * TQ + mi * 16) * LDR + ni * 16;
+      ldc = LDR;
+    }
+    float acc[2][4] = {};
+    mma_run<false, true>(acc, a, ld, 16, bt, ld, 16, ksteps, lane);
+    store_smem(acc, c, ldc, lane);
+  }
+  __syncthreads();
+
+  // band, softmax and dS per query row, lane j <-> window offset j, as
+  // bwd_partials_kernel's phase 1; p and dS rounded to bf16 into P_dense,
+  // dS_dense (at [r, r + j]) and dS_band (at [r, j]), zero elsewhere
+  for (int r = warp; r < TQ; r += NWARPS) {
+    const int t = t0 + r;
+    float p = 0.f, ds = 0.f;
+    if (t < L) {
+      // q.k and q.rel summed apart, then added, as the forward does
+      const float* qr = qrf + r * LDR + lane;
+      const float s = lane < W ? sf[r * LDS + r + lane]
+                                     + (qr[0] + qr[TQ * LDR] + qr[2 * TQ * LDR])
+                               : -INFINITY;
+      const float dp = lane < W ? dpf[r * LDS + r + lane] : 0.f;
+      float m = s;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float e = lane < W ? expf(s - m) : 0.f;
+      float z = e;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
+      p = e / z;
+      float pdp = p * dp;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) pdp += __shfl_xor_sync(0xffffffffu, pdp, o);
+      ds = p * (dp - pdp);
+    }
+    dsb[r * LDB + lane] = __float2bfloat16_rn(ds);   // zero for lane >= W
+#pragma unroll
+    for (int c = lane; c < KC; c += 32) {
+      const int j = c - r;
+      const float pj = __shfl_sync(0xffffffffu, p, j & 31);
+      const float dsj = __shfl_sync(0xffffffffu, ds, j & 31);
+      const bool in = j >= 0 && j < W;
+      pd[r * LDC + c] = __float2bfloat16_rn(in ? pj : 0.f);
+      dsd[r * LDC + c] = __float2bfloat16_rn(in ? dsj : 0.f);
+    }
+  }
+  __syncthreads();
+
+  // gradients, one 16 x 16 output tile per warp at a time, S, dP and
+  // Q r_i^T now dead under the warps' store patches:
+  //   dq (TQ x D16)        = dS_dense K + dS_band (r_1 + r_2 + r_3)^T
+  //   dk_part (KC x D16)   = dS_dense^T Q,  dv_part = P_dense^T dO
+  //   drel_part (D16 x WP) = Q^T dS_band
+  float* patch = sf + warp * 16 * LDP;
+  const size_t part = (size_t)blockIdx.y * n_tiles + tile;
+  const int n16 = D16 / 16;
+  const int n_dq = 2 * n16, n_dkv = 4 * n16;
+  const int n_units = n_dq + 2 * n_dkv + 2 * n16;
+  for (int u = warp; u < n_units; u += NWARPS) {
+    float acc[2][4] = {};
+    if (u < n_dq) {
+      const int mi = u / n16, ni = u % n16;
+      mma_run<false, false>(acc, dsd + mi * 16 * LDC, LDC, 16, ks + ni * 16,
+                            ld, 16 * ld, KC / 16, lane);
+      for (int i = 0; i < 3; ++i)
+        mma_run<false, false>(acc, dsb + mi * 16 * LDB, LDB, 16,
+                              rs + i * WP * ld + ni * 16, ld, 16 * ld,
+                              WP / 16, lane);
+      const int r0 = mi * 16, d0 = ni * 16;
+      store_tile(acc, patch,
+                 dq + ((size_t)b * L + t0 + r0) * row_stride + (size_t)h * D
+                    + d0,
+                 row_stride, min(16, L - t0 - r0), min(16, D - d0), lane);
+    } else if (u < n_dq + 2 * n_dkv) {
+      const int v = u - n_dq;
+      const bool is_dv = v >= n_dkv;
+      const int mi = (v % n_dkv) / n16, ni = v % n16;
+      mma_run<true, false>(acc, (is_dv ? pd : dsd) + mi * 16, LDC, 16 * LDC,
+                           (is_dv ? dos : qs) + ni * 16, ld, 16 * ld,
+                           TQ / 16, lane);
+      const int c0 = mi * 16, d0 = ni * 16;
+      store_tile(acc, patch,
+                 (is_dv ? dv_part : dk_part) + (part * ctx + c0) * D + d0,
+                 (size_t)D, ctx - c0, min(16, D - d0), lane);
+    } else {
+      const int v = u - n_dq - 2 * n_dkv;
+      const int mi = v / 2, ni = v % 2;
+      mma_run<true, false>(acc, qs + mi * 16, ld, 16 * ld, dsb + ni * 16,
+                           LDB, 16 * LDB, TQ / 16, lane);
+      const int d0 = mi * 16, j0 = ni * 16;
+      store_tile(acc, patch, drel_part + (part * D + d0) * W + j0, (size_t)W,
+                 min(16, D - d0), W - j0, lane);
+    }
+  }
+}
+
 // dk / dv row s of (b, h) = sum over the tiles i whose context
 // [i*TQ, i*TQ + ctx) covers s, in increasing i, stored as T
 template <typename T>
@@ -313,6 +691,34 @@ int launch_partials(const T* q, const T* kpad, const T* vpad,
   return (int)cudaGetLastError();
 }
 
+int launch_partials_mma(const bf16* q, const bf16* kpad, const bf16* vpad,
+                        const float* rel, const bf16* dout, bf16* dq,
+                        float* dk_part, float* dv_part, float* drel_part,
+                        int B, int L, int H, int D, int W, int tq,
+                        void* stream) {
+  if (tq != TQ || W < 1 || W > 32 || D > 32 * MAX_DCHUNK)
+    return (int)cudaErrorInvalidValue;
+  const size_t ld = ((D + 15) & ~15) + 8;
+  const size_t smem = sizeof(bf16) * ((2 * TQ + 2 * KC + 3 * WP) * ld
+                                      + 2 * TQ * LDC + TQ * LDB)
+                      + sizeof(float) * TQ * (2 * LDS + 3 * LDR);
+  static size_t opted_in[64] = {};     // as launch_partials
+  int device = 0;
+  cudaError_t err = cudaGetDevice(&device);
+  if (err != cudaSuccess) return (int)err;
+  if (device >= 64 || opted_in[device] < smem) {
+    err = cudaFuncSetAttribute(bwd_partials_mma_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    if (device < 64) opted_in[device] = smem;
+  }
+  dim3 grid((L + TQ - 1) / TQ, B * H);
+  bwd_partials_mma_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
+      q, kpad, vpad, rel, dout, dq, dk_part, dv_part, drel_part, L, H, D, W);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_reduce(const float* dk_part, const float* dv_part,
                   const float* drel_part, T* dk, T* dv, float* drel, int B,
@@ -353,9 +759,8 @@ extern "C" int banded_attention_bwd_partials_bf16_launch(
     const __nv_bfloat16* vpad, const float* rel, const __nv_bfloat16* dout,
     __nv_bfloat16* dq, float* dk_part, float* dv_part, float* drel_part,
     int B, int L, int H, int D, int W, int tq, void* stream) {
-  return launch_partials<__nv_bfloat16>(q, kpad, vpad, rel, dout, dq,
-                                        dk_part, dv_part, drel_part, B, L, H,
-                                        D, W, tq, stream);
+  return launch_partials_mma(q, kpad, vpad, rel, dout, dq, dk_part, dv_part,
+                             drel_part, B, L, H, D, W, tq, stream);
 }
 
 // Pass 2: dk and dv from their partials, drel from its partials.

@@ -1,0 +1,166 @@
+"""Phase times of the bf16 first pass of the attention backward on the card.
+
+    python -m reconvat_tpu_torch.kernels.bwd_phases
+
+Writes a copy of `csrc/banded_attention_bwd.cu` in which thread 0 of each
+block of `bwd_partials_mma_kernel` reads the global timer at the kernel's
+start, after each of its block barriers and at its end, builds it with the
+port's nvcc flags into `build/kernels/`, and runs it at the training shape
+(B=8, L=640, H=4, Dh=229, W=31; random bf16 inputs from seed 0). Prints
+the card, the time per block of each phase (staging, scores, band,
+gradients: mean and 90th percentile) and the kernel's time by CUDA events
+(L2 flushed before each launch), the stamped copy's beside the unstamped
+kernel's, in turns. Needs one CUDA device and nvcc.
+"""
+from __future__ import annotations
+
+import ctypes
+import os
+import subprocess
+
+import numpy as np
+import torch
+
+from . import _build
+
+PHASES = ("staging", "scores", "band", "gradients")
+MAX_BLOCKS = 4096
+
+_STAMP = ("  if (threadIdx.x == 0) stamps[(blockIdx.y * gridDim.x + blockIdx.x)"
+          " * 8 + {k}] = global_ns();\n")
+_HEADER = f"""
+__device__ unsigned long long stamps[8 * {MAX_BLOCKS}];
+__device__ __forceinline__ unsigned long long global_ns() {{
+  unsigned long long t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}}
+"""
+_READ = """
+extern "C" int read_stamps(unsigned long long* out, int n) {
+  return (int)cudaMemcpyFromSymbol(out, stamps, sizeof(*out) * n);
+}
+"""
+
+
+def stamped_source() -> str:
+    """The backward's source with the phase stamps in the bf16 first pass."""
+    with open(os.path.join(_build.CSRC, "banded_attention_bwd.cu")) as f:
+        src = f.read()
+    start = src.index("bwd_partials_mma_kernel(const bf16*")
+    end = src.index("\n}\n", start) + 3      # past the closing brace
+    body = src[start:end]
+    head, *rest = body.split("  __syncthreads();\n")
+    if len(rest) != len(PHASES) - 1:
+        raise RuntimeError(f"expected {len(PHASES) - 1} block barriers in "
+                           f"bwd_partials_mma_kernel, found {len(rest)}")
+    brace = head.index("{\n") + 2
+    body = head[:brace] + _STAMP.format(k=0) + head[brace:]
+    for k, part in enumerate(rest, 1):
+        body += "  __syncthreads();\n" + _STAMP.format(k=k) + part
+    body = (body[:-2] + "  __syncthreads();\n"
+            + _STAMP.format(k=len(PHASES)) + "}\n")
+    decl = src.rindex("__global__", 0, start)
+    return (src[:decl] + _HEADER + src[decl:start] + body + src[end:]
+            + _READ)
+
+
+def build_stamped() -> ctypes.CDLL:
+    os.makedirs(_build.BUILD_DIR, exist_ok=True)
+    cu = os.path.join(_build.BUILD_DIR, "banded_attention_bwd_stamped.cu")
+    so = os.path.join(_build.BUILD_DIR, "libbanded_attention_bwd_stamped.so")
+    with open(cu, "w") as f:
+        f.write(stamped_source())
+    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
+                   check=True)
+    lib = ctypes.CDLL(so)
+    lib.banded_attention_bwd_partials_bf16_launch.argtypes = \
+        _build.ENTRY_POINTS["banded_attention_bwd"][
+            "banded_attention_bwd_partials_bf16_launch"]
+    lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
+    for fn in (lib.banded_attention_bwd_partials_bf16_launch,
+               lib.read_stamps):
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
+    flush = torch.empty(64 << 20, dtype=torch.uint8, device="cuda")
+    for _ in range(warmup):
+        fn()
+    total = 0.0
+    for _ in range(iters):
+        for _ in range(8):
+            flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / iters
+
+
+def main() -> None:
+    from ..ops import banded_attention_kernel as bak
+
+    B, L, H, D, W = 8, 640, 4, 229, 31
+    g = torch.Generator(device="cuda").manual_seed(0)
+
+    def randn(*shape, scale=1.0):
+        return (torch.randn(shape, device="cuda", generator=g) * scale)
+
+    q = randn(B, L, H, D, scale=D ** -0.25).bfloat16()
+    kpad = randn(B, L + W - 1, H, D, scale=D ** -0.25).bfloat16()
+    vpad = randn(B, L + W - 1, H, D).bfloat16()
+    rel = randn(H, D, W, scale=0.1)
+    d_out = randn(B, L, H, D).bfloat16()
+    args = (q, kpad, vpad, rel, d_out, W)
+    n = -(-L // bak.BWD_TILE)
+    blocks = n * B * H
+    if blocks > MAX_BLOCKS:
+        raise ValueError(f"{blocks} blocks, the stamps hold {MAX_BLOCKS}")
+    outs = (torch.empty_like(q),
+            torch.empty((B, H, n, bak.BWD_TILE + W - 1, D), device="cuda"),
+            torch.empty((B, H, n, bak.BWD_TILE + W - 1, D), device="cuda"),
+            torch.empty((B, H, n, D, W), device="cuda"))
+    lib = build_stamped()
+
+    def stamped():
+        err = lib.banded_attention_bwd_partials_bf16_launch(
+            *(t.data_ptr() for t in (q, kpad, vpad, rel, d_out) + outs),
+            B, L, H, D, W, bak.BWD_TILE,
+            ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
+        _build.check(err, "stamped banded_attention_bwd_partials_bf16")
+
+    def kernel():
+        bak.banded_attention_bwd_partials(*args)
+
+    times = {"stamped": [], "kernel": []}
+    for name in ("stamped", "kernel", "kernel", "stamped"):
+        times[name].append(event_ms(stamped if name == "stamped" else kernel))
+    stamped()
+    torch.cuda.synchronize()
+    ns = np.zeros(8 * MAX_BLOCKS, np.uint64)
+    _build.check(lib.read_stamps(ns.ctypes.data, ns.size), "read_stamps")
+    ns = ns[:8 * blocks].reshape(blocks, 8)[:, :len(PHASES) + 1]
+    per_phase = np.diff(ns.astype(np.int64), axis=1)
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    print(f"{card}; bf16 first pass (B={B}, L={L}, H={H}, Dh={D}, W={W}), "
+          f"{blocks} blocks")
+    print(f"ms in turns (stamped, kernel, kernel, stamped): {times}")
+    print("ns per block, mean:",
+          dict(zip(PHASES, per_phase.mean(0).tolist())),
+          "total", per_phase.sum(1).mean())
+    print("ns per block, 90th percentile:",
+          dict(zip(PHASES, np.percentile(per_phase, 90, axis=0).tolist())))
+    print("first start to last end, ms:",
+          (int(ns[:, -1].max()) - int(ns[:, 0].min())) / 1e6)
+
+
+if __name__ == "__main__":
+    main()

@@ -16,7 +16,8 @@ are fp32 in both (the bf16 arithmetic: `banded_attention`).
 (`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
 `out` with respect to q, kpad, vpad and rel, with d_out, dq, dk and dv in
 the operand dtype and drel fp32 (the bf16 arithmetic:
-`banded_attention_bwd_plain`). On a CUDA tensor each wrapper
+`banded_attention_bwd_plain`; the bf16 first pass's tensor-core tiles:
+`banded_attention_bwd_partials_mma_plain`). On a CUDA tensor each wrapper
 launches its kernel (`csrc/banded_attention.cu`,
 `csrc/banded_attention_bwd.cu`); on a CPU tensor it runs its plain PyTorch
 version. `BandedAttention` is the differentiable op built from both.
@@ -195,6 +196,105 @@ def banded_attention_bwd_partials_plain(q, kpad, vpad, rel, d_out,
     return dq.to(dtype), dk_part, dv_part, drel_part
 
 
+def split_bf16x3(rel):
+    """fp32 `rel` as three bf16 terms whose sum is `rel` exactly:
+    r1 = bf16(rel), r2 = bf16(rel - r1), r3 = bf16(rel - r1 - r2), each
+    rounded to nearest even. Each residual is exact in fp32 and carries at
+    most 16, then 8, significant bits, so r3 drops nothing (for values
+    far from fp32's subnormal range). A bf16 tensor-core product of bf16
+    q with the three terms, summed in fp32, thus weighs q by the fp32 rel."""
+    r1 = rel.to(torch.bfloat16)
+    e1 = rel - r1.float()
+    r2 = e1.to(torch.bfloat16)
+    r3 = (e1 - r2.float()).to(torch.bfloat16)
+    return r1, r2, r3
+
+
+# the bf16 first pass's tiles: context rows padded to MMA_CTX, the window
+# to MMA_W, the head width to a multiple of MMA_K (one product's depth)
+MMA_CTX, MMA_W, MMA_K = 64, 32, 16
+
+
+def banded_attention_bwd_partials_mma_plain(q, kpad, vpad, rel, d_out,
+                                            window: int,
+                                            tile: int = BWD_TILE):
+    """The bf16 first pass as the tensor-core kernel of
+    `csrc/banded_attention_bwd.cu` computes it, tile by tile; returns what
+    `banded_attention_bwd_partials_plain` returns. bf16 q, kpad, vpad and
+    d_out, fp32 rel. Per (b, h) and query tile of 32 rows, with its 64
+    context rows (rows past the context or past kpad zero) and the head
+    width zero-padded to D16, a multiple of 16:
+
+        S = Q K^T (32 x 64),  Qrel = Q r1 + Q r2 + Q r3 (32 x 32),
+        dP = dO V^T (32 x 64)                 (`split_bf16x3(rel)`)
+        s = S[r, r + j] + Qrel[r, j],  p = softmax_j(s),
+        dS = p (dP[r, r + j] - sum_j p dP[r, r + j]), both rounded to bf16
+        P_dense, dS_dense (32 x 64): p, dS at [r, r + j], zero elsewhere
+        dS_band (32 x 32): dS at [r, j]
+        dq = dS_dense K + dS_band r1^T + dS_band r2^T + dS_band r3^T
+        dk_part = dS_dense^T Q,  dv_part = P_dense^T dO,
+        drel_part = Q^T dS_band
+
+    Every product is of bf16 values (exact in fp32) summed in fp32; the
+    tiles are cropped to the context rows, Dh and the window at the end,
+    and dq rounded to bf16."""
+    if q.dtype != torch.bfloat16:
+        raise TypeError(f"the bf16 first pass takes bfloat16 operands, got "
+                        f"{q.dtype}")
+    B, L, H, D = q.shape
+    n = -(-L // tile)
+    ctx = tile + window - 1
+    D16 = -(-D // MMA_K) * MMA_K
+    rows = torch.arange(MMA_CTX, device=q.device)
+
+    def query_tiles(x):          # (B, L, H, D) -> (B, H, n, tile, D16)
+        return _tiles(F.pad(x.float(), (0, D16 - D)), tile)
+
+    def context_tiles(x):        # (B, Lk, H, D) -> (B, H, n, 64, D16)
+        x = F.pad(x.float(), (0, D16 - D, 0, 0, 0,
+                              (n - 1) * tile + MMA_CTX - x.shape[1]))
+        x = x.unfold(1, MMA_CTX, tile).permute(0, 2, 1, 4, 3)
+        return x.masked_fill((rows >= ctx)[:, None], 0.0)
+
+    qt, dot = query_tiles(q), query_tiles(d_out)
+    kc, vc = context_tiles(kpad), context_tiles(vpad)
+    # (H, D, W) -> (1, H, 1, 32, D16): rel^T, zero-padded
+    r = [F.pad(t.float(), (0, MMA_W - window, 0, D16 - D))
+         .transpose(1, 2)[None, :, None] for t in split_bf16x3(rel)]
+    s_full = qt @ kc.transpose(-1, -2)
+    qrel = qt @ r[0].transpose(-1, -2)
+    for rt in r[1:]:
+        qrel = qrel + qt @ rt.transpose(-1, -2)
+    dp_full = dot @ vc.transpose(-1, -2)
+
+    band = (torch.arange(tile, device=q.device)[:, None]
+            + torch.arange(window, device=q.device))      # r + j
+    band = band.expand(*s_full.shape[:3], tile, window)
+    s = s_full.gather(-1, band) + qrel[..., :window]
+    p = torch.softmax(s, dim=-1)
+    dp = dp_full.gather(-1, band)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    t = (torch.arange(n, device=q.device)[:, None] * tile
+         + torch.arange(tile, device=q.device))
+    live = (t < L)[..., None]                             # (n, tile, 1)
+    p, ds = (x.masked_fill(~live, 0.0).to(torch.bfloat16).float()
+             for x in (p, ds))
+    p_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, p)
+    ds_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, ds)
+    ds_band = F.pad(ds, (0, MMA_W - window))
+
+    dq = ds_dense @ kc
+    for rt in r:
+        dq = dq + ds_band @ rt
+    dk = ds_dense.transpose(-1, -2) @ qt
+    dv = p_dense.transpose(-1, -2) @ dot
+    drel = qt.transpose(-1, -2) @ ds_band
+    dq = dq.permute(0, 2, 3, 1, 4).reshape(B, n * tile, H, D16)
+    return (dq[:, :L, :, :D].to(torch.bfloat16),
+            dk[..., :ctx, :D].contiguous(), dv[..., :ctx, :D].contiguous(),
+            drel[..., :D, :window].contiguous())
+
+
 def banded_attention_bwd_reduce_plain(dk_part, dv_part, drel_part, L: int,
                                       window: int, tile: int = BWD_TILE):
     """Plain version of the backward's second pass: overlap-add the tile
@@ -240,10 +340,11 @@ def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
 
     CPU tensors take the plain version; CUDA tensors launch the first
     pass of `csrc/banded_attention_bwd.cu` for their dtype or raise: fp32
-    q, kpad, vpad and d_out the fp32 instance (counted in
-    `banded_attention_bwd_partials.launches`), bf16 ones the bf16 instance
-    (counted in `banded_attention_bwd_partials.launches_bf16`); rel fp32
-    for both."""
+    q, kpad, vpad and d_out the fp32 kernel (counted in
+    `banded_attention_bwd_partials.launches`), bf16 ones the tensor-core
+    kernel whose tile arithmetic `banded_attention_bwd_partials_mma_plain`
+    repeats (counted in `banded_attention_bwd_partials.launches_bf16`); rel
+    fp32 for both."""
     if q.device.type == "cpu":
         return banded_attention_bwd_partials_plain(q, kpad, vpad, rel,
                                                    d_out, window)

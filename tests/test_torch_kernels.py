@@ -111,7 +111,7 @@ def _attn_inputs(L, window, Dh, B=2, H=4, seed=4):
     k = torch.randn((B, L, H, Dh), generator=g) * Dh ** -0.25
     v = torch.randn((B, L, H, Dh), generator=g)
     rel = torch.randn((H, Dh, window), generator=g) * 0.1
-    pad = (0, 0, 0, 0, hw, hw)
+    pad = (0, 0, 0, 0, hw, window - 1 - hw)    # L + window - 1 rows
     return q, F.pad(k, pad), F.pad(v, pad), rel
 
 
@@ -424,6 +424,63 @@ def test_bf16_bwd_rule_sees_unrounded_ds_and_p(variant):
     assert missed == expect
 
 
+@pytest.mark.parametrize("values", ["normal", "port_init"])
+def test_split_bf16x3_is_exact(values):
+    """rel = r1 + r2 + r3 bit for bit, on N(0, 1) values and on `rel` as
+    the port initialises it (`init_parameters`, N(0, 1) drawn per module)."""
+    from reconvat_tpu_torch.models.reconvat import init_parameters
+    from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
+
+    if values == "normal":
+        rel = torch.from_numpy(np.random.RandomState(11).randn(
+            4, 229, 31).astype(np.float32))
+    else:
+        mod = MultiHeadAttention1D(229, 916, 31, 4)
+        init_parameters(mod, torch.Generator().manual_seed(12))
+        rel = mod.rel.detach()[0].reshape(4, 229, 31)
+    terms = bak.split_bf16x3(rel)
+    assert all(t.dtype == torch.bfloat16 for t in terms)
+    total = sum(t.double() for t in terms)
+    assert torch.equal(total, rel.double())
+    assert torch.equal(total.float().view(torch.int32), rel.view(torch.int32))
+    assert (terms[1] != 0).float().mean().item() > 0.9   # rel is not bf16
+
+
+@pytest.mark.parametrize("B,L,window,Dh", [(2, 100, 31, 229),
+                                           (2, 33, 7, 57)])     # ragged tile
+def test_bf16_first_pass_mma_model_matches_plain(B, L, window, Dh):
+    """The CPU model of the bf16 tensor-core first pass (dense 32 x 64
+    tiles, zero padding to D16, the three rel terms) against the bf16
+    plain first pass, by the rule held on the kernel."""
+    q, kpad, vpad, rel = _attn_inputs(L, window, Dh, B=B)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    args = (q, kpad, vpad, rel, _d_out(q, 5), window)
+    got = bak.banded_attention_bwd_partials_mma_plain(*args)
+    ref = bak.banded_attention_bwd_partials_plain(*args)
+    assert [tuple(a.shape) for a in got] == [tuple(b.shape) for b in ref]
+    assert _bf16_bwd_misses(got, ref, BF16_PART_NAMES) == []
+
+
+def test_bf16_bwd_rule_fails_float64_sums_at_ragged_tile():
+    """At the ragged tile of the card tests (B=2, L=33, W=7, Dh=57, their
+    inputs) the rule breaks for a backward that is right: p and dS in
+    float64 and every sum in float64, and the tensor-core tiles' model,
+    both round one fp32 dS of the plain version the other way, which moves
+    dk beyond one bf16 ulp in 2 elements and drel by 1.2e-3 of its max
+    (limit 5e-4). The rule was measured at B=2..8 x 640 frames; at 2 x 33
+    rows one dS flip is most of drel's budget."""
+    q, kpad, vpad, rel = _attn_inputs(33, 7, 57)
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    args = (q, kpad, vpad, rel, _d_out(q, 5), 7)
+    ref = bak.banded_attention_bwd_plain(*args)
+    full, _ = _bwd_float64(*args, round_p=True, round_ds=True)
+    dq, *parts = bak.banded_attention_bwd_partials_mma_plain(*args)
+    dk, dv, drel = bak.banded_attention_bwd_reduce_plain(*parts, 33, 7)
+    model = (dq, dk.to(torch.bfloat16), dv.to(torch.bfloat16), drel)
+    for got in (full, model):
+        assert _bf16_bwd_misses(got, ref, BF16_BWD_NAMES) == ["dk", "drel"]
+
+
 def test_bf16_bwd_wrappers_are_plain_on_cpu():
     q, kpad, vpad, rel = _attn_inputs(40, 7, 57)
     q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
@@ -441,7 +498,8 @@ def test_bf16_bwd_wrappers_are_plain_on_cpu():
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
-                                           (2, 33, 7, 57)])     # ragged tile
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (1, 64, 32, 256)])   # limits
 def test_attention_bwd_bf16_kernel_matches_plain(cuda_device, B, L, window,
                                                  Dh):
     """Both passes of the bf16 backward kernel against the bf16 plain
@@ -463,6 +521,27 @@ def test_attention_bwd_bf16_kernel_matches_plain(cuda_device, B, L, window,
     assert _bf16_bwd_misses(parts,
                             bak.banded_attention_bwd_partials_plain(*args),
                             BF16_PART_NAMES) == []
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (1, 64, 32, 256)])   # limits
+def test_attention_bwd_bf16_first_pass_matches_mma_model(cuda_device, B, L,
+                                                         window, Dh):
+    """The bf16 first pass on the card against its tile-by-tile model
+    (`banded_attention_bwd_partials_mma_plain`), by the same rule."""
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(L, window, Dh, B=B))
+    q, kpad, vpad = (t.to(torch.bfloat16) for t in (q, kpad, vpad))
+    args = (q, kpad, vpad, rel, _d_out(q, 7), window)
+    before = bak.banded_attention_bwd_partials.launches_bf16
+    got = bak.banded_attention_bwd_partials(*args)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_bwd_partials.launches_bf16 == before + 1
+    assert _bf16_bwd_misses(
+        got, bak.banded_attention_bwd_partials_mma_plain(*args),
+        BF16_PART_NAMES) == []
 
 
 @pytest.mark.cuda
