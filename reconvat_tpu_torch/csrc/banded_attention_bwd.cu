@@ -20,7 +20,7 @@
 // so the work is split in two passes and stays deterministic without
 // atomics:
 //
-//   pass 1 (`bwd_partials_kernel<float>` for fp32 operands,
+//   pass 1 (`bwd_partials_tf32x3_kernel` for fp32 operands,
 //     `bwd_partials_mma_kernel` for bf16 ones): a block owns one (b, h) and
 //     TQ query rows. It writes dq for its rows, and per-tile partials of dk
 //     and dv over its TQ + W - 1 context rows and of drel over (Dh, W).
@@ -42,49 +42,60 @@
 // 135 MB in fp32 and 68 MB with bf16 operands (0.040 / 0.020 ms at
 // 3.35 TB/s), for about 2.1 GFLOP (0.031 ms at the fp32 peak).
 //
-// Both first passes stage the K and V halos (TQ + W - 1 rows), q, dO and
-// rel[h] in shared memory once per tile, so the device reads every input
-// about once; the partials they write (about 90 MB at the sizes above,
-// read once more by pass 2) are the price of determinism without atomics.
-// Heads are Dh-element slices of an H * Dh row (229 of 916: 458 bytes at
-// 2-byte alignment), so rows are not 16-byte aligned: neither TMA (16-byte
-// strides) nor a 16-byte cp.async can address them, and loads are scalar.
-// The ragged last tile is masked (dS = p = 0).
+// Both first passes stage the K and V context (TQ + W - 1 rows, padded to
+// KC = 64), q, dO and rel[h] in shared memory once per tile, so the device
+// reads every input about once; the partials they write (about 90 MB at
+// the sizes above, read once more by pass 2) are the price of determinism
+// without atomics. Heads are Dh-element slices of an H * Dh row (229 of
+// 916: 916 bytes at 4-byte alignment in fp32, 458 at 2-byte in bf16), so
+// rows are not 16-byte aligned: neither TMA (16-byte strides) nor a
+// 16-byte cp.async can address them, and loads are scalar, a thread
+// issuing all its loads of a batch before it stores any. Both run every
+// product on the tensor cores as mma.sync tiles with fp32 sums, and the
+// band, softmax and dS per row on the CUDA cores (lane j <-> window offset
+// j, warp shuffles), as a (TQ x KC) dense tile: S = Q K^T, dP = dO V^T and
+// Q rel^T go to fp32 tiles, and p and dS come back as P_dense and dS_dense
+// (p and dS at [r, r + j], zero elsewhere), so that
+//   dq = dS_dense K + dS_band rel^T,  dk = dS_dense^T Q,
+//   dv = P_dense^T dO,  drel = Q^T dS_band     (dS_band[r, j] = dS at [r, j]).
+// Output tiles leave through a per-warp shared-memory patch, so the fp32
+// partials leave as 64-byte rows. The ragged last tile is masked (dS = p =
+// 0). `wgmma` is not used: it wants 64-row A tiles per warpgroup and
+// descriptor-swizzled shared memory, which the 32-row tile and the
+// unaligned head slices do not give. What holds both back (PERF.md §6):
+// one block per SM, and every SM of a wave in the same phase, so the
+// staging reads and the partials' writes do not overlap with the products.
 //
-// The fp32 first pass (`bwd_partials_kernel<float>`, 208 KB of shared
-// memory) widens nothing and rounds nothing. The band's skew and unskew are
-// plain indexing. In the score phase lane j of a warp owns window offset j
-// (the head width 229 is odd, so the lanes reading 31 rows of a 229-float
-// stride hit distinct banks); in the gradient phases threads run over the
-// feature axis, consecutive threads on consecutive addresses. What holds it
-// back: every product is a scalar fp32 FMA fed from shared memory with no
-// reuse in registers (about 5 shared loads per 3 FMAs in the score loop).
+// The fp32 first pass (`bwd_partials_tf32x3_kernel`, about 226 KB at
+// Dh = 229, so Dh <= 232) keeps fp32 accuracy on TF32 tensor cores by
+// 3xTF32: every operand element x is split as it is loaded into big =
+// tf32(x) and small = tf32(x - big) (rounded as cvt.rna rounds, by integer
+// ops; `split_tf32x2` in ops/banded_attention_kernel.py), and each m16n8k8
+// product is big.big + (small.big + big.small); small.small (2^-22
+// relative) is dropped. Nothing
+// is rounded to a narrower type, and the torch TF32 flags are not read.
+// The operands stay fp32 in shared memory, Dh padded with zeros to D8 (a
+// multiple of 8); tf32 fragments are 32-bit, so they come from plain
+// shared loads (ldmatrix is a b16 instruction), which also read the band
+// view dS_band of dS_dense through the index map alone, and the
+// transposed operands (dS_dense^T, Q^T) in place. Every tile's pitch is
+// 8 (mod 32) with its columns XOR-swizzled by bit 2 of the row, so a
+// fragment load along rows and one along columns both hit 32 banks. P and
+// dS are written over S and dP, and V's tile holds the store patches once
+// dP is formed: that is what fits the block in the 227 KB a block may opt
+// in to.
 //
-// The bf16 first pass (`bwd_partials_mma_kernel`, about 186 KB) runs every
-// product on the tensor cores as bf16 x bf16 -> fp32 mma.sync m16n8k16
-// tiles, their operands read by ldmatrix:
-//   - q, dO (TQ rows) and the K, V context (padded to KC = 64 rows) are
-//     staged as bf16, Dh padded with zeros to D16 (a multiple of 16). A
-//     thread issues all its loads of a batch before it stores any. rel[h]
-//     is split once into three bf16 terms r1 + r2 + r3 = rel exactly
-//     (`split_bf16x3` in ops/banded_attention_kernel.py), so the products
-//     that read rel weigh q and dS by the fp32 rel.
-//   - S = Q K^T, dP = dO V^T (32 x 64) and Q r_i^T (32 x 32 each) go to
-//     fp32 tiles; the band, softmax and dS run per row on the CUDA cores
-//     as in the fp32 pass, and write P_dense, dS_dense (32 x 64, p and dS
-//     at [r, r + j]) and dS_band (32 x 32, dS at [r, j]) as bf16.
-//   - dq = dS_dense K + dS_band (r1 + r2 + r3)^T, dk = dS_dense^T Q,
-//     dv = P_dense^T dO and drel = Q^T dS_band; each output tile is stored
-//     through a per-warp shared-memory patch, so the fp32 partials leave
-//     as 64-byte rows.
-// Each depth-16 product is summed from zero and then added in fp32, which
-// keeps the sums closer to the fp32 FMA chains of the plain version than
-// one accumulator run through the tensor cores. `wgmma` is not used: it
-// wants 64-row A tiles per warpgroup and descriptor-swizzled shared memory,
-// which the 32-row tile and the unaligned head slices do not give. What
-// holds it back (PERF.md §6): one block per SM, and every SM of a wave in
-// the same phase, so the staging reads and the partials' writes do not
-// overlap with the products.
+// The bf16 first pass (`bwd_partials_mma_kernel`, about 186 KB) stages q,
+// dO, K and V as bf16 (Dh padded to D16) and reads them by ldmatrix into
+// bf16 x bf16 -> fp32 mma.sync m16n8k16 tiles. rel[h] is split once into
+// three bf16 terms r1 + r2 + r3 = rel exactly (`split_bf16x3` in
+// ops/banded_attention_kernel.py), so the products that read rel weigh q
+// and dS by the fp32 rel; p and dS are rounded to bf16 into P_dense,
+// dS_dense and a dS_band tile of their own.
+//
+// In both, each depth-8 or depth-16 product is summed from zero and then
+// added in fp32, which keeps the sums closer to the fp32 FMA chains of the
+// plain version than one accumulator run through the tensor cores.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -95,8 +106,6 @@ constexpr int TQ = 32;         // query rows per tile
 constexpr int NT = 512;        // threads per block (16 warps)
 constexpr int MAX_DCHUNK = 8;  // head width <= 32 * 8 = 256
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-
 template <typename T>
 __device__ __forceinline__ T from_f32(float x);
 template <>
@@ -104,166 +113,6 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16_rn(x);
-}
-
-// x as a product of the operand type weighs it: x itself for fp32 operands,
-// x rounded to bf16 for bf16 ones (the Pallas kernel's `.astype(q.dtype)`)
-template <typename T>
-__device__ __forceinline__ float round_if_bf16(float x) {
-  return to_f32(from_f32<T>(x));
-}
-
-// Launched for fp32 operands only (bf16 operands take
-// bwd_partials_mma_kernel); with T = float, to_f32 and round_if_bf16 are the
-// identity.
-template <typename T>
-__global__ void __launch_bounds__(NT)
-bwd_partials_kernel(const T* __restrict__ q,          // (B, L, H, D)
-                    const T* __restrict__ kpad,       // (B, L+W-1, H, D)
-                    const T* __restrict__ vpad,       // (B, L+W-1, H, D)
-                    const float* __restrict__ rel,    // (H, D, W)
-                    const T* __restrict__ dout,       // (B, L, H, D)
-                    T* __restrict__ dq,               // (B, L, H, D)
-                    float* __restrict__ dk_part,      // (B, H, nT, ctx, D)
-                    float* __restrict__ dv_part,      // (B, H, nT, ctx, D)
-                    float* __restrict__ drel_part,    // (B, H, nT, D, W)
-                    int L, int H, int D, int W) {
-  extern __shared__ float smem[];
-  const int ctx = TQ + W - 1;
-  float* ks = smem;                  // (ctx, D)
-  float* vs = ks + ctx * D;          // (ctx, D)
-  float* qs = vs + ctx * D;          // (TQ, D)
-  float* dos = qs + TQ * D;          // (TQ, D)
-  float* rs = dos + TQ * D;          // (D, W)
-  float* ps = rs + D * W;            // (TQ, W)
-  float* dss = ps + TQ * W;          // (TQ, W)
-
-  const int b = blockIdx.y / H;
-  const int h = blockIdx.y % H;
-  const int tile = blockIdx.x;
-  const int n_tiles = gridDim.x;
-  const int t0 = tile * TQ;
-  const int Lk = L + W - 1;
-  const int tid = threadIdx.x;
-  const int lane = tid % 32, warp = tid / 32;
-  const size_t row_stride = (size_t)H * D;
-
-#pragma unroll 4
-  for (int e = tid; e < ctx * D; e += NT) {
-    const int r = e / D, d = e % D;
-    const int row = t0 + r;
-    const size_t g = ((size_t)b * Lk + row) * row_stride + (size_t)h * D + d;
-    ks[e] = row < Lk ? to_f32(kpad[g]) : 0.f;
-    vs[e] = row < Lk ? to_f32(vpad[g]) : 0.f;
-  }
-#pragma unroll 4
-  for (int e = tid; e < TQ * D; e += NT) {
-    const int r = e / D, d = e % D;
-    const int t = t0 + r;
-    const size_t g = ((size_t)b * L + t) * row_stride + (size_t)h * D + d;
-    qs[e] = t < L ? to_f32(q[g]) : 0.f;
-    dos[e] = t < L ? to_f32(dout[g]) : 0.f;
-  }
-  const float* relh = rel + (size_t)h * D * W;
-#pragma unroll 4
-  for (int e = tid; e < D * W; e += NT) rs[e] = relh[e];
-  __syncthreads();
-
-  // phase 1: p and dS per query row; lane j <-> window offset j. They are
-  // kept as the products below weigh them (rounded to bf16 for bf16
-  // operands): dS feeds only dq, dk and drel, p only dv.
-  for (int r = warp; r < TQ; r += NT / 32) {
-    const int t = t0 + r;
-    float p = 0.f, ds = 0.f;
-    if (t < L) {
-      const float* qr = qs + r * D;
-      const float* dor = dos + r * D;
-      float sk = 0.f, sr = 0.f, dp = 0.f;
-      if (lane < W) {
-        const float* kr = ks + (r + lane) * D;
-        const float* vr = vs + (r + lane) * D;
-#pragma unroll 8
-        for (int d = 0; d < D; ++d) {
-          const float qd = qr[d];
-          sk = fmaf(qd, kr[d], sk);
-          sr = fmaf(qd, rs[d * W + lane], sr);
-          dp = fmaf(dor[d], vr[d], dp);
-        }
-      }
-      // q.k and q.rel summed apart, then added, as the forward does
-      const float s = lane < W ? sk + sr : -INFINITY;
-      float m = s;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
-      const float e = lane < W ? expf(s - m) : 0.f;
-      float z = e;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
-      p = e / z;
-      float pdp = p * dp;
-#pragma unroll
-      for (int o = 16; o > 0; o >>= 1) pdp += __shfl_xor_sync(0xffffffffu, pdp, o);
-      ds = p * (dp - pdp);
-    }
-    if (lane < W) {
-      ps[r * W + lane] = round_if_bf16<T>(p);
-      dss[r * W + lane] = round_if_bf16<T>(ds);
-    }
-  }
-  __syncthreads();
-
-  // phase 2a: dq for the tile's rows; lanes over the feature axis
-  for (int r = warp; r < TQ; r += NT / 32) {
-    const int t = t0 + r;
-    if (t >= L) break;
-    float acc[MAX_DCHUNK];
-#pragma unroll
-    for (int i = 0; i < MAX_DCHUNK; ++i) acc[i] = 0.f;
-    for (int j = 0; j < W; ++j) {
-      const float dsj = dss[r * W + j];
-      const float* kr = ks + (r + j) * D;
-#pragma unroll
-      for (int i = 0; i < MAX_DCHUNK; ++i) {
-        const int d = lane + 32 * i;
-        if (d < D) acc[i] = fmaf(dsj, kr[d] + rs[d * W + j], acc[i]);
-      }
-    }
-    T* o = dq + ((size_t)b * L + t) * row_stride + (size_t)h * D;
-#pragma unroll
-    for (int i = 0; i < MAX_DCHUNK; ++i) {
-      const int d = lane + 32 * i;
-      if (d < D) o[d] = from_f32<T>(acc[i]);
-    }
-  }
-
-  // phase 2b: dk / dv partials over the context rows; context row c takes
-  // the tile's query rows r = c - j, j in [0, W)
-  const size_t part = ((size_t)blockIdx.y * n_tiles + tile);
-  float* dkp = dk_part + part * ctx * D;
-  float* dvp = dv_part + part * ctx * D;
-  for (int e = tid; e < ctx * D; e += NT) {
-    const int c = e / D, d = e % D;
-    const int j_lo = c - (TQ - 1) > 0 ? c - (TQ - 1) : 0;
-    const int j_hi = c < W - 1 ? c : W - 1;
-    float ak = 0.f, av = 0.f;
-    for (int j = j_lo; j <= j_hi; ++j) {
-      const int r = c - j;
-      ak = fmaf(dss[r * W + j], qs[r * D + d], ak);
-      av = fmaf(ps[r * W + j], dos[r * D + d], av);
-    }
-    dkp[e] = ak;
-    dvp[e] = av;
-  }
-
-  // phase 2c: drel partial (D, W) over the tile's rows
-  float* drp = drel_part + part * D * W;
-  for (int e = tid; e < D * W; e += NT) {
-    const int d = e / W, j = e % W;
-    float a = 0.f;
-#pragma unroll 8
-    for (int r = 0; r < TQ; ++r) a = fmaf(dss[r * W + j], qs[r * D + d], a);
-    drp[e] = a;
-  }
 }
 
 // ---- bf16 first pass on tensor cores ----------------------------------
@@ -420,9 +269,9 @@ __device__ __forceinline__ void stage_rows(bf16* sa, bf16* sb,
   }
 }
 
-// Pass 1 for bf16 operands: one block per (b, h) and TQ query rows, as
-// bwd_partials_kernel, with every product on the tensor cores (the file's
-// note, "The bf16 first pass").
+// Pass 1 for bf16 operands: one block per (b, h) and TQ query rows, with
+// every product on the tensor cores (the file's note, "The bf16 first
+// pass").
 __global__ void __launch_bounds__(NT, 1)
 bwd_partials_mma_kernel(const bf16* __restrict__ q,        // (B, L, H, D)
                         const bf16* __restrict__ kpad,     // (B, L+W-1, H, D)
@@ -526,8 +375,8 @@ bwd_partials_mma_kernel(const bf16* __restrict__ q,        // (B, L, H, D)
   }
   __syncthreads();
 
-  // band, softmax and dS per query row, lane j <-> window offset j, as
-  // bwd_partials_kernel's phase 1; p and dS rounded to bf16 into P_dense,
+  // band, softmax and dS per query row, lane j <-> window offset j, as in
+  // the fp32 pass; p and dS rounded to bf16 into P_dense,
   // dS_dense (at [r, r + j]) and dS_band (at [r, j]), zero elsewhere
   for (int r = warp; r < TQ; r += NWARPS) {
     const int t = t0 + r;
@@ -613,6 +462,336 @@ bwd_partials_mma_kernel(const bf16* __restrict__ q,        // (B, L, H, D)
   }
 }
 
+// ---- fp32 first pass on tensor cores, 3xTF32 ----------------------------
+// Tiles as in the bf16 pass (KC context rows, WP window columns), the head
+// width padded to D8, a multiple of 8 (the depth of one m16n8k8 product).
+// Every fp32 tile is stored with a row pitch = 8 (mod 32) and its columns
+// XOR-swizzled by bit 2 of the row (`sw`): a fragment load reads 8 rows x 4
+// columns of a tile, or 4 rows x 8 columns of a transposed one, and both
+// then fall in 32 distinct banks.
+constexpr int LDS32 = KC + 8;          // pitch of S / P_dense, dP / dS_dense
+constexpr int LDR32 = WP + 8;          // pitch of Q rel^T
+
+__host__ __device__ constexpr int tf32_pitch(int D) {
+  return ((D + 7) & ~7) + (8 - ((D + 7) & ~7) % 32 + 32) % 32;
+}
+
+// floats of shared memory a block takes at head width D: K, Q, dO, rel^T,
+// S, dP, Q rel^T, then V, which also holds the warps' store patches once
+// dP is formed
+__host__ __device__ constexpr size_t tf32x3_smem_floats(int D) {
+  return (size_t)(KC + 2 * TQ + WP) * tf32_pitch(D) + TQ * (2 * LDS32 + LDR32)
+         + (KC * tf32_pitch(D) > NWARPS * 16 * LDP ? KC * tf32_pitch(D)
+                                                   : NWARPS * 16 * LDP);
+}
+
+__device__ __forceinline__ int sw(int row, int col, int ld) {
+  return row * ld + (col ^ (row & 4));
+}
+
+// x rounded to TF32 as cvt.rna.tf32.f32 rounds it (to nearest, ties away
+// from zero; the same bits for finite x), on the integer pipe: cvt issues
+// at a quarter of that rate, and the fragment loads split every element
+// they read
+__device__ __forceinline__ unsigned rna_tf32(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+// x as big + small, each rounded to TF32; x - big is exact in fp32
+__device__ __forceinline__ void split_tf32(float x, unsigned& big,
+                                           unsigned& small) {
+  big = rna_tf32(x);
+  small = rna_tf32(x - __uint_as_float(big));
+}
+
+// d += A (16 x 8) B (8 x 8), TF32 operands, fp32 sums
+__device__ __forceinline__ void mma_1688(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+               "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+               "{%0, %1, %2, %3};"
+               : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+               : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0),
+                 "r"(b1));
+}
+
+// Where element (o, k) of an operand lies in its swizzled tile: o is the
+// output index (m of A, n of B), k the depth. OK: stored (o, k); KO: stored
+// (k, o); OBAND: stored (o, o + k), the band view of a dense tile (dS_band
+// of dS_dense as A); KBAND: stored (k, k + o) (dS_band as B).
+enum Lay { OK, KO, OBAND, KBAND };
+
+template <int LAY>
+__device__ __forceinline__ float frag_ld(const float* s, int ld, int o,
+                                         int k) {
+  if (LAY == OK) return s[sw(o, k, ld)];
+  if (LAY == KO) return s[sw(k, o, ld)];
+  if (LAY == OBAND) return s[sw(o, o + k, ld)];
+  return s[sw(k, k + o, ld)];
+}
+
+// acc += A B for one warp's 16 x 16 output tile at (m0, n0) over `steps`
+// depths of 8 from k = 0, as 3xTF32: each fragment element is split as it
+// is loaded, and each depth-8 product is big.big, and big.small +
+// small.big, each summed from zero and then added in fp32 (two short mma
+// chains per output tile and depth, so a warp keeps several in flight).
+// Fragments (PTX m16n8k8 .tf32): A a0 (g, t), a1 (g + 8, t), a2 (g, t + 4),
+// a3 (g + 8, t + 4); B b0 (t, g), b1 (t + 4, g); g = lane / 4, t = lane %
+// 4. acc as in mma_run.
+template <int LA, int LB>
+__device__ __forceinline__ void mma3_run(float (&acc)[2][4], const float* a,
+                                         int lda, int m0, const float* b,
+                                         int ldb, int n0, int steps,
+                                         int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll 2
+  for (int s = 0; s < steps; ++s) {
+    const int k = 8 * s + t;
+    unsigned ab[4], as[4], bb[2][2], bs[2][2];
+    split_tf32(frag_ld<LA>(a, lda, m0 + g, k), ab[0], as[0]);
+    split_tf32(frag_ld<LA>(a, lda, m0 + g + 8, k), ab[1], as[1]);
+    split_tf32(frag_ld<LA>(a, lda, m0 + g, k + 4), ab[2], as[2]);
+    split_tf32(frag_ld<LA>(a, lda, m0 + g + 8, k + 4), ab[3], as[3]);
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      split_tf32(frag_ld<LB>(b, ldb, n0 + 8 * n + g, k), bb[n][0], bs[n][0]);
+      split_tf32(frag_ld<LB>(b, ldb, n0 + 8 * n + g, k + 4), bb[n][1],
+                 bs[n][1]);
+    }
+#pragma unroll
+    for (int n = 0; n < 2; ++n) {
+      float big[4] = {0.f, 0.f, 0.f, 0.f}, small[4] = {0.f, 0.f, 0.f, 0.f};
+      mma_1688(big, ab, bb[n][0], bb[n][1]);
+      mma_1688(small, as, bb[n][0], bb[n][1]);
+      mma_1688(small, ab, bs[n][0], bs[n][1]);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) acc[n][i] += big[i] + small[i];
+    }
+  }
+}
+
+// The warp's 16 x 16 tile into a swizzled fp32 tile at (m0, n0)
+__device__ __forceinline__ void store_sw(const float (&acc)[2][4], float* c,
+                                         int ldc, int m0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int col = n0 + n * 8 + 2 * t;
+    *reinterpret_cast<float2*>(c + sw(m0 + g, col, ldc)) =
+        make_float2(acc[n][0], acc[n][1]);
+    *reinterpret_cast<float2*>(c + sw(m0 + g + 8, col, ldc)) =
+        make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// Rows r = warp + i * NWARPS (i < ROWS) of two fp32 (rows, D) slices, row
+// r at ga / gb + r * stride, into the swizzled tiles sa / sb (pitch ld),
+// zero at rows >= live and columns in [D, ld). A thread issues all its
+// loads before it stores any.
+template <int ROWS>
+__device__ __forceinline__ void stage_rows_f32(float* sa, float* sb,
+                                               const float* __restrict__ ga,
+                                               const float* __restrict__ gb,
+                                               size_t stride, int live, int D,
+                                               int ld, int warp, int lane) {
+  float va[ROWS][MAX_DCHUNK], vb[ROWS][MAX_DCHUNK];
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + i * NWARPS;
+#pragma unroll
+    for (int c = 0; c < MAX_DCHUNK; ++c) {
+      const int d = lane + 32 * c;
+      const bool in = r < live && d < D;
+      va[i][c] = in ? ga[r * stride + d] : 0.f;
+      vb[i][c] = in ? gb[r * stride + d] : 0.f;
+    }
+  }
+#pragma unroll
+  for (int i = 0; i < ROWS; ++i) {
+    const int r = warp + i * NWARPS;
+#pragma unroll
+    for (int c = 0; c < MAX_DCHUNK; ++c) {
+      const int d = lane + 32 * c;
+      if (d < ld) {
+        sa[sw(r, d, ld)] = va[i][c];
+        sb[sw(r, d, ld)] = vb[i][c];
+      }
+    }
+  }
+}
+
+// Pass 1 for fp32 operands: one block per (b, h) and TQ query rows, every
+// product on the tensor cores as 3xTF32 (the file's note, "The fp32 first
+// pass").
+__global__ void __launch_bounds__(NT, 1)
+bwd_partials_tf32x3_kernel(const float* __restrict__ q,      // (B, L, H, D)
+                           const float* __restrict__ kpad,   // (B, L+W-1, H, D)
+                           const float* __restrict__ vpad,   // (B, L+W-1, H, D)
+                           const float* __restrict__ rel,    // (H, D, W)
+                           const float* __restrict__ dout,   // (B, L, H, D)
+                           float* __restrict__ dq,           // (B, L, H, D)
+                           float* __restrict__ dk_part,      // (B, H, nT, ctx, D)
+                           float* __restrict__ dv_part,      // (B, H, nT, ctx, D)
+                           float* __restrict__ drel_part,    // (B, H, nT, D, W)
+                           int L, int H, int D, int W) {
+  extern __shared__ __align__(128) float smem_f32[];
+  const int D8 = (D + 7) & ~7;         // head width padded to the depth 8
+  const int ld = tf32_pitch(D);        // row pitch of the operand tiles
+  float* ks = smem_f32;                // (KC, ld) K context
+  float* qs = ks + KC * ld;            // (TQ, ld)
+  float* dos = qs + TQ * ld;           // (TQ, ld)
+  float* rts = dos + TQ * ld;          // (WP, ld) rel[h]^T
+  float* sf = rts + WP * ld;           // (TQ, LDS32) S, then P_dense
+  float* dpf = sf + TQ * LDS32;        // (TQ, LDS32) dP, then dS_dense
+  float* qrf = dpf + TQ * LDS32;       // (TQ, LDR32) Q rel^T
+  float* vs = qrf + TQ * LDR32;        // (KC, ld) V context, then patches
+
+  const int b = blockIdx.y / H;
+  const int h = blockIdx.y % H;
+  const int tile = blockIdx.x;
+  const int n_tiles = gridDim.x;
+  const int t0 = tile * TQ;
+  const int ctx = TQ + W - 1;
+  const int Lk = L + W - 1;
+  const int tid = threadIdx.x;
+  const int lane = tid % 32, warp = tid / 32;
+  const size_t row_stride = (size_t)H * D;
+
+  // staging: fp32 as it is, zero past the context, past L or Lk, past D
+  // and past W (every padded row and column a product reads is finite)
+  stage_rows_f32<KC / NWARPS>(ks, vs, kpad + ((size_t)b * Lk + t0) * row_stride
+                                          + (size_t)h * D,
+                              vpad + ((size_t)b * Lk + t0) * row_stride
+                                  + (size_t)h * D,
+                              row_stride, min(ctx, Lk - t0), D, ld, warp,
+                              lane);
+  stage_rows_f32<TQ / NWARPS>(qs, dos, q + ((size_t)b * L + t0) * row_stride
+                                           + (size_t)h * D,
+                              dout + ((size_t)b * L + t0) * row_stride
+                                  + (size_t)h * D,
+                              row_stride, min(TQ, L - t0), D, ld, warp,
+                              lane);
+  // rel[h] (D, W) -> rts[j][d]; every load issued before the first store
+  constexpr int REL_PER_THREAD = 32 * MAX_DCHUNK * WP / NT;
+  const float* relh = rel + (size_t)h * D * W;
+  float x[REL_PER_THREAD];
+#pragma unroll
+  for (int i = 0; i < REL_PER_THREAD; ++i) {
+    const int e = tid + i * NT, d = e / WP, j = e % WP;
+    x[i] = d < D && j < W ? relh[d * W + j] : 0.f;
+  }
+#pragma unroll
+  for (int i = 0; i < REL_PER_THREAD; ++i) {
+    const int e = tid + i * NT, d = e / WP, j = e % WP;
+    if (d < ld) rts[sw(j, d, ld)] = x[i];
+  }
+  __syncthreads();
+
+  // scores: S = Q K^T and dP = dO V^T (TQ x KC; only the 16-column tiles
+  // the band reads) and Q rel^T (TQ x WP), over the depth D8
+  const int nc16 = (ctx + 15) / 16;
+  const int n_s = 2 * nc16;
+  for (int u = warp; u < 2 * n_s + 4; u += NWARPS) {
+    float acc[2][4] = {};
+    if (u < 2 * n_s) {
+      const bool is_dp = u >= n_s;
+      const int v = u % n_s, mi = v / nc16, ni = v % nc16;
+      mma3_run<OK, OK>(acc, is_dp ? dos : qs, ld, mi * 16, is_dp ? vs : ks,
+                       ld, ni * 16, D8 / 8, lane);
+      store_sw(acc, is_dp ? dpf : sf, LDS32, mi * 16, ni * 16, lane);
+    } else {
+      const int v = u - 2 * n_s, mi = v >> 1, ni = v & 1;
+      mma3_run<OK, OK>(acc, qs, ld, mi * 16, rts, ld, ni * 16, D8 / 8, lane);
+      store_sw(acc, qrf, LDR32, mi * 16, ni * 16, lane);
+    }
+  }
+  __syncthreads();
+
+  // band, softmax and dS per query row, lane j <-> window offset j; p and
+  // dS (not rounded) replace S and dP as P_dense and dS_dense (at [r, r +
+  // j], zero elsewhere); dS_band is read from dS_dense
+  for (int r = warp; r < TQ; r += NWARPS) {
+    const int t = t0 + r;
+    float p = 0.f, ds = 0.f;
+    if (t < L) {
+      // q.k and q.rel summed apart, then added, as the forward does
+      const float s = lane < W ? sf[sw(r, r + lane, LDS32)]
+                                     + qrf[sw(r, lane, LDR32)]
+                               : -INFINITY;
+      const float dp = lane < W ? dpf[sw(r, r + lane, LDS32)] : 0.f;
+      float m = s;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) m = fmaxf(m, __shfl_xor_sync(0xffffffffu, m, o));
+      const float e = lane < W ? expf(s - m) : 0.f;
+      float z = e;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) z += __shfl_xor_sync(0xffffffffu, z, o);
+      p = e / z;
+      float pdp = p * dp;
+#pragma unroll
+      for (int o = 16; o > 0; o >>= 1) pdp += __shfl_xor_sync(0xffffffffu, pdp, o);
+      ds = p * (dp - pdp);
+    }
+    __syncwarp();                      // row r read before it is rewritten
+#pragma unroll
+    for (int c = lane; c < KC; c += 32) {
+      const int j = c - r;
+      const float pj = __shfl_sync(0xffffffffu, p, j & 31);
+      const float dsj = __shfl_sync(0xffffffffu, ds, j & 31);
+      const bool in = j >= 0 && j < W;
+      sf[sw(r, c, LDS32)] = in ? pj : 0.f;
+      dpf[sw(r, c, LDS32)] = in ? dsj : 0.f;
+    }
+  }
+  __syncthreads();
+
+  // gradients, one 16 x 16 output tile per warp at a time, V now dead
+  // under the warps' store patches:
+  //   dq (TQ x D8)         = dS_dense K + dS_band rel^T (one sum)
+  //   dk_part (KC x D8)    = dS_dense^T Q,  dv_part = P_dense^T dO
+  //   drel_part (D8 x WP)  = Q^T dS_band
+  // A tile past D8 (D8 = 8 mod 16) reads finite values of the next row and
+  // is not stored.
+  float* patch = vs + warp * 16 * LDP;
+  const size_t part = (size_t)blockIdx.y * n_tiles + tile;
+  const int n16 = (D8 + 15) / 16;
+  const int n_dq = 2 * n16, n_dkv = nc16 * n16;
+  const int n_units = n_dq + 2 * n_dkv + n16 * ((W + 15) / 16);
+  for (int u = warp; u < n_units; u += NWARPS) {
+    float acc[2][4] = {};
+    if (u < n_dq) {
+      const int mi = u / n16, ni = u % n16;
+      mma3_run<OK, KO>(acc, dpf, LDS32, mi * 16, ks, ld, ni * 16, KC / 8,
+                       lane);
+      mma3_run<OBAND, KO>(acc, dpf, LDS32, mi * 16, rts, ld, ni * 16,
+                          WP / 8, lane);
+      const int r0 = mi * 16, d0 = ni * 16;
+      store_tile(acc, patch,
+                 dq + ((size_t)b * L + t0 + r0) * row_stride + (size_t)h * D
+                    + d0,
+                 row_stride, min(16, L - t0 - r0), min(16, D - d0), lane);
+    } else if (u < n_dq + 2 * n_dkv) {
+      const int v = u - n_dq;
+      const bool is_dv = v >= n_dkv;
+      const int mi = (v % n_dkv) / n16, ni = v % n16;
+      mma3_run<KO, KO>(acc, is_dv ? sf : dpf, LDS32, mi * 16,
+                       is_dv ? dos : qs, ld, ni * 16, TQ / 8, lane);
+      const int c0 = mi * 16, d0 = ni * 16;
+      store_tile(acc, patch,
+                 (is_dv ? dv_part : dk_part) + (part * ctx + c0) * D + d0,
+                 (size_t)D, ctx - c0, min(16, D - d0), lane);
+    } else {
+      const int v = u - n_dq - 2 * n_dkv;
+      const int mi = v % n16, ni = v / n16;
+      mma3_run<KO, KBAND>(acc, qs, ld, mi * 16, dpf, LDS32, ni * 16, TQ / 8,
+                          lane);
+      const int d0 = mi * 16, j0 = ni * 16;
+      store_tile(acc, patch, drel_part + (part * D + d0) * W + j0, (size_t)W,
+                 min(16, D - d0), W - j0, lane);
+    }
+  }
+}
+
 // dk / dv row s of (b, h) = sum over the tiles i whose context
 // [i*TQ, i*TQ + ctx) covers s, in increasing i, stored as T
 template <typename T>
@@ -661,36 +840,32 @@ __global__ void bwd_drel_sum_kernel(const float* __restrict__ drel_part,
   drel[idx] = a;
 }
 
-template <typename T>
-int launch_partials(const T* q, const T* kpad, const T* vpad,
-                    const float* rel, const T* dout, T* dq, float* dk_part,
-                    float* dv_part, float* drel_part, int B, int L, int H,
-                    int D, int W, int tq, void* stream) {
+int launch_partials_tf32x3(const float* q, const float* kpad,
+                           const float* vpad, const float* rel,
+                           const float* dout, float* dq, float* dk_part,
+                           float* dv_part, float* drel_part, int B, int L,
+                           int H, int D, int W, int tq, void* stream) {
   if (tq != TQ || W < 1 || W > 32 || D > 32 * MAX_DCHUNK)
     return (int)cudaErrorInvalidValue;
-  const int ctx = TQ + W - 1;
-  const size_t smem = sizeof(float) * ((size_t)2 * ctx * D + (size_t)2 * TQ * D
-                                       + (size_t)D * W + (size_t)2 * TQ * W);
-  // Above 48 KB a kernel has to opt in, once per device and instance: the
-  // largest size asked for so far is kept, so a launch makes no call for it
-  // again.
+  const size_t smem = sizeof(float) * tf32x3_smem_floats(D);
+  // Above 48 KB a kernel has to opt in, once per device: the largest size
+  // asked for so far is kept, so a launch makes no call for it again.
   static size_t opted_in[64] = {};
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
   if (device >= 64 || opted_in[device] < smem) {
-    err = cudaFuncSetAttribute(bwd_partials_kernel<T>,
+    err = cudaFuncSetAttribute(bwd_partials_tf32x3_kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return (int)err;
     if (device < 64) opted_in[device] = smem;
   }
   dim3 grid((L + TQ - 1) / TQ, B * H);
-  bwd_partials_kernel<T><<<grid, NT, smem, (cudaStream_t)stream>>>(
+  bwd_partials_tf32x3_kernel<<<grid, NT, smem, (cudaStream_t)stream>>>(
       q, kpad, vpad, rel, dout, dq, dk_part, dv_part, drel_part, L, H, D, W);
   return (int)cudaGetLastError();
 }
-
 int launch_partials_mma(const bf16* q, const bf16* kpad, const bf16* vpad,
                         const float* rel, const bf16* dout, bf16* dq,
                         float* dk_part, float* dv_part, float* drel_part,
@@ -702,7 +877,7 @@ int launch_partials_mma(const bf16* q, const bf16* kpad, const bf16* vpad,
   const size_t smem = sizeof(bf16) * ((2 * TQ + 2 * KC + 3 * WP) * ld
                                       + 2 * TQ * LDC + TQ * LDB)
                       + sizeof(float) * TQ * (2 * LDS + 3 * LDR);
-  static size_t opted_in[64] = {};     // as launch_partials
+  static size_t opted_in[64] = {};     // as launch_partials_tf32x3
   int device = 0;
   cudaError_t err = cudaGetDevice(&device);
   if (err != cudaSuccess) return (int)err;
@@ -748,9 +923,25 @@ extern "C" int banded_attention_bwd_partials_launch(
     const float* dout, float* dq, float* dk_part, float* dv_part,
     float* drel_part, int B, int L, int H, int D, int W, int tq,
     void* stream) {
-  return launch_partials<float>(q, kpad, vpad, rel, dout, dq, dk_part,
+  return launch_partials_tf32x3(q, kpad, vpad, rel, dout, dq, dk_part,
                                 dv_part, drel_part, B, L, H, D, W, tq,
                                 stream);
+}
+
+// Bytes of shared memory a block of the fp32 first pass takes at head
+// width D, and the most a block may opt in to on the current device (-1
+// if it cannot be read): the caller checks the one against the other.
+extern "C" int banded_attention_bwd_partials_smem_bytes(int D) {
+  return (int)(sizeof(float) * tf32x3_smem_floats(D));
+}
+
+extern "C" int banded_attention_bwd_partials_smem_limit() {
+  int device = 0, limit = -1;
+  if (cudaGetDevice(&device) != cudaSuccess ||
+      cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                             device) != cudaSuccess)
+    return -1;
+  return limit;
 }
 
 // q, kpad, vpad, dout and dq bf16; rel and the partials fp32.

@@ -36,6 +36,8 @@ ENTRY_POINTS = {
         "banded_attention_bwd_partials_launch": [_P] * 9 + [_I] * 6 + [_P],
         "banded_attention_bwd_partials_bf16_launch":
             [_P] * 9 + [_I] * 6 + [_P],
+        "banded_attention_bwd_partials_smem_bytes": [_I],
+        "banded_attention_bwd_partials_smem_limit": [],
         "banded_attention_bwd_reduce_launch": [_P] * 6 + [_I] * 6 + [_P],
         "banded_attention_bwd_reduce_bf16_launch":
             [_P] * 6 + [_I] * 6 + [_P]},

@@ -1,22 +1,25 @@
-"""Phase times of the bf16 first pass of the attention backward on the card.
+"""Phase times of the first passes of the attention backward on the card.
 
-    python -m reconvat_tpu_torch.kernels.bwd_phases
+    python -m reconvat_tpu_torch.kernels.bwd_phases [fp32|bf16 ...]
 
-Writes a copy of `csrc/banded_attention_bwd.cu` in which thread 0 of each
-block of `bwd_partials_mma_kernel` reads the global timer at the kernel's
-start, after each of its block barriers and at its end, builds it with the
-port's nvcc flags into `build/kernels/`, and runs it at the training shape
-(B=8, L=640, H=4, Dh=229, W=31; random bf16 inputs from seed 0). Prints
-the card, the time per block of each phase (staging, scores, band,
-gradients: mean and 90th percentile) and the kernel's time by CUDA events
-(L2 flushed before each launch), the stamped copy's beside the unstamped
-kernel's, in turns. Needs one CUDA device and nvcc.
+For each operand dtype asked for (both by default), writes a copy of
+`csrc/banded_attention_bwd.cu` in which thread 0 of each block of its
+first pass (`bwd_partials_tf32x3_kernel` for fp32, `bwd_partials_mma_kernel`
+for bf16) reads the global timer at the kernel's start, after each of its
+block barriers and at its end, builds it with the port's nvcc flags into
+`build/kernels/`, and runs it at the training shape (B=8, L=640, H=4,
+Dh=229, W=31; random inputs from seed 0). Prints the card, the time per
+block of each phase (staging, scores, band, gradients: mean and 90th
+percentile) and the kernel's time by CUDA events (L2 flushed before each
+launch), the stamped copy's beside the unstamped kernel's, in turns. Needs
+one CUDA device and nvcc.
 """
 from __future__ import annotations
 
 import ctypes
 import os
 import subprocess
+import sys
 
 import numpy as np
 import torch
@@ -25,6 +28,12 @@ from . import _build
 
 PHASES = ("staging", "scores", "band", "gradients")
 MAX_BLOCKS = 4096
+# dtype -> (the first pass's signature start, its C entry point)
+KERNELS = {
+    "fp32": ("bwd_partials_tf32x3_kernel(const float*",
+             "banded_attention_bwd_partials_launch"),
+    "bf16": ("bwd_partials_mma_kernel(const bf16*",
+             "banded_attention_bwd_partials_bf16_launch")}
 
 _STAMP = ("  if (threadIdx.x == 0) stamps[(blockIdx.y * gridDim.x + blockIdx.x)"
           " * 8 + {k}] = global_ns();\n")
@@ -43,17 +52,18 @@ extern "C" int read_stamps(unsigned long long* out, int n) {
 """
 
 
-def stamped_source() -> str:
-    """The backward's source with the phase stamps in the bf16 first pass."""
+def stamped_source(dtype: str) -> str:
+    """The backward's source with the phase stamps in the first pass of
+    `dtype`."""
     with open(os.path.join(_build.CSRC, "banded_attention_bwd.cu")) as f:
         src = f.read()
-    start = src.index("bwd_partials_mma_kernel(const bf16*")
+    start = src.index(KERNELS[dtype][0])
     end = src.index("\n}\n", start) + 3      # past the closing brace
     body = src[start:end]
     head, *rest = body.split("  __syncthreads();\n")
     if len(rest) != len(PHASES) - 1:
         raise RuntimeError(f"expected {len(PHASES) - 1} block barriers in "
-                           f"bwd_partials_mma_kernel, found {len(rest)}")
+                           f"the {dtype} first pass, found {len(rest)}")
     brace = head.index("{\n") + 2
     body = head[:brace] + _STAMP.format(k=0) + head[brace:]
     for k, part in enumerate(rest, 1):
@@ -65,21 +75,21 @@ def stamped_source() -> str:
             + _READ)
 
 
-def build_stamped() -> ctypes.CDLL:
+def build_stamped(dtype: str) -> ctypes.CDLL:
     os.makedirs(_build.BUILD_DIR, exist_ok=True)
-    cu = os.path.join(_build.BUILD_DIR, "banded_attention_bwd_stamped.cu")
-    so = os.path.join(_build.BUILD_DIR, "libbanded_attention_bwd_stamped.so")
+    name = f"banded_attention_bwd_stamped_{dtype}"
+    cu = os.path.join(_build.BUILD_DIR, f"{name}.cu")
+    so = os.path.join(_build.BUILD_DIR, f"lib{name}.so")
     with open(cu, "w") as f:
-        f.write(stamped_source())
+        f.write(stamped_source(dtype))
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
                    check=True)
     lib = ctypes.CDLL(so)
-    lib.banded_attention_bwd_partials_bf16_launch.argtypes = \
-        _build.ENTRY_POINTS["banded_attention_bwd"][
-            "banded_attention_bwd_partials_bf16_launch"]
+    entry = KERNELS[dtype][1]
+    getattr(lib, entry).argtypes = \
+        _build.ENTRY_POINTS["banded_attention_bwd"][entry]
     lib.read_stamps.argtypes = [ctypes.c_void_p, ctypes.c_int]
-    for fn in (lib.banded_attention_bwd_partials_bf16_launch,
-               lib.read_stamps):
+    for fn in (getattr(lib, entry), lib.read_stamps):
         fn.restype = ctypes.c_int
     return lib
 
@@ -102,20 +112,21 @@ def event_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     return total / iters
 
 
-def main() -> None:
+def run(dtype: str, card: str) -> None:
     from ..ops import banded_attention_kernel as bak
 
     B, L, H, D, W = 8, 640, 4, 229, 31
     g = torch.Generator(device="cuda").manual_seed(0)
+    op = torch.bfloat16 if dtype == "bf16" else torch.float32
 
     def randn(*shape, scale=1.0):
         return (torch.randn(shape, device="cuda", generator=g) * scale)
 
-    q = randn(B, L, H, D, scale=D ** -0.25).bfloat16()
-    kpad = randn(B, L + W - 1, H, D, scale=D ** -0.25).bfloat16()
-    vpad = randn(B, L + W - 1, H, D).bfloat16()
+    q = randn(B, L, H, D, scale=D ** -0.25).to(op)
+    kpad = randn(B, L + W - 1, H, D, scale=D ** -0.25).to(op)
+    vpad = randn(B, L + W - 1, H, D).to(op)
     rel = randn(H, D, W, scale=0.1)
-    d_out = randn(B, L, H, D).bfloat16()
+    d_out = randn(B, L, H, D).to(op)
     args = (q, kpad, vpad, rel, d_out, W)
     n = -(-L // bak.BWD_TILE)
     blocks = n * B * H
@@ -125,14 +136,15 @@ def main() -> None:
             torch.empty((B, H, n, bak.BWD_TILE + W - 1, D), device="cuda"),
             torch.empty((B, H, n, bak.BWD_TILE + W - 1, D), device="cuda"),
             torch.empty((B, H, n, D, W), device="cuda"))
-    lib = build_stamped()
+    lib = build_stamped(dtype)
+    launch = getattr(lib, KERNELS[dtype][1])
 
     def stamped():
-        err = lib.banded_attention_bwd_partials_bf16_launch(
+        err = launch(
             *(t.data_ptr() for t in (q, kpad, vpad, rel, d_out) + outs),
             B, L, H, D, W, bak.BWD_TILE,
             ctypes.c_void_p(torch.cuda.current_stream().cuda_stream))
-        _build.check(err, "stamped banded_attention_bwd_partials_bf16")
+        _build.check(err, f"stamped {dtype} banded_attention_bwd_partials")
 
     def kernel():
         bak.banded_attention_bwd_partials(*args)
@@ -146,12 +158,8 @@ def main() -> None:
     _build.check(lib.read_stamps(ns.ctypes.data, ns.size), "read_stamps")
     ns = ns[:8 * blocks].reshape(blocks, 8)[:, :len(PHASES) + 1]
     per_phase = np.diff(ns.astype(np.int64), axis=1)
-    card = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"], capture_output=True, text=True
-    ).stdout.strip()
-    print(f"{card}; bf16 first pass (B={B}, L={L}, H={H}, Dh={D}, W={W}), "
-          f"{blocks} blocks")
+    print(f"{card}; {dtype} first pass (B={B}, L={L}, H={H}, Dh={D}, "
+          f"W={W}), {blocks} blocks")
     print(f"ms in turns (stamped, kernel, kernel, stamped): {times}")
     print("ns per block, mean:",
           dict(zip(PHASES, per_phase.mean(0).tolist())),
@@ -162,5 +170,19 @@ def main() -> None:
           (int(ns[:, -1].max()) - int(ns[:, 0].min())) / 1e6)
 
 
+def main(dtypes=None) -> None:
+    dtypes = dtypes or list(KERNELS)
+    unknown = set(dtypes) - set(KERNELS)
+    if unknown:
+        raise SystemExit(f"unknown dtype {sorted(unknown)}: "
+                         f"{sorted(KERNELS)}")
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True
+    ).stdout.strip()
+    for dtype in dtypes:
+        run(dtype, card)
+
+
 if __name__ == "__main__":
-    main()
+    main(sys.argv[1:])

@@ -16,11 +16,12 @@ are fp32 in both (the bf16 arithmetic: `banded_attention`).
 (`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
 `out` with respect to q, kpad, vpad and rel, with d_out, dq, dk and dv in
 the operand dtype and drel fp32 (the bf16 arithmetic:
-`banded_attention_bwd_plain`; the bf16 first pass's tensor-core tiles:
-`banded_attention_bwd_partials_mma_plain`). On a CUDA tensor each wrapper
-launches its kernel (`csrc/banded_attention.cu`,
-`csrc/banded_attention_bwd.cu`); on a CPU tensor it runs its plain PyTorch
-version. `BandedAttention` is the differentiable op built from both.
+`banded_attention_bwd_plain`; the first passes' tensor-core tiles:
+`banded_attention_bwd_partials_tf32x3_plain` for fp32 operands,
+`banded_attention_bwd_partials_mma_plain` for bf16 ones). On a CUDA
+tensor each wrapper launches its kernel (`csrc/banded_attention.cu`,
+`csrc/banded_attention_bwd.cu`); on a CPU tensor it runs its plain
+PyTorch version. `BandedAttention` is the differentiable op built from both.
 """
 from __future__ import annotations
 
@@ -210,9 +211,72 @@ def split_bf16x3(rel):
     return r1, r2, r3
 
 
-# the bf16 first pass's tiles: context rows padded to MMA_CTX, the window
-# to MMA_W, the head width to a multiple of MMA_K (one product's depth)
-MMA_CTX, MMA_W, MMA_K = 64, 32, 16
+# the tensor-core first passes' tiles: context rows padded to MMA_CTX, the
+# window to MMA_W; the head width to a multiple of MMA_K (the bf16 pass's
+# product depth) or TF32_K (the fp32 pass's)
+MMA_CTX, MMA_W, MMA_K, TF32_K = 64, 32, 16, 8
+
+
+def _block_tiles(q, kpad, vpad, d_out, tile: int, width: int):
+    """The operand tiles of one first-pass block, for every (b, h) and
+    query tile at once, widened to fp32 and zero-padded to `width`
+    columns: Q and dO (B, H, n, tile, width), the K and V context (B, H,
+    n, MMA_CTX, width), zero at rows past the context or past kpad."""
+    L, D = q.shape[1], q.shape[3]
+    n = -(-L // tile)
+    ctx = tile + (kpad.shape[1] - L)
+    rows = torch.arange(MMA_CTX, device=q.device)
+
+    def query_tiles(x):
+        return _tiles(F.pad(x.float(), (0, width - D)), tile)
+
+    def context_tiles(x):
+        x = F.pad(x.float(), (0, width - D, 0, 0, 0,
+                              (n - 1) * tile + MMA_CTX - x.shape[1]))
+        x = x.unfold(1, MMA_CTX, tile).permute(0, 2, 1, 4, 3)
+        return x.masked_fill((rows >= ctx)[:, None], 0.0)
+
+    return (query_tiles(q), query_tiles(d_out), context_tiles(kpad),
+            context_tiles(vpad))
+
+
+def _band_softmax(s_full, qrel, dp_full, L: int, window: int, tile: int,
+                  round_bf16: bool):
+    """p and dS of the block's rows from the dense S and dP tiles (S[r, r +
+    j] + Qrel[r, j], as the forward adds them), zero at rows past L, each
+    rounded to bf16 or not. Returns (p_dense, ds_dense, ds_band): p and dS
+    at [r, r + j] of a (tile, MMA_CTX) tile, zero elsewhere, and dS at
+    [r, j] of a (tile, MMA_W) one."""
+    dev = s_full.device
+    n = s_full.shape[2]
+    band = (torch.arange(tile, device=dev)[:, None]
+            + torch.arange(window, device=dev))           # r + j
+    band = band.expand(*s_full.shape[:3], tile, window)
+    s = s_full.gather(-1, band) + qrel[..., :window]
+    p = torch.softmax(s, dim=-1)
+    dp = dp_full.gather(-1, band)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    t = (torch.arange(n, device=dev)[:, None] * tile
+         + torch.arange(tile, device=dev))
+    live = (t < L)[..., None]                             # (n, tile, 1)
+    p, ds = (x.masked_fill(~live, 0.0) for x in (p, ds))
+    if round_bf16:
+        p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
+    p_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, p)
+    ds_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, ds)
+    return p_dense, ds_dense, F.pad(ds, (0, MMA_W - window))
+
+
+def _crop_partials(dq, dk, dv, drel, L: int, D: int, window: int,
+                   tile: int):
+    """The block tiles cut back to what banded_attention_bwd_partials_plain
+    returns (dq fp32, (B, L, H, D))."""
+    B, H, n = dk.shape[:3]
+    ctx = tile + window - 1
+    dq = dq.permute(0, 2, 3, 1, 4).reshape(B, n * tile, H, dq.shape[-1])
+    return (dq[:, :L, :, :D], dk[..., :ctx, :D].contiguous(),
+            dv[..., :ctx, :D].contiguous(),
+            drel[..., :D, :window].contiguous())
 
 
 def banded_attention_bwd_partials_mma_plain(q, kpad, vpad, rel, d_out,
@@ -241,23 +305,9 @@ def banded_attention_bwd_partials_mma_plain(q, kpad, vpad, rel, d_out,
     if q.dtype != torch.bfloat16:
         raise TypeError(f"the bf16 first pass takes bfloat16 operands, got "
                         f"{q.dtype}")
-    B, L, H, D = q.shape
-    n = -(-L // tile)
-    ctx = tile + window - 1
+    L, D = q.shape[1], q.shape[3]
     D16 = -(-D // MMA_K) * MMA_K
-    rows = torch.arange(MMA_CTX, device=q.device)
-
-    def query_tiles(x):          # (B, L, H, D) -> (B, H, n, tile, D16)
-        return _tiles(F.pad(x.float(), (0, D16 - D)), tile)
-
-    def context_tiles(x):        # (B, Lk, H, D) -> (B, H, n, 64, D16)
-        x = F.pad(x.float(), (0, D16 - D, 0, 0, 0,
-                              (n - 1) * tile + MMA_CTX - x.shape[1]))
-        x = x.unfold(1, MMA_CTX, tile).permute(0, 2, 1, 4, 3)
-        return x.masked_fill((rows >= ctx)[:, None], 0.0)
-
-    qt, dot = query_tiles(q), query_tiles(d_out)
-    kc, vc = context_tiles(kpad), context_tiles(vpad)
+    qt, dot, kc, vc = _block_tiles(q, kpad, vpad, d_out, tile, D16)
     # (H, D, W) -> (1, H, 1, 32, D16): rel^T, zero-padded
     r = [F.pad(t.float(), (0, MMA_W - window, 0, D16 - D))
          .transpose(1, 2)[None, :, None] for t in split_bf16x3(rel)]
@@ -266,33 +316,80 @@ def banded_attention_bwd_partials_mma_plain(q, kpad, vpad, rel, d_out,
     for rt in r[1:]:
         qrel = qrel + qt @ rt.transpose(-1, -2)
     dp_full = dot @ vc.transpose(-1, -2)
-
-    band = (torch.arange(tile, device=q.device)[:, None]
-            + torch.arange(window, device=q.device))      # r + j
-    band = band.expand(*s_full.shape[:3], tile, window)
-    s = s_full.gather(-1, band) + qrel[..., :window]
-    p = torch.softmax(s, dim=-1)
-    dp = dp_full.gather(-1, band)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
-    t = (torch.arange(n, device=q.device)[:, None] * tile
-         + torch.arange(tile, device=q.device))
-    live = (t < L)[..., None]                             # (n, tile, 1)
-    p, ds = (x.masked_fill(~live, 0.0).to(torch.bfloat16).float()
-             for x in (p, ds))
-    p_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, p)
-    ds_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, ds)
-    ds_band = F.pad(ds, (0, MMA_W - window))
-
+    p_dense, ds_dense, ds_band = _band_softmax(s_full, qrel, dp_full, L,
+                                               window, tile, True)
     dq = ds_dense @ kc
     for rt in r:
         dq = dq + ds_band @ rt
-    dk = ds_dense.transpose(-1, -2) @ qt
-    dv = p_dense.transpose(-1, -2) @ dot
-    drel = qt.transpose(-1, -2) @ ds_band
-    dq = dq.permute(0, 2, 3, 1, 4).reshape(B, n * tile, H, D16)
-    return (dq[:, :L, :, :D].to(torch.bfloat16),
-            dk[..., :ctx, :D].contiguous(), dv[..., :ctx, :D].contiguous(),
-            drel[..., :D, :window].contiguous())
+    dq, *parts = _crop_partials(dq, ds_dense.transpose(-1, -2) @ qt,
+                                p_dense.transpose(-1, -2) @ dot,
+                                qt.transpose(-1, -2) @ ds_band, L, D,
+                                window, tile)
+    return (dq.to(torch.bfloat16), *parts)
+
+
+def split_tf32x2(x):
+    """fp32 x as two TF32 values (10 stored mantissa bits, fp32's exponent)
+    as `cvt.rna.tf32.f32` rounds them, to nearest with ties away from zero:
+    big = tf32(x), small = tf32(x - big). x - big is exact in fp32, and
+    big + small equals x to within 2**-22 |x|."""
+    def rna(v):
+        return ((v.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+    big = rna(x)
+    return big, rna(x - big)
+
+
+def _mm_tf32x3(a, b):
+    """a @ b as three TF32 tensor-core products with fp32 sums: big big +
+    (big small + small big), each operand `split_tf32x2`; small small is
+    dropped."""
+    a1, a2 = split_tf32x2(a.contiguous())
+    b1, b2 = split_tf32x2(b.contiguous())
+    return a1 @ b1 + (a1 @ b2 + a2 @ b1)
+
+
+def banded_attention_bwd_partials_tf32x3_plain(q, kpad, vpad, rel, d_out,
+                                               window: int,
+                                               tile: int = BWD_TILE):
+    """The fp32 first pass as the 3xTF32 tensor-core kernel of
+    `csrc/banded_attention_bwd.cu` computes it, tile by tile; returns what
+    `banded_attention_bwd_partials_plain` returns. fp32 operands. Per (b,
+    h) and query tile of 32 rows, with its 64 context rows (rows past the
+    context or past kpad zero) and the head width zero-padded to D8, a
+    multiple of 8, every product A B taken as `_mm_tf32x3`:
+
+        S = Q K^T, dP = dO V^T (32 x 64),  Qrel = Q rel^T (32 x 32)
+        s = S[r, r + j] + Qrel[r, j],  p = softmax_j(s),
+        dS = p (dP[r, r + j] - sum_j p dP[r, r + j])   (not rounded)
+        P_dense, dS_dense (32 x 64): p, dS at [r, r + j], zero elsewhere
+        dS_band (32 x 32): dS at [r, j], read from dS_dense
+        dq = dS_dense K + dS_band rel^T (one sum),
+        dk_part = dS_dense^T Q,  dv_part = P_dense^T dO,
+        drel_part = Q^T dS_band
+
+    The tiles are cropped to the context rows, Dh and the window at the
+    end."""
+    if q.dtype != torch.float32:
+        raise TypeError(f"the fp32 first pass takes float32 operands, got "
+                        f"{q.dtype}")
+    L, D = q.shape[1], q.shape[3]
+    D8 = -(-D // TF32_K) * TF32_K
+    qt, dot, kc, vc = _block_tiles(q, kpad, vpad, d_out, tile, D8)
+    # (H, D, W) -> (1, H, 1, 32, D8): rel^T, zero-padded
+    rt = F.pad(rel, (0, MMA_W - window, 0, D8 - D)).transpose(1, 2)[
+        None, :, None]
+    s_full = _mm_tf32x3(qt, kc.transpose(-1, -2))
+    qrel = _mm_tf32x3(qt, rt.transpose(-1, -2))
+    dp_full = _mm_tf32x3(dot, vc.transpose(-1, -2))
+    p_dense, ds_dense, ds_band = _band_softmax(s_full, qrel, dp_full, L,
+                                               window, tile, False)
+    dq = _mm_tf32x3(torch.cat([ds_dense, ds_band], -1),
+                    torch.cat([kc, rt.expand(*kc.shape[:3], -1, -1)], -2))
+    return _crop_partials(dq, _mm_tf32x3(ds_dense.transpose(-1, -2), qt),
+                          _mm_tf32x3(p_dense.transpose(-1, -2), dot),
+                          _mm_tf32x3(qt.transpose(-1, -2), ds_band), L, D,
+                          window, tile)
 
 
 def banded_attention_bwd_reduce_plain(dk_part, dv_part, drel_part, L: int,
@@ -340,16 +437,31 @@ def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
 
     CPU tensors take the plain version; CUDA tensors launch the first
     pass of `csrc/banded_attention_bwd.cu` for their dtype or raise: fp32
-    q, kpad, vpad and d_out the fp32 kernel (counted in
-    `banded_attention_bwd_partials.launches`), bf16 ones the tensor-core
-    kernel whose tile arithmetic `banded_attention_bwd_partials_mma_plain`
-    repeats (counted in `banded_attention_bwd_partials.launches_bf16`); rel
-    fp32 for both."""
+    q, kpad, vpad and d_out the 3xTF32 tensor-core kernel whose tile
+    arithmetic `banded_attention_bwd_partials_tf32x3_plain` repeats
+    (counted in `banded_attention_bwd_partials.launches`), bf16 ones the
+    bf16 tensor-core kernel whose tile arithmetic
+    `banded_attention_bwd_partials_mma_plain` repeats (counted in
+    `banded_attention_bwd_partials.launches_bf16`); rel fp32 for both. The
+    fp32 kernel keeps its operand tiles in fp32 and raises ValueError where
+    they exceed the shared memory a block may take (Dh > 232 on the
+    H100)."""
     if q.device.type == "cpu":
         return banded_attention_bwd_partials_plain(q, kpad, vpad, rel,
                                                    d_out, window)
     _check_bwd_args(q, kpad, vpad, rel, d_out, window)
     B, L, H, D = q.shape
+    lib = _build.load("banded_attention_bwd")
+    bf16 = q.dtype == torch.bfloat16
+    if not bf16:
+        with torch.cuda.device(q.device):
+            need = lib.banded_attention_bwd_partials_smem_bytes(D)
+            limit = lib.banded_attention_bwd_partials_smem_limit()
+        if not 0 < need <= limit:
+            raise ValueError(f"the fp32 attention backward takes {need} "
+                             f"bytes of shared memory per block at Dh={D}; "
+                             f"a block may opt in to {limit} on "
+                             f"{torch.cuda.get_device_name(q.device)}")
     n = -(-L // BWD_TILE)
     dq = torch.empty_like(q)
     dk_part = torch.empty((B, H, n, BWD_TILE + window - 1, D),
@@ -357,8 +469,6 @@ def banded_attention_bwd_partials(q, kpad, vpad, rel, d_out, window: int):
     dv_part = torch.empty_like(dk_part)
     drel_part = torch.empty((B, H, n, D, window), dtype=torch.float32,
                             device=q.device)
-    lib = _build.load("banded_attention_bwd")
-    bf16 = q.dtype == torch.bfloat16
     launch = (lib.banded_attention_bwd_partials_bf16_launch if bf16
               else lib.banded_attention_bwd_partials_launch)
     stream = torch.cuda.current_stream(q.device).cuda_stream

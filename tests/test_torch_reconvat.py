@@ -205,6 +205,8 @@ PORT_MODULES = [
     "reconvat_tpu_torch.decode", "reconvat_tpu_torch.serve",
     "reconvat_tpu_torch.weights", "reconvat_tpu_torch.kernels._build",
     "reconvat_tpu_torch.kernels.bwd_phases",
+    "reconvat_tpu_torch.kernels.bwd_variants",
+    "reconvat_tpu_torch.train.bf16_card_rule",
     "reconvat_tpu_torch.models.common", "reconvat_tpu_torch.models.reconvat",
     "reconvat_tpu_torch.models.losses", "reconvat_tpu_torch.vat",
     "reconvat_tpu_torch.train", "reconvat_tpu_torch.train.state",
