@@ -77,9 +77,9 @@ ATTN_BF16_FP32_CAP, ATTN_BF16_FP32_ATOL = 2.0 ** -7, 1e-5
 # attention gradients over their max |.|: fp32 both sides, dk/dv add up to
 # 31 terms per row and drel 5120 rows per head in another order
 GRAD_TOL = dict(rtol=1e-4, atol=1e-5)
-# the fp32 backward (3xTF32 tensor cores) against the float64 backward: its
-# largest error, per output, at most this many times the fp32 plain
-# version's. The TF32 split keeps about 2**-22 of relative error per
+# the fp32 forward and backward (3xTF32 tensor cores) against their float64
+# versions: the largest error, per output, at most this many times the fp32
+# plain version's. The TF32 split keeps about 2**-22 of relative error per
 # product where fp32 keeps 2**-24 (tests/test_torch_kernels.py,
 # TF32X3_TRUTH_FACTOR)
 TF32X3_TRUTH_FACTOR = 4.0
@@ -295,6 +295,7 @@ def phase_mel(fe):
     gemm_bound_ms, gemm_bound_by = bound(gemm_flops, gemm_bytes)
     row = dict(
         name="mel_power", route="cuda", source="reconvat_tpu_torch/csrc/mel.cu",
+        cuda_kernels=["mel_fft_kernel"],
         replaces="reconvat_tpu/ops/pallas_mel.py:36",
         max_abs_err=err, ms=time_ms(kernel),
         plain_ms=time_ms(lambda: mel_power_plain(x, *args)),
@@ -362,6 +363,10 @@ def phase_attention(q, kpad, vpad, rel):
     ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
     err_out = check_close("attention out", out, ref_out, ATTN_TOL)
     err_p = check_close("attention probs", probs, ref_probs, ATTN_TOL)
+    truth = nearer_float64(
+        "banded_attention_fwd", (out, probs), (ref_out, ref_probs),
+        banded_attention(*(t.double() for t in (q, kpad, vpad, rel)), W),
+        ("out", "probs"))
 
     qh, kh, vh, mask = sdpa_inputs(q, kpad, vpad, rel)
 
@@ -377,6 +382,7 @@ def phase_attention(q, kpad, vpad, rel):
     row = dict(
         name="banded_attention_fwd", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention.cu",
+        cuda_kernels=["banded_attention_fwd_tf32x3_kernel"],
         replaces="reconvat_tpu/ops/pallas_attention.py:56",
         max_abs_err=max(err_out, err_p),
         ms=time_ms(lambda: banded_attention_fwd(q, kpad, vpad, rel, W)),
@@ -385,7 +391,10 @@ def phase_attention(q, kpad, vpad, rel):
         bound_ms=bound_ms, bound_by=bound_by,
         library_ms=time_ms(library))
     log(f"phase 3 banded_attention_fwd (B={B}, L={L}, H={H}, Dh={D}, W={W}): "
-        f"max_abs_err out {err_out} probs {err_p} (tol {ATTN_TOL}), library "
+        f"max_abs_err out {err_out} probs {err_p} (tol {ATTN_TOL}); against "
+        f"float64, the kernel's and the fp32 plain version's largest error "
+        f"over max|truth| (kernel / plain at most {TF32X3_TRUTH_FACTOR}) "
+        f"{truth}; library "
         f"(SDPA, dense mask) err {lib_err}, ms {row['ms']}, plain_ms "
         f"{row['plain_ms']}, library_ms {row['library_ms']}, bound_ms "
         f"{bound_ms} ({bound_by}; {flops / 1e9} GFLOP, {nbytes / 1e6} MB)")
@@ -440,6 +449,7 @@ def phase_attention_bf16(q, kpad, vpad, rel):
     row = dict(
         name="banded_attention_fwd_bf16", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention.cu",
+        cuda_kernels=["banded_attention_fwd_mma_kernel"],
         replaces="reconvat_tpu/ops/pallas_attention.py:56",
         max_abs_err=max(err_out, err_p),
         ms=time_ms(lambda: banded_attention_fwd(q, kpad, vpad, rel, W)),
@@ -534,6 +544,8 @@ def phase_attention_bwd(q, kpad, vpad, rel, d_out):
     row = dict(
         name="banded_attention_bwd", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        cuda_kernels=["bwd_partials_tf32x3_kernel",
+                      "bwd_overlap_add_kernel<float>", "bwd_drel_sum_kernel"],
         replaces="reconvat_tpu/ops/pallas_attention_bwd.py:37",
         max_abs_err=err, ms=time_ms(lambda: bak.banded_attention_bwd(*args)),
         plain_ms=time_ms(lambda: bak.banded_attention_bwd_plain(*args)),
@@ -544,6 +556,7 @@ def phase_attention_bwd(q, kpad, vpad, rel, d_out):
     row_p = dict(
         name="banded_attention_bwd_partials", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        cuda_kernels=["bwd_partials_tf32x3_kernel"],
         replaces="tools/bench_attention_parts.py:73",
         max_abs_err=err_p,
         ms=time_ms(lambda: bak.banded_attention_bwd_partials(*args)),
@@ -647,6 +660,9 @@ def phase_attention_bwd_bf16(q, kpad, vpad, rel, d_out):
     row = dict(
         name="banded_attention_bwd_bf16", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        cuda_kernels=["bwd_partials_mma_kernel",
+                      "bwd_overlap_add_kernel<__nv_bfloat16>",
+                      "bwd_drel_sum_kernel"],
         replaces="reconvat_tpu/ops/pallas_attention_bwd.py:37",
         max_abs_err=err, ms=time_ms(lambda: bak.banded_attention_bwd(*args)),
         plain_ms=time_ms(lambda: bak.banded_attention_bwd_plain(*args)),
@@ -658,6 +674,7 @@ def phase_attention_bwd_bf16(q, kpad, vpad, rel, d_out):
     row_p = dict(
         name="banded_attention_bwd_partials_bf16", route="cuda",
         source="reconvat_tpu_torch/csrc/banded_attention_bwd.cu",
+        cuda_kernels=["bwd_partials_mma_kernel"],
         replaces="tools/bench_attention_parts.py:73",
         max_abs_err=err_p,
         ms=time_ms(lambda: bak.banded_attention_bwd_partials(*args)),

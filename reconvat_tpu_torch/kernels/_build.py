@@ -2,8 +2,9 @@
 
 Each `csrc/<name>.cu` exposes a plain C entry point and is compiled by
 `nvcc` for sm_90a into a shared library under `build/kernels/` of the
-checkout (listed in `.gitignore`), named by a hash of its source so an
-edited kernel is rebuilt. The library is loaded with `ctypes`; pointers and
+checkout (listed in `.gitignore`), named by a hash of its source and of
+the headers under `csrc/` (`*.cuh`), so an edited kernel or header is
+rebuilt. The library is loaded with `ctypes`; pointers and
 the stream are passed as `c_void_p`. Nothing is built at import time: the
 first call that needs a kernel builds it, and `build_all()` builds every
 source at once, one `nvcc` process per source, started together.
@@ -62,9 +63,35 @@ def _nvcc() -> str:
 
 
 def _lib_path(name: str) -> str:
-    with open(os.path.join(CSRC, f"{name}.cu"), "rb") as f:
-        digest = hashlib.sha256(f.read() + " ".join(NVCC_FLAGS).encode())
+    """The library of `csrc/<name>.cu`, named by a hash of the source, of
+    every header under `csrc/` (a source may include any of them) and of
+    the flags."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
+    for fname in [f"{name}.cu", *headers]:
+        with open(os.path.join(CSRC, fname), "rb") as f:
+            digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
+
+
+def expanded_source(name: str) -> str:
+    """The text of `csrc/<name>.cu` with each `#include "<header>.cuh"` of
+    `csrc/` replaced by the header's text: a self-contained copy that a
+    tool may edit and build elsewhere."""
+    with open(os.path.join(CSRC, f"{name}.cu")) as f:
+        lines = f.read().split("\n")
+    for i, line in enumerate(lines):
+        if line.startswith('#include "') and line.endswith('.cuh"'):
+            with open(os.path.join(CSRC, line.split('"')[1])) as f:
+                lines[i] = f.read().replace("#pragma once\n", "")
+    return "\n".join(lines)
+
+
+def nvcc_command(source: str, out: str, verbose: bool = False) -> list:
+    """nvcc's command line that builds `source` into the shared library
+    `out`, with the headers of `csrc/` on the include path."""
+    return [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+            "-I", CSRC, "-o", out, source]
 
 
 def _start_build(name: str, verbose: bool):
@@ -75,8 +102,7 @@ def _start_build(name: str, verbose: bool):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, os.path.join(CSRC, f"{name}.cu")]
+    cmd = nvcc_command(os.path.join(CSRC, f"{name}.cu"), tmp, verbose)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out

@@ -3,8 +3,9 @@ its 3xTF32 arithmetic, on the card.
 
     python -m reconvat_tpu_torch.kernels.bwd_variants
 
-Writes copies of `csrc/banded_attention_bwd.cu` in which
-`bwd_partials_tf32x3_kernel` rounds to TF32 by `cvt.rna.tf32.f32` instead
+Writes copies of `csrc/banded_attention_bwd.cu` (with the header it
+includes, `csrc/mma_tiles.cuh`) in which `bwd_partials_tf32x3_kernel`
+rounds to TF32 by `cvt.rna.tf32.f32` instead
 of integer ops ("cvt"), or chains its three mmas per depth-8 step into
 one accumulator instead of summing each step from zero ("one
 accumulator"), builds each with the port's nvcc flags into
@@ -49,8 +50,7 @@ VARIANTS = {
 
 
 def build_variant(name: str) -> ctypes.CDLL:
-    with open(os.path.join(_build.CSRC, "banded_attention_bwd.cu")) as f:
-        src = f.read()
+    src = _build.expanded_source("banded_attention_bwd")
     old, new = VARIANTS[name]
     if src.count(old) != 1:
         raise RuntimeError(f"variant {name!r}: its text is not in the "
@@ -61,8 +61,7 @@ def build_variant(name: str) -> ctypes.CDLL:
     so = os.path.join(_build.BUILD_DIR, f"lib{stem}.so")
     with open(cu, "w") as f:
         f.write(src.replace(old, new))
-    subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
-                   check=True)
+    subprocess.run(_build.nvcc_command(cu, so), check=True)
     lib = ctypes.CDLL(so)
     fn = getattr(lib, ENTRY)
     fn.argtypes = _build.ENTRY_POINTS["banded_attention_bwd"][ENTRY]

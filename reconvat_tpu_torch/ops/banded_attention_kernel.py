@@ -11,7 +11,9 @@ attention probabilities, which the default reference path returns:
 
 with kpad/vpad zero-padded by (window - 1) // 2 rows per side. q, kpad,
 vpad and out are fp32, or bf16 in the mixed-precision model; rel and probs
-are fp32 in both (the bf16 arithmetic: `banded_attention`).
+are fp32 in both (the bf16 arithmetic: `banded_attention`; the kernels'
+tensor-core tiles: `banded_attention_fwd_tf32x3_plain` for fp32 operands,
+`banded_attention_fwd_mma_plain` for bf16 ones).
 `banded_attention_bwd` computes what the TPU kernel `_bwd_kernel`
 (`reconvat_tpu/ops/pallas_attention_bwd.py`) computes: the gradients of
 `out` with respect to q, kpad, vpad and rel, with d_out, dq, dk and dv in
@@ -69,11 +71,14 @@ def banded_attention(q, kpad, vpad, rel, window: int):
 def banded_attention_fwd(q, kpad, vpad, rel, window: int):
     """Returns (out, probs) like `banded_attention`.
 
-    CPU tensors take `banded_attention`; CUDA tensors launch the kernel for
-    their dtype or raise: fp32 q, kpad and vpad the fp32 kernel (counted in
-    `banded_attention_fwd.launches`), bf16 ones the bf16 kernel (counted in
-    `banded_attention_fwd.launches_bf16`); rel is fp32 for both. A missing
-    rel is a zero rel."""
+    CPU tensors take `banded_attention`; CUDA tensors launch the kernel of
+    `csrc/banded_attention.cu` for their dtype or raise: fp32 q, kpad and
+    vpad the 3xTF32 tensor-core kernel whose tile arithmetic
+    `banded_attention_fwd_tf32x3_plain` repeats (counted in
+    `banded_attention_fwd.launches`), bf16 ones the bf16 tensor-core kernel
+    whose tile arithmetic `banded_attention_fwd_mma_plain` repeats (counted
+    in `banded_attention_fwd.launches_bf16`); rel is fp32 for both. A
+    missing rel is a zero rel."""
     if q.device.type == "cpu":
         return banded_attention(q, kpad, vpad, rel, window)
     if q.device.type != "cuda" or q.dim() != 4:
@@ -218,10 +223,11 @@ MMA_CTX, MMA_W, MMA_K, TF32_K = 64, 32, 16, 8
 
 
 def _block_tiles(q, kpad, vpad, d_out, tile: int, width: int):
-    """The operand tiles of one first-pass block, for every (b, h) and
-    query tile at once, widened to fp32 and zero-padded to `width`
-    columns: Q and dO (B, H, n, tile, width), the K and V context (B, H,
-    n, MMA_CTX, width), zero at rows past the context or past kpad."""
+    """The operand tiles of one block of the tensor-core kernels, for
+    every (b, h) and query tile at once, widened to fp32 and zero-padded
+    to `width` columns: Q and dO (B, H, n, tile, width; None for a d_out
+    of None), the K and V context (B, H, n, MMA_CTX, width), zero at rows
+    past the context or past kpad."""
     L, D = q.shape[1], q.shape[3]
     n = -(-L // tile)
     ctx = tile + (kpad.shape[1] - L)
@@ -236,30 +242,43 @@ def _block_tiles(q, kpad, vpad, d_out, tile: int, width: int):
         x = x.unfold(1, MMA_CTX, tile).permute(0, 2, 1, 4, 3)
         return x.masked_fill((rows >= ctx)[:, None], 0.0)
 
-    return (query_tiles(q), query_tiles(d_out), context_tiles(kpad),
-            context_tiles(vpad))
+    return (query_tiles(q), None if d_out is None else query_tiles(d_out),
+            context_tiles(kpad), context_tiles(vpad))
 
 
-def _band_softmax(s_full, qrel, dp_full, L: int, window: int, tile: int,
-                  round_bf16: bool):
-    """p and dS of the block's rows from the dense S and dP tiles (S[r, r +
-    j] + Qrel[r, j], as the forward adds them), zero at rows past L, each
-    rounded to bf16 or not. Returns (p_dense, ds_dense, ds_band): p and dS
-    at [r, r + j] of a (tile, MMA_CTX) tile, zero elsewhere, and dS at
-    [r, j] of a (tile, MMA_W) one."""
+def _rel_tile(rel, window: int, width: int):
+    """rel (H, Dh, window) as the kernels' rel^T tile, (1, H, 1, MMA_W,
+    width), fp32 and zero-padded."""
+    D = rel.shape[1]
+    return F.pad(rel.float(), (0, MMA_W - window, 0, width - D)).transpose(
+        1, 2)[None, :, None]
+
+
+def _band_probs(s_full, qrel, L: int, window: int, tile: int):
+    """p of the block's rows from the dense S tile and Qrel (s = S[r, r +
+    j] + Qrel[r, j], q.k and q.rel added as the plain version adds them),
+    zero at rows past L, and the band's column index r + j of each p."""
     dev = s_full.device
     n = s_full.shape[2]
     band = (torch.arange(tile, device=dev)[:, None]
             + torch.arange(window, device=dev))           # r + j
     band = band.expand(*s_full.shape[:3], tile, window)
-    s = s_full.gather(-1, band) + qrel[..., :window]
-    p = torch.softmax(s, dim=-1)
-    dp = dp_full.gather(-1, band)
-    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
+    p = torch.softmax(s_full.gather(-1, band) + qrel[..., :window], dim=-1)
     t = (torch.arange(n, device=dev)[:, None] * tile
          + torch.arange(tile, device=dev))
-    live = (t < L)[..., None]                             # (n, tile, 1)
-    p, ds = (x.masked_fill(~live, 0.0) for x in (p, ds))
+    return p.masked_fill(~(t < L)[..., None], 0.0), band
+
+
+def _band_softmax(s_full, qrel, dp_full, L: int, window: int, tile: int,
+                  round_bf16: bool):
+    """p and dS of the block's rows from the dense S and dP tiles
+    (`_band_probs`), zero at rows past L, each rounded to bf16 or not.
+    Returns (p_dense, ds_dense, ds_band): p and dS at [r, r + j] of a
+    (tile, MMA_CTX) tile, zero elsewhere, and dS at [r, j] of a (tile,
+    MMA_W) one."""
+    p, band = _band_probs(s_full, qrel, L, window, tile)
+    dp = dp_full.gather(-1, band)
+    ds = p * (dp - (p * dp).sum(-1, keepdim=True))
     if round_bf16:
         p, ds = (x.to(torch.bfloat16).float() for x in (p, ds))
     p_dense = s_full.new_zeros(s_full.shape).scatter(-1, band, p)
@@ -267,14 +286,19 @@ def _band_softmax(s_full, qrel, dp_full, L: int, window: int, tile: int,
     return p_dense, ds_dense, F.pad(ds, (0, MMA_W - window))
 
 
+def _crop_rows(x, L: int, cols: int):
+    """Query-row tiles (B, H, n, tile, X) back to (B, L, H, cols)."""
+    B, H, n, tile, X = x.shape
+    x = x.permute(0, 2, 3, 1, 4).reshape(B, n * tile, H, X)
+    return x[:, :L, :, :cols].contiguous()
+
+
 def _crop_partials(dq, dk, dv, drel, L: int, D: int, window: int,
                    tile: int):
     """The block tiles cut back to what banded_attention_bwd_partials_plain
     returns (dq fp32, (B, L, H, D))."""
-    B, H, n = dk.shape[:3]
     ctx = tile + window - 1
-    dq = dq.permute(0, 2, 3, 1, 4).reshape(B, n * tile, H, dq.shape[-1])
-    return (dq[:, :L, :, :D], dk[..., :ctx, :D].contiguous(),
+    return (_crop_rows(dq, L, D), dk[..., :ctx, :D].contiguous(),
             dv[..., :ctx, :D].contiguous(),
             drel[..., :D, :window].contiguous())
 
@@ -308,9 +332,7 @@ def banded_attention_bwd_partials_mma_plain(q, kpad, vpad, rel, d_out,
     L, D = q.shape[1], q.shape[3]
     D16 = -(-D // MMA_K) * MMA_K
     qt, dot, kc, vc = _block_tiles(q, kpad, vpad, d_out, tile, D16)
-    # (H, D, W) -> (1, H, 1, 32, D16): rel^T, zero-padded
-    r = [F.pad(t.float(), (0, MMA_W - window, 0, D16 - D))
-         .transpose(1, 2)[None, :, None] for t in split_bf16x3(rel)]
+    r = [_rel_tile(t, window, D16) for t in split_bf16x3(rel)]
     s_full = qt @ kc.transpose(-1, -2)
     qrel = qt @ r[0].transpose(-1, -2)
     for rt in r[1:]:
@@ -349,6 +371,70 @@ def _mm_tf32x3(a, b):
     return a1 @ b1 + (a1 @ b2 + a2 @ b1)
 
 
+def _fwd_args(q, rel, window: int, dtype):
+    """(L, Dh, rel) of a forward model: the operands of `dtype`, a missing
+    rel a zero rel, as the wrapper passes it to the kernel."""
+    if q.dtype != dtype:
+        raise TypeError(f"the model takes {dtype} operands, got {q.dtype}")
+    B, L, H, D = q.shape
+    if rel is None:
+        rel = torch.zeros((H, D, window), device=q.device)
+    return L, D, rel
+
+
+def banded_attention_fwd_mma_plain(q, kpad, vpad, rel, window: int,
+                                   tile: int = BWD_TILE):
+    """The bf16 forward as the tensor-core kernel of
+    `csrc/banded_attention.cu` computes it, tile by tile; returns what
+    `banded_attention` returns. bf16 q, kpad and vpad, fp32 rel (or None).
+    Per (b, h) and query tile of 32 rows, with its 64 context rows (rows
+    past the context or past kpad zero) and the head width zero-padded to
+    D16, a multiple of 16:
+
+        S = Q K^T (32 x 64),  Qrel = Q r1 + Q r2 + Q r3 (32 x 32)
+                                              (`split_bf16x3(rel)`)
+        s = S[r, r + j] + Qrel[r, j],  p = softmax_j(s)  (probs)
+        P_dense (32 x 64): p rounded to bf16 at [r, r + j], zero elsewhere
+        out = P_dense V, rounded to bf16
+
+    Every product is of bf16 values (exact in fp32) summed in fp32."""
+    L, D, rel = _fwd_args(q, rel, window, torch.bfloat16)
+    D16 = -(-D // MMA_K) * MMA_K
+    qt, _, kc, vc = _block_tiles(q, kpad, vpad, None, tile, D16)
+    r = [_rel_tile(t, window, D16) for t in split_bf16x3(rel)]
+    qrel = qt @ r[0].transpose(-1, -2)
+    for rt in r[1:]:
+        qrel = qrel + qt @ rt.transpose(-1, -2)
+    p, band = _band_probs(qt @ kc.transpose(-1, -2), qrel, L, window, tile)
+    p_dense = kc.new_zeros(p.shape[:-1] + (MMA_CTX,)).scatter(
+        -1, band, p.to(torch.bfloat16).float())
+    return (_crop_rows(p_dense @ vc, L, D).to(torch.bfloat16),
+            _crop_rows(p, L, window))
+
+
+def banded_attention_fwd_tf32x3_plain(q, kpad, vpad, rel, window: int,
+                                      tile: int = BWD_TILE):
+    """The fp32 forward as the 3xTF32 tensor-core kernel of
+    `csrc/banded_attention.cu` computes it, tile by tile; returns what
+    `banded_attention` returns. fp32 operands, rel or None. Per (b, h) and
+    query tile of 32 rows, with its 64 context rows (rows past the context
+    or past kpad zero) and the head width zero-padded to D8, a multiple of
+    8, every product A B taken as `_mm_tf32x3`:
+
+        S = Q K^T (32 x 64),  Qrel = Q rel^T (32 x 32)
+        s = S[r, r + j] + Qrel[r, j],  p = softmax_j(s)  (probs)
+        P_dense (32 x 64): p (not rounded) at [r, r + j], zero elsewhere
+        out = P_dense V"""
+    L, D, rel = _fwd_args(q, rel, window, torch.float32)
+    D8 = -(-D // TF32_K) * TF32_K
+    qt, _, kc, vc = _block_tiles(q, kpad, vpad, None, tile, D8)
+    qrel = _mm_tf32x3(qt, _rel_tile(rel, window, D8).transpose(-1, -2))
+    p, band = _band_probs(_mm_tf32x3(qt, kc.transpose(-1, -2)), qrel, L,
+                          window, tile)
+    p_dense = kc.new_zeros(p.shape[:-1] + (MMA_CTX,)).scatter(-1, band, p)
+    return _crop_rows(_mm_tf32x3(p_dense, vc), L, D), _crop_rows(p, L, window)
+
+
 def banded_attention_bwd_partials_tf32x3_plain(q, kpad, vpad, rel, d_out,
                                                window: int,
                                                tile: int = BWD_TILE):
@@ -376,9 +462,7 @@ def banded_attention_bwd_partials_tf32x3_plain(q, kpad, vpad, rel, d_out,
     L, D = q.shape[1], q.shape[3]
     D8 = -(-D // TF32_K) * TF32_K
     qt, dot, kc, vc = _block_tiles(q, kpad, vpad, d_out, tile, D8)
-    # (H, D, W) -> (1, H, 1, 32, D8): rel^T, zero-padded
-    rt = F.pad(rel, (0, MMA_W - window, 0, D8 - D)).transpose(1, 2)[
-        None, :, None]
+    rt = _rel_tile(rel, window, D8)
     s_full = _mm_tf32x3(qt, kc.transpose(-1, -2))
     qrel = _mm_tf32x3(qt, rt.transpose(-1, -2))
     dp_full = _mm_tf32x3(dot, vc.transpose(-1, -2))

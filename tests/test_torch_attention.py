@@ -69,6 +69,40 @@ def test_banded_attention_matches_jax_pallas_interpret():
                                rtol=RTOL, atol=ATOL)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_fwd_tile_models_match_jax_pallas_interpret(dtype):
+    """The CPU models of the port's tensor-core forward kernels against
+    the Pallas forward (interpret mode). fp32: the 3xTF32 tile model at
+    the fp32 tolerance above. bf16: the bf16 tile model on the same
+    inputs rounded to bf16, rel too (the Pallas kernel rounds rel to the
+    operand dtype, the port keeps it fp32), both rounding p to bf16
+    before the PV product and out to bf16 at the end; out within one bf16
+    ulp (2**-7 |ref|) + 1e-3 max |ref|, and at most 1 % of its elements
+    differing at all (fp32 sums in another order)."""
+    q, kpad, vpad, rel = _inputs(L=70, window=31, seed=5)
+    if dtype == "float32":
+        ref = pallas_banded_forward(*(jnp.asarray(a) for a in (q, kpad, vpad,
+                                                                rel)), 31, 64)
+        out, _ = bak.banded_attention_fwd_tf32x3_plain(*_t(q, kpad, vpad,
+                                                           rel), 31)
+        np.testing.assert_allclose(out.numpy(), np.asarray(ref),
+                                   rtol=RTOL, atol=ATOL)
+        return
+    q, kpad, vpad, rel = (torch.from_numpy(a).to(torch.bfloat16)
+                          for a in (q, kpad, vpad, rel))
+    ref = pallas_banded_forward(
+        *(jnp.asarray(t.float().numpy(), jnp.bfloat16)
+          for t in (q, kpad, vpad, rel)), 31, 64)
+    out, _ = bak.banded_attention_fwd_mma_plain(q, kpad, vpad, rel.float(),
+                                                31)
+    got = out.float().numpy()
+    ref = np.asarray(ref.astype(jnp.float32))
+    err = np.abs(got - ref)
+    assert (err <= 2 ** -7 * np.abs(ref) + 1e-3 * np.abs(ref).max()).all(), \
+        err.max()
+    assert (err > 0).mean() <= 1e-2
+
+
 def test_wrapper_is_plain_on_cpu():
     q, kpad, vpad, rel = _t(*_inputs(L=40, window=31, seed=2))
     before = bak.banded_attention_fwd.launches

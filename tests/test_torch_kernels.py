@@ -44,6 +44,10 @@ element's magnitude bound also takes one flip of the largest term summed
 into it, 2**-7 x max |dS x| (max |p dO| for dv; `_one_flip`). The share
 bounds take none of it, and they still see a missing rounding at every
 size (`test_bf16_bwd_rule_sees_unrounded_ds_and_p`, and `..._at_ragged_tile`).
+fp32 attention forward on the 3xTF32 tensor cores: against the plain
+version and its tile-by-tile model at ATTN_TOL, and against the float64
+forward within TF32X3_TRUTH_FACTOR of the plain version's error (below);
+the bf16 forward against its tile model by the bf16 rules above.
 fp32 attention backward on the 3xTF32 tensor cores: its first pass against
 the plain version and against its tile-by-tile model at GRAD_TOL; against
 the float64 backward, each output's largest error over max |truth| at
@@ -145,6 +149,22 @@ def test_check_tensor_rejects(name, shape, bad):
     with pytest.raises((TypeError, ValueError)):
         _build.check_tensor(name, bad, shape, torch.device("cpu"))
     _build.check_tensor(name, torch.zeros(shape), shape, torch.device("cpu"))
+
+
+def test_lib_path_hashes_the_headers(tmp_path, monkeypatch):
+    """A library is named by its source and by every header of `csrc/`:
+    an edited header alone gives another name, so a build that includes
+    it is not loaded stale; the headers are inlined by `expanded_source`."""
+    (tmp_path / "k.cu").write_text('#include "t.cuh"\nint k;\n')
+    header = tmp_path / "t.cuh"
+    header.write_text("#pragma once\nint t;\n")
+    monkeypatch.setattr(_build, "CSRC", str(tmp_path))
+    first = _build._lib_path("k")
+    assert _build._lib_path("k") == first
+    assert _build.expanded_source("k") == "int t;\n\nint k;\n"
+    header.write_text("#pragma once\nint t = 1;\n")
+    assert _build._lib_path("k") != first
+    assert (tmp_path / "k.cu").read_text() == '#include "t.cuh"\nint k;\n'
 
 
 @pytest.mark.cuda
@@ -345,6 +365,115 @@ def test_attention_kernel_refuses_mixed_dtypes(cuda_device):
     with pytest.raises(TypeError):     # rel must stay fp32
         bak.banded_attention_fwd(*(t.to(torch.bfloat16)
                                    for t in (q, kpad, vpad, rel)), 31)
+
+
+# the forward's tile models and card tests: (B, L, window, Dh, with_rel)
+FWD_MODEL_SIZES = [(2, 64, 31, 229, True),     # full-width tiles
+                   (2, 33, 7, 57, True),       # ragged tile
+                   (2, 40, 15, 64, False),     # no rel
+                   (1, 64, 32, 256, True)]     # the kernels' limits
+FWD_CARD_SIZES = [(8, 640, 31, 229, True)] + FWD_MODEL_SIZES[1:]
+
+
+def _fwd_inputs(B, L, window, Dh, with_rel, dtype=torch.float32,
+                device="cpu"):
+    q, kpad, vpad, rel = (t.to(device)
+                          for t in _attn_inputs(L, window, Dh, B=B))
+    q, kpad, vpad = (t.to(dtype) for t in (q, kpad, vpad))
+    return q, kpad, vpad, rel if with_rel else None, window
+
+
+def _float64(args):
+    return (*(None if t is None else t.double() for t in args[:4]), args[4])
+
+
+@pytest.mark.parametrize("B,L,window,Dh,with_rel", FWD_MODEL_SIZES)
+def test_fwd_tf32x3_model_matches_plain(B, L, window, Dh, with_rel):
+    """The CPU model of the fp32 tensor-core forward (32 x 64 tiles, zero
+    padding to D8, 3xTF32 products) against the plain forward at
+    ATTN_TOL, and no further from the float64 forward than
+    TF32X3_TRUTH_FACTOR x the plain version."""
+    args = _fwd_inputs(B, L, window, Dh, with_rel)
+    got = bak.banded_attention_fwd_tf32x3_plain(*args)
+    ref = bak.banded_attention(*args)
+    assert [(a.shape, a.dtype) for a in got] == [(b.shape, b.dtype)
+                                                 for b in ref]
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **ATTN_TOL)
+    _assert_nearer_float64(got, ref, bak.banded_attention(*_float64(args)),
+                           ("out", "probs"))
+
+
+@pytest.mark.parametrize("B,L,window,Dh,with_rel", FWD_MODEL_SIZES)
+def test_fwd_mma_model_matches_plain(B, L, window, Dh, with_rel):
+    """The CPU model of the bf16 tensor-core forward (bf16 tiles, zero
+    padding to D16, rel as three bf16 terms, p rounded into P) against the
+    bf16 plain forward: probs atol 1e-5, out by the rule of bf16 out."""
+    args = _fwd_inputs(B, L, window, Dh, with_rel, torch.bfloat16)
+    out, probs = bak.banded_attention_fwd_mma_plain(*args)
+    ref_out, ref_probs = bak.banded_attention(*args)
+    assert out.dtype == torch.bfloat16 and probs.dtype == torch.float32
+    assert out.shape == ref_out.shape and probs.shape == ref_probs.shape
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=1e-5)
+    _assert_bf16_out_close(out, ref_out)
+
+
+@pytest.mark.parametrize("p_rounded", [True, False])
+def test_bf16_out_rule_sees_fwd_model_without_p_rounding(p_rounded):
+    """The rule of bf16 out tells the bf16 tile model from the same tiles
+    without the rounding of p: the fp32 tile model on the bf16 operands
+    widened to fp32 (exact; their TF32 splits drop nothing) leaves p
+    unrounded and moves many out elements."""
+    q, kpad, vpad, rel, window = _fwd_inputs(2, 64, 31, 229, True,
+                                             torch.bfloat16)
+    ref_out, _ = bak.banded_attention(q, kpad, vpad, rel, window)
+    if p_rounded:
+        out, _ = bak.banded_attention_fwd_mma_plain(q, kpad, vpad, rel,
+                                                    window)
+        _assert_bf16_out_close(out, ref_out)
+    else:
+        out, _ = bak.banded_attention_fwd_tf32x3_plain(
+            q.float(), kpad.float(), vpad.float(), rel, window)
+        moved = (out.to(torch.bfloat16) != ref_out).float().mean().item()
+        assert moved > 10 * BF16_OUT_MOVED, moved
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh,with_rel", FWD_CARD_SIZES)
+def test_attention_kernel_matches_tf32x3_model(cuda_device, B, L, window,
+                                               Dh, with_rel):
+    """The fp32 forward on the card against its tile-by-tile model
+    (`banded_attention_fwd_tf32x3_plain`) at ATTN_TOL, and no further from
+    the float64 forward than TF32X3_TRUTH_FACTOR x the fp32 plain
+    version."""
+    args = _fwd_inputs(B, L, window, Dh, with_rel, device=cuda_device)
+    before = bak.banded_attention_fwd.launches
+    got = bak.banded_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_fwd.launches == before + 1
+    for a, b in zip(got, bak.banded_attention_fwd_tf32x3_plain(*args)):
+        torch.testing.assert_close(a, b, **ATTN_TOL)
+    _assert_nearer_float64(got, bak.banded_attention(*args),
+                           bak.banded_attention(*_float64(args)),
+                           ("out", "probs"))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,window,Dh,with_rel", FWD_CARD_SIZES)
+def test_attention_bf16_kernel_matches_mma_model(cuda_device, B, L, window,
+                                                 Dh, with_rel):
+    """The bf16 forward on the card against its tile-by-tile model
+    (`banded_attention_fwd_mma_plain`): probs atol 1e-5, out by the rule
+    of bf16 out."""
+    args = _fwd_inputs(B, L, window, Dh, with_rel, torch.bfloat16,
+                       cuda_device)
+    before = bak.banded_attention_fwd.launches_bf16
+    out, probs = bak.banded_attention_fwd(*args)
+    torch.cuda.synchronize()
+    assert bak.banded_attention_fwd.launches_bf16 == before + 1
+    ref_out, ref_probs = bak.banded_attention_fwd_mma_plain(*args)
+    torch.testing.assert_close(probs, ref_probs, rtol=0, atol=1e-5)
+    _assert_bf16_out_close(out, ref_out)
 
 
 @pytest.mark.cuda
