@@ -16,7 +16,13 @@ make_train_step`: semi-supervised VAT with reconstruction, B = 8 labeled +
 8 unlabeled clips of 20.48 s), in fp32 and then in bf16 timed in turns
 with fp32, counts each kernel's launches per step, profiles it, and holds
 one step through the kernels against the same step through the plain
-versions, and the card against the CPU.
+versions, and the card against the CPU. Between the two it runs the
+transcription CLI (`reconvat_tpu_torch.transcribe_files`, phase 10) on
+`Application/Input` from a saved `.pt`, through the kernels and through the
+plain versions, bucketed and exact, with the native note decoder, and
+streams a 5-minute song in haloed windows (phase 10b) against its bucketed
+transcription; each kernel is first held against its plain version at the
+CLI's and the streaming's shapes (phase 10a).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -146,6 +152,15 @@ BF16_VAT_XI = 0.1
 # them in other orders, an fp32 rounding that no relative bound and no
 # input probe sees
 PROBE, PROBE_FACTOR, GRAD_FLOOR = 1e-6, 3.0, 5e-4
+# the transcription CLI (phase 10): its default bucket; streaming (phase
+# 10b): the CLI's windows and halo, a synthetic song of SONG_SECONDS, held
+# against the bucketed transcribe of the song by the bounds of the JAX
+# package's test (tests/test_streaming_transcribe.py:41-42): the
+# posteriogram tolerance inside, 1e-3 over the last STREAM_TAIL frames,
+# where the last window pads past the song end otherwise than the bucket
+CLI_BUCKET = 512
+STREAM_W, STREAM_H, SONG_SECONDS = 640, 128, 300.0
+STREAM_TAIL, STREAM_TAIL_ATOL = 64, 1e-3
 
 
 def log(msg: str) -> None:
@@ -734,6 +749,31 @@ def serve_loop(serve, model, batches, depth: int = 2) -> dict:
     return r
 
 
+def decode_turns(serve, model, batches) -> str:
+    """Host note decode of the same packed rolls by the native decoder and
+    by its numpy plain version: equal notes, ms per batch of each, timed
+    in turns (native, numpy, numpy, native)."""
+    from reconvat_tpu_torch import decode
+
+    packed = [serve.submit(model, a).packed().numpy() for a in batches]
+    fns = {"native": decode.extract_notes_packed_batch,
+           "numpy": decode.extract_notes_packed_batch_plain}
+    for p in packed:
+        got, ref = (fns[k](p, rule="rule2") for k in ("native", "numpy"))
+        for (gp, gi), (rp, ri) in zip(got, ref):
+            if not (np.array_equal(gp, rp) and np.array_equal(
+                    np.reshape(gi, (-1, 2)), np.reshape(ri, (-1, 2)))):
+                fail("native and numpy note decode disagree")
+    ms = {k: [] for k in fns}
+    for k in ("native", "numpy", "numpy", "native"):
+        t0 = time.perf_counter()
+        for p in packed:
+            fns[k](p, rule="rule2")
+        ms[k].append((time.perf_counter() - t0) / len(packed) * 1e3)
+    return (f"host decode ms/batch of the same {len(packed)} packed rolls, "
+            f"in turns: native {ms['native']}, numpy {ms['numpy']}")
+
+
 def per_batch(r) -> str:
     """A `serve_loop` result per batch: wall ms, audio-s/s, host ms."""
     n = r["batches"]
@@ -895,7 +935,7 @@ def phase_serve(rows):
         f"{run_plain['notes']}); kernels {per_batch(run)}; plain "
         f"{per_batch(run_plain)}; second round: kernels {per_batch(run2)}; "
         f"plain {per_batch(run_plain2)}; launches {launches} over "
-        f"{n_batches} batches")
+        f"{n_batches} batches; {decode_turns(serve, model, batches)}")
     for row in rows:
         row["launches"] = launches[row["name"]]
     phase_profile(serve, model, batches[:4])
@@ -1026,7 +1066,8 @@ def phase_serve_bf16(row, serve, model, batches) -> None:
         f"decoded {run16['notes']} (fp32 {run32['notes']}); launches "
         f"{launches} over {n_batches} batches; in turns: bf16 "
         f"{per_batch(run16)}; fp32 {per_batch(run32)}; fp32 "
-        f"{per_batch(run32b)}; bf16 {per_batch(run16b)}")
+        f"{per_batch(run32b)}; bf16 {per_batch(run16b)}; "
+        f"{decode_turns(serve, model16, batches)}")
     log_profile(f"phase 5b bf16 serving profile ({len(batches[:4])} batches, "
                 f"depth 2)", "batch", 4,
                 profile_groups(lambda: serve_loop(serve, model16,
@@ -1534,6 +1575,329 @@ def phase_train_bf16(rows, model, state, step, batches, gen,
         f"{min(m for _, m in read.values())}")
 
 
+def phase_kernels_at_cli_shapes(fe) -> None:
+    """Both kernels of the CLI's path against their plain versions at the
+    shapes it gives them (B x T frames): a clip exact (250, a ragged last
+    tile) and bucketed (512), a streaming pass-1 chunk (W + 8), a window
+    (W + 2H) alone and four stacked, and the bucketed 5-minute song."""
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention, banded_attention_fwd)
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power, mel_power_plain
+
+    span = STREAM_W + 2 * STREAM_H
+    song = -(-int(SONG_SECONDS * 16000 // 512 + 1) // CLI_BUCKET) * CLI_BUCKET
+    shapes = [(1, 250), (1, CLI_BUCKET), (1, STREAM_W + 8), (1, span),
+              (4, span), (1, song)]
+    rng = torch.Generator(device="cuda").manual_seed(5)
+    hop, hw = fe.stft.hop_length, (W - 1) // 2
+    args = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis, hop)
+    errs = []
+    for b, t in shapes:
+        x = torch.randn((b, t * hop - 1), generator=rng, device="cuda") * 0.1
+        got = mel_power(x, *args, fe.stft.window, fe.twiddle, fe.band)
+        if tuple(got.shape) != (b, t, fe.n_mels):
+            fail(f"mel_power at {b} x {t} frames gave {tuple(got.shape)}")
+        mel_err = check_close(f"mel_power at {b} x {t} frames", got,
+                              mel_power_plain(x, *args), MEL_TOL)
+        D = fe.n_mels
+
+        def randn(*shape, scale=1.0):
+            return torch.randn(shape, generator=rng, device="cuda") * scale
+
+        q = randn(b, t, H, D, scale=D ** -0.25)
+        kpad = F.pad(randn(b, t, H, D, scale=D ** -0.25),
+                     (0, 0, 0, 0, hw, hw))
+        vpad = F.pad(randn(b, t, H, D), (0, 0, 0, 0, hw, hw))
+        rel = randn(H, D, W, scale=0.1 * D ** -0.25)
+        out, probs = banded_attention_fwd(q, kpad, vpad, rel, W)
+        ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
+        attn_err = max(
+            check_close(f"attention out at {b} x {t}", out, ref_out,
+                        ATTN_TOL),
+            check_close(f"attention probs at {b} x {t}", probs, ref_probs,
+                        ATTN_TOL))
+        errs.append(f"{b} x {t}: mel {mel_err}, attention {attn_err}")
+    log(f"phase 10a kernels at the CLI's and streaming's shapes (B x T "
+        f"frames), max abs err against the plain versions (tol "
+        f"{MEL_TOL}, {ATTN_TOL}): {'; '.join(errs)}")
+
+
+def same_notes(what, got, ref) -> tuple:
+    """Two (T, 88) posteriograms within POST_ATOL, and equal notes on every
+    pitch with no element of `ref` within POST_ATOL of 0.5. Returns (max
+    abs diff, pitches set aside, notes)."""
+    from reconvat_tpu_torch import decode
+
+    if got.shape != ref.shape or not np.isfinite(got).all():
+        fail(f"{what}: posteriogram {got.shape} against {ref.shape}")
+    diff = float(np.abs(got - ref).max())
+    if diff > POST_ATOL:
+        fail(f"{what}: posteriograms differ by {diff}")
+    near = (np.abs(ref - 0.5) < POST_ATOL).any(axis=0)
+    notes = []
+    for roll in (got, ref):
+        p, i = decode.extract_notes_wo_velocity(roll, roll, rule="rule2")
+        p = np.asarray(p, np.int64)
+        keep = ~near[p]
+        notes.append((p[keep], np.reshape(i, (-1, 2))[keep]))
+    if not all(np.array_equal(a, b) for a, b in zip(*notes)):
+        fail(f"{what}: notes differ outside the pitches near 0.5")
+    return diff, int(near.sum()), len(notes[1][0])
+
+
+def perturb_stats(model, seed: int) -> None:
+    """Random BatchNorm statistics and affines, and biases moved off zero,
+    from `seed` (the CPU tests' `_perturb`): at the init's identity
+    BatchNorm and zero biases the posteriogram hardly moves in time."""
+    from torch import nn
+
+    g = torch.Generator(device="cuda").manual_seed(seed)
+
+    def randn(t):
+        return torch.randn(t.shape, generator=g, device="cuda")
+
+    with torch.no_grad():
+        for m in model.modules():
+            if isinstance(m, nn.BatchNorm2d):
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+                m.running_mean.add_(0.05 * randn(m.running_mean))
+                m.weight.uniform_(0.8, 1.2, generator=g)
+            if isinstance(getattr(m, "bias", None), torch.Tensor):
+                m.bias.add_(0.05 * randn(m.bias))
+
+
+def sharpen_output(model, clips, scale: float = 16.0) -> None:
+    """Scale the output layer by `scale`, then shift each pitch's bias to
+    the middle of the widest gap between consecutive logits of the clips
+    (bucketed and exact, true frames) in its top 1.5-2.5 %: ~2 % active
+    bins per pitch and no logit at the threshold. At random init a few
+    pitches carry all the activity and sit on the threshold, where the
+    notes comparison has to set them aside."""
+    lin = model.transcriber.linear1
+    logits = []
+    with torch.no_grad():
+        lin.weight *= scale
+        lin.bias *= scale
+        for clip in clips:
+            for bucket in (CLI_BUCKET, 0):
+                t_true = (clip.shape[1] - 1) // 512 + 1
+                hook = lin.register_forward_hook(
+                    lambda m, a, out: logits.append(out[0, :t_true]))
+                model.transcribe(clip, bucket)
+                hook.remove()
+        z = torch.cat(logits).double().sort(dim=0).values     # (N, 88)
+        lo, hi = int(0.975 * len(z)), int(0.985 * len(z))
+        i = lo + (z[lo + 1:hi + 1] - z[lo:hi]).argmax(dim=0)
+        pitch = torch.arange(z.shape[1], device=z.device)
+        lin.bias -= ((z[i, pitch] + z[i + 1, pitch]) / 2).float()
+
+
+def phase_cli(model) -> None:
+    """Phase 10: the transcription CLI through its `Experiment` on
+    `Application/Input`, bucketed and exact, from a `.pt` of phase 4's
+    weights (statistics and biases perturbed, `perturb_stats`, and the
+    output layer sharpened and shifted so that ~2 % of the clips' bins are
+    active, `sharpen_output`), against `transcribe2midi` through the plain
+    versions; launches per clip, ms per clip, native against numpy
+    decode."""
+    import filecmp
+    import shutil
+    import tempfile
+
+    from reconvat_tpu_torch import decode
+    from reconvat_tpu_torch import transcribe_files as cli
+    from reconvat_tpu_torch.data.datasets import ApplicationDataset
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention_fwd)
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+
+    input_path = os.path.join(HERE, "Application", "Input")
+    data = ApplicationDataset(input_path)
+    n_clips = len(data)
+    audio_s = sum(len(d["audio"]) for d in data.data) / 16000
+    kernels = ReconVAT(seed=0)
+    kernels.load_state_dict(model.state_dict(), strict=True)
+    perturb_stats(kernels, seed=3)
+    sharpen_output(kernels, [torch.from_numpy(d["audio"])[None].cuda()
+                             for d in data])
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        pt = os.path.join(tmp, "weight.pt")
+        torch.save(kernels.state_dict(), pt)
+        plain = ReconVAT(seed=1)
+        plain.load_reference_weights(pt)
+        plain.use_kernels(False)
+        for bucket in (CLI_BUCKET, 0):
+            out = os.path.join(tmp, f"cli_{bucket}")
+            torch.cuda.synchronize()
+            mel_power.launches = banded_attention_fwd.launches = 0
+            decode.extract_notes_wo_velocity.calls = 0
+            t0 = time.perf_counter()
+            written = cli.ex.run(cli.main, dict(
+                device="cuda", weight_path=pt, input_path=input_path,
+                output_path=out, bucket_frames=bucket))
+            cli_s = time.perf_counter() - t0
+            launches = {"mel_power": mel_power.launches,
+                        "banded_attention_fwd": banded_attention_fwd.launches,
+                        "native decode": decode.extract_notes_wo_velocity
+                        .calls}
+            if set(launches.values()) != {n_clips}:
+                fail(f"the CLI at bucket {bucket} made {launches} for "
+                     f"{n_clips} clips (one each per clip)")
+            names = [os.path.basename(w) for w, _ in written]
+            if names != ["ReconVAT-clip_amid", "ReconVAT-clip_bmid"]:
+                fail(f"the CLI wrote {names}")
+            ref = cli.transcribe2midi(data, plain, "ReconVAT",
+                                      save_path=os.path.join(tmp, "plain"),
+                                      bucket_frames=bucket)
+            diffs, set_aside, notes, same_bytes = [], 0, 0, 0
+            for (path, roll), (ref_path, ref_roll) in zip(written, ref):
+                d, s, n = same_notes(f"CLI at bucket {bucket}, {path}",
+                                     roll, ref_roll)
+                diffs.append(d)
+                set_aside += s
+                notes += n
+                same_bytes += filecmp.cmp(path, ref_path, shallow=False)
+            # the per-clip path warm, through the kernels: transcribe,
+            # decode, MIDI
+            reps = 3
+            t0 = time.perf_counter()
+            for _ in range(reps):
+                rolls = cli.transcribe2midi(
+                    data, kernels, "ReconVAT",
+                    save_path=os.path.join(tmp, "warm"),
+                    bucket_frames=bucket)
+            warm_s = (time.perf_counter() - t0) / reps
+            dec = {"native": decode.extract_notes_wo_velocity,
+                   "numpy": decode.extract_notes_wo_velocity_plain}
+            dec_ms = {k: [] for k in dec}
+            for k in ("native", "numpy", "numpy", "native"):
+                t0 = time.perf_counter()
+                for _ in range(10):
+                    for _, roll in rolls:
+                        dec[k](roll, roll, rule="rule2")
+                dec_ms[k].append((time.perf_counter() - t0)
+                                 / (10 * n_clips) * 1e3)
+            density = float(np.mean([(r > 0.5).mean() for _, r in rolls]))
+            log(f"phase 10 transcription CLI (bucket_frames={bucket}, "
+                f"{n_clips} clips of {audio_s / n_clips} s, fp32): "
+                f"posteriogram max abs diff kernels vs plain {max(diffs)} "
+                f"(tol {POST_ATOL}), {notes} notes, {set_aside} pitches set "
+                f"aside (an element within {POST_ATOL} of 0.5), "
+                f"{same_bytes} of {n_clips} MIDI files byte-equal; density "
+                f"{density}; launches {launches}; Experiment run "
+                f"{cli_s * 1e3 / n_clips} ms/clip (model, weights, audio "
+                f"included); warm transcribe2midi {warm_s * 1e3 / n_clips} "
+                f"ms/clip, {audio_s / warm_s} audio-s/s; host decode "
+                f"ms/clip in turns: native {dec_ms['native']}, numpy "
+                f"{dec_ms['numpy']}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def phase_streaming(model) -> None:
+    """Phase 10b: a synthetic SONG_SECONDS song (B = 1) streamed in
+    STREAM_W + 2 STREAM_H windows: depth 1 and 3 identical (deterministic
+    cuDNN), one and four
+    windows per forward within the posteriogram tolerance, all against
+    the bucketed transcribe of the song; launches per window group, peak
+    device memory and audio-s/s of each."""
+    from reconvat_tpu_torch.models.common import frames_in
+    from reconvat_tpu_torch.ops.banded_attention_kernel import (
+        banded_attention_fwd)
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+
+    n = int(SONG_SECONDS * 16000)
+    g = torch.Generator(device="cuda").manual_seed(2)
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / 16000
+    phases = torch.rand(4, generator=g, device="cuda", dtype=torch.float64)
+    sig = sum(0.2 * torch.sin(2 * np.pi * f * t + ph)
+              for f, ph in zip((220.0, 440.0, 523.25, 660.0), phases))
+    sig = sig * (0.5 + 0.5 * torch.sin(2 * np.pi * 0.3 * t))
+    song = (sig + 0.01 * torch.randn(n, generator=g, device="cuda",
+                                     dtype=torch.float64)).float()[None]
+    del t, sig
+    t_true = frames_in(n)
+    n_windows = -(-t_true // STREAM_W)
+
+    def run(fn):
+        """(roll on the host, seconds, peak GB) of fn(), counts reset."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        mel_power.launches = banded_attention_fwd.launches = 0
+        t0 = time.perf_counter()
+        roll = fn()["frame"].cpu()
+        torch.cuda.synchronize()
+        return (roll, time.perf_counter() - t0,
+                torch.cuda.max_memory_allocated() / 1e9)
+
+    def stream(**kw):
+        return run(lambda: model.transcribe_streaming(
+            song, STREAM_W, STREAM_H, **kw))
+
+    base_gb = torch.cuda.memory_allocated() / 1e9
+    stream()                                          # warm-up
+    s3, sec3, gb3 = stream(pipeline_depth=3)          # the main path
+    launches = {"mel_power": mel_power.launches,
+                "banded_attention_fwd": banded_attention_fwd.launches}
+    if launches != {"mel_power": 2 * n_windows,
+                    "banded_attention_fwd": n_windows}:
+        fail(f"streaming {n_windows} windows made {launches} (one mel per "
+             f"pass-1 chunk and per window group, one attention per group)")
+    if tuple(s3.shape) != (1, t_true, 88) or not torch.isfinite(s3).all():
+        fail(f"streamed posteriogram {tuple(s3.shape)} is not finite of "
+             f"(1, {t_true}, 88)")
+    s1, sec1, gb1 = stream(pipeline_depth=1)
+    # cuDNN's transposed convolutions (the U-Net decoder) sum in a
+    # different order from run to run; with deterministic algorithms the
+    # pipeline depth may change nothing
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic = True
+    try:
+        det3, det1 = (stream(pipeline_depth=d)[0] for d in (3, 1))
+    finally:
+        cudnn.deterministic = False
+    if not torch.equal(det1, det3):
+        fail(f"streaming at pipeline_depth 1 and 3 differ by "
+             f"{(det1 - det3).abs().max().item()} with deterministic cuDNN")
+    runs_diff = (s1 - s3).abs().max().item()
+    stream(windows_per_batch=4)                       # warm-up
+    s4, sec4, gb4 = stream(windows_per_batch=4)
+    groups4 = -(-n_windows // 4)
+    if (mel_power.launches, banded_attention_fwd.launches) != (
+            n_windows + groups4, groups4):
+        fail(f"streaming 4 windows per forward made {mel_power.launches} "
+             f"mel and {banded_attention_fwd.launches} attention launches")
+    g_diff = (s4 - s1).abs().max().item()
+    if g_diff > POST_ATOL:
+        fail(f"streaming with 1 and 4 windows per forward differ by "
+             f"{g_diff}")
+    run(lambda: model.transcribe(song, CLI_BUCKET))  # warm-up
+    full, sec_b, gb_b = run(lambda: model.transcribe(song, CLI_BUCKET))
+    inner = (s3 - full)[:, :-STREAM_TAIL].abs().max().item()
+    tail = (s3 - full)[:, -STREAM_TAIL:].abs().max().item()
+    if inner > POST_ATOL or tail > STREAM_TAIL_ATOL:
+        fail(f"streamed and bucketed posteriograms differ by {inner} inside "
+             f"and {tail} over the last {STREAM_TAIL} frames")
+    log(f"phase 10b streaming (1 x {SONG_SECONDS} s, {t_true} frames, "
+        f"W={STREAM_W} H={STREAM_H}, {n_windows} windows, fp32): depth 1 "
+        f"and 3 identical with deterministic cuDNN (without it the two "
+        f"runs differ by {runs_diff}); 1 vs 4 windows per forward max abs diff "
+        f"{g_diff} (tol {POST_ATOL}); against bucketed transcribe "
+        f"(bucket {CLI_BUCKET}) {inner} inside (tol {POST_ATOL}), {tail} "
+        f"over the last {STREAM_TAIL} frames (tol {STREAM_TAIL_ATOL}); "
+        f"density {(s3 > 0.5).float().mean().item()}; launches depth 3 "
+        f"{launches}; peak device GB (weights and song "
+        f"{base_gb}): streamed depth 3 {gb3}, depth 1 {gb1}, 4 windows per "
+        f"forward {gb4}, bucketed {gb_b}; audio-s/s: depth 3 "
+        f"{SONG_SECONDS / sec3}, depth 1 {SONG_SECONDS / sec1}, 4 windows "
+        f"{SONG_SECONDS / sec4}, bucketed {SONG_SECONDS / sec_b}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -1552,7 +1916,7 @@ def main() -> int:
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
     card = nvidia_smi()
-    t0 = time.perf_counter()
+    t0 = t_start = time.perf_counter()
     _build.build_all(verbose=True)
     log(f"phase 1 {card}; kernels built in {time.perf_counter() - t0} s")
 
@@ -1562,12 +1926,18 @@ def main() -> int:
             *phase_attention_bwd(*attn), phase_attention_bf16(*attn[:4]),
             *phase_attention_bwd_bf16(*attn)]
     del attn
-    phase_serve_bf16(rows[4], *phase_serve(rows[:2]))
+    served = phase_serve(rows[:2])
+    phase_serve_bf16(rows[4], *served)
+    phase_kernels_at_cli_shapes(fe)
+    phase_cli(served[1])
+    phase_streaming(served[1])
+    del served
     phase_train_bf16(rows, *phase_train(rows))
     for row in rows:
         row["max_err"] = row["max_abs_err"]
     log(json.dumps({"kernels": rows}))
     log(card)
+    log(f"chip_smoke: {time.perf_counter() - t_start} s in all")
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,0 +1,147 @@
+"""Minimal sacred-compatible experiment framework (the port's copy of
+`reconvat_tpu/config.py:24-90, 122-185`).
+
+The reference drives every entry point through `sacred`
+(`train_UNet_Onset_VAT.py:15-87`): an `@ex.config` function whose local
+variables are the config, `with key=value` CLI overrides and
+`print_config`. The config function body is re-executed with overridden
+assignments pinned to the override value, so derived values see the
+overridden inputs. The file-storage observer of the training CLIs is not
+ported.
+"""
+from __future__ import annotations
+
+import ast
+import inspect
+import sys
+import textwrap
+
+
+def _parse_value(text: str):
+    try:
+        return ast.literal_eval(text)
+    except (ValueError, SyntaxError):
+        return text
+
+
+def parse_cli(argv=None):
+    """Returns (commands, overrides) from sacred-style argv:
+    `script.py [print_config] [with k=v ...]`."""
+    argv = list(sys.argv[1:] if argv is None else argv)
+    commands, overrides = [], {}
+    in_with = False
+    for arg in argv:
+        if arg == "with":
+            in_with = True
+            continue
+        if in_with and "=" in arg:
+            key, _, val = arg.partition("=")
+            overrides[key] = _parse_value(val)
+        else:
+            commands.append(arg)
+    return commands, overrides
+
+
+class _OverrideTransformer(ast.NodeTransformer):
+    """Pin assignments of overridden names to the override value."""
+
+    def __init__(self, overrides):
+        self.overrides = overrides
+
+    def _pin(self, name):
+        return ast.parse(f"{name} = __overrides__[{name!r}]").body[0]
+
+    def visit_Assign(self, node):
+        if (len(node.targets) == 1 and isinstance(node.targets[0], ast.Name)
+                and node.targets[0].id in self.overrides):
+            return ast.copy_location(self._pin(node.targets[0].id), node)
+        return node
+
+    def visit_AugAssign(self, node):
+        if isinstance(node.target, ast.Name) \
+                and node.target.id in self.overrides:
+            return ast.copy_location(self._pin(node.target.id), node)
+        return node
+
+
+def resolve_config(config_fn, overrides):
+    """Execute a config function's body with overrides pinned, returning its
+    final local namespace (the config dict)."""
+    source = textwrap.dedent(inspect.getsource(config_fn))
+    tree = ast.parse(source)
+    fn: ast.FunctionDef = tree.body[0]  # type: ignore[assignment]
+    body = ast.Module(body=fn.body, type_ignores=[])
+    body = _OverrideTransformer(overrides or {}).visit(body)
+    ast.fix_missing_locations(body)
+
+    glb = dict(config_fn.__globals__)
+    glb["__overrides__"] = dict(overrides or {})
+    loc: dict = {}
+    exec(compile(body, f"<config:{config_fn.__name__}>", "exec"), glb, loc)
+    cfg = {k: v for k, v in loc.items() if not k.startswith("_")}
+    # overrides that never appear in the config body still apply
+    for k, v in (overrides or {}).items():
+        cfg.setdefault(k, v)
+    return cfg
+
+
+class _Run:
+    def __init__(self, config):
+        self.config = config
+
+
+class Experiment:
+    def __init__(self, name):
+        self.name = name
+        self._config_fns = []
+        self.current_run = None
+
+    def config(self, fn):
+        self._config_fns.append(fn)
+        return fn
+
+    def _resolve(self, overrides):
+        cfg = {}
+        for fn in self._config_fns:
+            cfg.update(resolve_config(fn, {**cfg, **(overrides or {})}))
+        return cfg
+
+    def run(self, main_fn, overrides=None, commands=()):
+        """Resolve the config with `overrides` and call `main_fn` with the
+        config values its parameters name; returns what it returns (None
+        for `print_config`)."""
+        cfg = self._resolve(overrides or {})
+        self.current_run = _Run(cfg)
+        if "print_config" in commands:
+            print_config(self.current_run)
+            return None
+        sig = inspect.signature(main_fn)
+        has_var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
+                         for p in sig.parameters.values())
+        kwargs = {}
+        for pname, p in sig.parameters.items():
+            if p.kind is inspect.Parameter.VAR_KEYWORD:
+                continue
+            if pname in cfg:
+                kwargs[pname] = cfg[pname]
+            elif p.default is inspect.Parameter.empty:
+                raise TypeError(f"config has no value for parameter "
+                                f"'{pname}' of {main_fn.__name__}")
+        if has_var_kw:
+            for k, v in cfg.items():
+                kwargs.setdefault(k, v)
+        return main_fn(**kwargs)
+
+    def automain(self, fn):
+        """Decorate the entry point; when its module runs as `__main__`,
+        parse the command line and run it."""
+        if fn.__module__ == "__main__":
+            commands, overrides = parse_cli()
+            self.run(fn, overrides, commands)
+        return fn
+
+
+def print_config(run: _Run):
+    print("Configuration (modified, added, typechanged, doc):")
+    for k in sorted(run.config):
+        print(f"  {k} = {run.config[k]!r}")

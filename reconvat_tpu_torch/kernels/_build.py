@@ -8,6 +8,10 @@ rebuilt. The library is loaded with `ctypes`; pointers and
 the stream are passed as `c_void_p`. Nothing is built at import time: the
 first call that needs a kernel builds it, and `build_all()` builds every
 source at once, one `nvcc` process per source, started together.
+
+The host C++ sources (`csrc/*.cpp`: the note decoder and the FLAC decoder,
+copies of `native/`) are built the same way by the host compiler into one
+library, `load(HOST)`; a failed build raises with the compiler's output.
 """
 from __future__ import annotations
 
@@ -24,11 +28,29 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CSRC = os.path.join(_PKG, "csrc")
 BUILD_DIR = os.path.join(os.path.dirname(_PKG), "build", "kernels")
 
+HOST = "host"    # the host library of csrc/*.cpp among the sources' names
+HOST_SOURCES = ("note_extract.cpp", "flac_decoder.cpp")
+HOST_FLAGS = ["-O2", "-fPIC", "-std=c++17", "-shared"]
+
 # source name -> {C function: its ctypes argtypes}; every pointer and the
 # stream are c_void_p so ctypes never truncates them to 32 bits. All return
-# int (a cudaError_t for the launches).
+# int (a cudaError_t for the launches). The host library's functions take
+# typed pointers and give (restype, argtypes).
 _P, _I = ctypes.c_void_p, ctypes.c_int
+_PI32 = ctypes.POINTER(ctypes.c_int32)
+_PI16 = ctypes.POINTER(ctypes.c_int16)
+_LL, _F = ctypes.c_longlong, ctypes.c_float
 ENTRY_POINTS = {
+    HOST: {
+        "extract_notes": (_LL, [ctypes.POINTER(_F)] * 2
+                          + [_I, _I, _F, _F, _I, ctypes.POINTER(_PI32)]),
+        "extract_notes_packed_batch": (
+            _LL, [ctypes.POINTER(ctypes.c_uint8)] * 2 + [_I] * 5
+            + [ctypes.POINTER(_PI32), ctypes.POINTER(ctypes.c_int64)]),
+        "notes_free": (None, [_PI32]),
+        "flac_decode_file": (_LL, [ctypes.c_char_p, ctypes.POINTER(_PI16),
+                                   ctypes.POINTER(_I), ctypes.POINTER(_I)]),
+        "flac_free": (None, [_PI16])},
     "mel": {"mel_power_launch": [_P] * 6 + [_I] * 6 + [_P]},
     "banded_attention": {
         "banded_attention_fwd_launch": [_P] * 6 + [_I] * 5 + [_P],
@@ -62,13 +84,27 @@ def _nvcc() -> str:
                        "toolkit (nvcc on PATH or under /usr/local/cuda)")
 
 
+def _cxx() -> str:
+    for name in ("c++", "g++"):
+        found = shutil.which(name)
+        if found:
+            return found
+    raise RuntimeError("no host C++ compiler (c++ or g++) on PATH: the "
+                       "note and FLAC decoders of csrc/*.cpp need one")
+
+
 def _lib_path(name: str) -> str:
     """The library of `csrc/<name>.cu`, named by a hash of the source, of
     every header under `csrc/` (a source may include any of them) and of
-    the flags."""
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    headers = sorted(f for f in os.listdir(CSRC) if f.endswith(".cuh"))
-    for fname in [f"{name}.cu", *headers]:
+    the flags; for HOST, of `HOST_SOURCES` and `HOST_FLAGS`."""
+    if name == HOST:
+        flags, sources = HOST_FLAGS, list(HOST_SOURCES)
+    else:
+        flags = NVCC_FLAGS
+        sources = [f"{name}.cu", *sorted(
+            f for f in os.listdir(CSRC) if f.endswith(".cuh"))]
+    digest = hashlib.sha256(" ".join(flags).encode())
+    for fname in sources:
         with open(os.path.join(CSRC, fname), "rb") as f:
             digest.update(fname.encode() + b"\0" + f.read())
     return os.path.join(BUILD_DIR, f"lib{name}_{digest.hexdigest()[:12]}.so")
@@ -95,14 +131,20 @@ def nvcc_command(source: str, out: str, verbose: bool = False) -> list:
 
 
 def _start_build(name: str, verbose: bool):
-    """Start nvcc for one source; returns (Popen, tmp path, final path), or
-    None when the library is already built."""
+    """Start nvcc for one source (the host compiler for HOST); returns
+    (Popen, tmp path, final path), or None when the library is already
+    built. The tmp name is unique per process, so concurrent builds (test
+    workers) never write one file."""
     out = _lib_path(name)
     if os.path.exists(out):
         return None
     os.makedirs(BUILD_DIR, exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = nvcc_command(os.path.join(CSRC, f"{name}.cu"), tmp, verbose)
+    if name == HOST:
+        cmd = [_cxx(), *HOST_FLAGS, "-o", tmp,
+               *(os.path.join(CSRC, f) for f in HOST_SOURCES)]
+    else:
+        cmd = nvcc_command(os.path.join(CSRC, f"{name}.cu"), tmp, verbose)
     proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True)
     return proc, tmp, out
@@ -112,15 +154,19 @@ def _finish_build(name: str, job, verbose: bool) -> None:
     proc, tmp, out = job
     log, _ = proc.communicate()
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for csrc/{name}.cu "
-                           f"(rc {proc.returncode}):\n{log}")
+        if os.path.exists(tmp):
+            os.remove(tmp)
+        what = ("the host compiler failed for csrc/*.cpp" if name == HOST
+                else f"nvcc failed for csrc/{name}.cu")
+        raise RuntimeError(f"{what} (rc {proc.returncode}):\n{log}")
     if verbose and log:
         print(log, end="")
     os.replace(tmp, out)   # atomic: a concurrent build sees all or none
 
 
 def build_all(verbose: bool = False) -> None:
-    """Compile every source in parallel (one nvcc each) and load them."""
+    """Compile every source in parallel (one nvcc each, the host compiler
+    for the host library) and load them."""
     with _lock:
         jobs = {n: _start_build(n, verbose) for n in ENTRY_POINTS}
         for name, job in jobs.items():
@@ -140,10 +186,10 @@ def load(name: str) -> ctypes.CDLL:
         if job is not None:
             _finish_build(name, job, verbose=False)
         lib = ctypes.CDLL(_lib_path(name))
-        for fn_name, argtypes in ENTRY_POINTS[name].items():
+        for fn_name, spec in ENTRY_POINTS[name].items():
             fn = getattr(lib, fn_name)
-            fn.argtypes = argtypes
-            fn.restype = ctypes.c_int
+            fn.restype, fn.argtypes = (spec if isinstance(spec, tuple)
+                                       else (ctypes.c_int, spec))
         _libs[name] = lib
         return lib
 

@@ -1,13 +1,16 @@
-"""Shared signal-chain and bucketing helpers (PyTorch counterpart of
-`reconvat_tpu/models/common.py:25-147`).
+"""Shared signal-chain, bucketing and streaming helpers (PyTorch
+counterpart of `reconvat_tpu/models/common.py:25-352`).
 
 The bucketed path pads a clip to a frame-bucket boundary; the spectrogram
 normalization statistics are masked to the true frames, and the caller
 trims predictions to them. Outputs then differ from the exact path only
-inside the network's receptive-field halo at the clip end.
+inside the network's receptive-field halo at the clip end. The streaming
+path (`transcribe_streaming`) transcribes a song of any length in haloed
+fixed-shape windows, with device memory bounded by the window.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -102,3 +105,144 @@ def transcribe_spec(model, audio, bucket_frames: int = 0):
     t_pad = -(-t_true // bucket_frames) * bucket_frames
     audio = pad_audio_to_frames(audio, t_pad)
     return make_log_norm_spec(model, audio, t_true), t_true
+
+
+# ---------------------------------------------------------------------------
+# streaming (bounded-memory) full-song transcription
+# ---------------------------------------------------------------------------
+
+def _frame_slice_audio(audio, f0: int, f1: int, t_pad: int):
+    """Audio samples whose signal chain reproduces frames [f0, f1) of the
+    full song, right-padded like the bucketed path (reflect at the slice
+    end, then zeros) to exactly t_pad frames. Frame t of the slice has the
+    sample centre of frame f0 + t of the song, so interior frames are
+    identical; only the ~2 frames nearest a cut edge see the slice's
+    padding instead of true context, and they fall in the discarded
+    halo."""
+    n = audio.shape[1]
+    s0, s1 = f0 * C.HOP_LENGTH, min(n, f1 * C.HOP_LENGTH)
+    return pad_audio_to_frames(audio[:, s0:s1], t_pad)
+
+
+def transcribe_streaming(model, forward, audio, window_frames: int = 640,
+                         halo_frames: int = 128, windows_per_batch: int = 1,
+                         mesh_ctx=None, pipeline_depth: int = 3):
+    """Bounded-memory full-song transcription in haloed fixed-shape windows
+    (counterpart of `reconvat_tpu/models/common.py:172-352`).
+
+    audio (B, N) float in [-1, 1], moved to the model's device whole (the
+    audio is small next to the activations); `forward(spec_image)` maps a
+    (B', T, F, 1) normalized spec to a (B', T, P) roll. Returns the
+    (B, t_true, P) fp32 roll on the host.
+
+    1. `imagewise` normalization needs the song-global log-spec min/max:
+       pass 1 reduces them over spectrogram chunks of W frames with a
+       4-frame edge halo (only the chunk's own frames count, so the
+       statistics equal the full song's exactly). The reductions stay on
+       the device: no chunk waits for the host.
+    2. pass 2 runs windows of W + 2H frames (H frames of real context per
+       side), normalized by the global statistics, and keeps each
+       window's W interior frames. `windows_per_batch` = G windows are
+       stacked into one forward (leading axis G*B; the last group is
+       filled with copies of the last window, whose outputs are dropped);
+       up to `pipeline_depth` groups are in flight, each group's roll
+       copied to pinned host memory on a side stream (CUDA) while later
+       groups run. Output is identical for any depth.
+
+    Interior outputs equal the full-song path wherever the halo covers the
+    transcriber's receptive field. W and H must be multiples of 16 (the
+    U-Net's total stride, which keeps every window's strided grids
+    anchored like the full song's) and H >= 8 (the spectrogram's edge
+    frames). A song of at most W + 2H frames is one bucketed call padded
+    to that span. `mesh_ctx` (sharding the windows over devices) is not
+    ported: ROADMAP §1 item 11.
+    """
+    if mesh_ctx is not None:
+        raise NotImplementedError(
+            "streaming over a device mesh (mesh_ctx) is not ported: "
+            "ROADMAP §1 item 11 (multi-GPU)")
+    W, H = int(window_frames), int(halo_frames)
+    if H < 8:
+        raise ValueError(f"halo_frames {H} < 8 does not cover the "
+                         f"spectrogram edge frames")
+    if W % 16 or H % 16:
+        raise ValueError(f"window_frames {W} and halo_frames {H} must be "
+                         f"multiples of 16 (the U-Net's total stride)")
+    device = model.device
+    audio = torch.as_tensor(audio, dtype=torch.float32).to(device)
+    B, n = audio.shape
+    t_true = frames_in(n)
+    span = W + 2 * H
+
+    if t_true <= span:  # short clip: one bucketed call is already bounded
+        spec = make_log_norm_spec(model, pad_audio_to_frames(audio, span),
+                                  t_true)
+        return forward(spec[..., None])[:, :t_true].float().cpu()
+
+    G = max(1, int(windows_per_batch))
+    imagewise = model.normalize.mode == "imagewise"
+    if imagewise:  # pass 1: song-global statistics
+        E = 4      # spectrogram edge halo (centre window 2048 = 4 hops)
+        mins, maxs = [], []
+        for w0 in range(0, t_true, W):
+            w1 = min(t_true, w0 + W)
+            f0, f1 = max(0, w0 - E), min(t_true, w1 + E)
+            chunk = make_log_spec(
+                model, _frame_slice_audio(audio, f0, f1, W + 2 * E))
+            keep = chunk[:, w0 - f0:w1 - f0]
+            mins.append(keep.amin(dim=(1, 2)))     # per batch element
+            maxs.append(keep.amax(dim=(1, 2)))
+        # (G*B, 1, 1) in the g*B + b order of the stacked windows
+        lo = torch.stack(mins).amin(0).reshape(B, 1, 1).repeat(G, 1, 1)
+        hi = torch.stack(maxs).amax(0).reshape(B, 1, 1).repeat(G, 1, 1)
+
+    starts = list(range(0, t_true, W))
+    n_real = len(starts)
+    while len(starts) % G:
+        starts.append(starts[-1])
+    copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
+                   else None)
+
+    def dispatch(gi):
+        """Enqueue window group gi; returns (gi, its starts, its roll (on
+        the host once `done` has completed), done event or None)."""
+        group = starts[gi:gi + G]
+        # f0 = w0 - H keeps every window's stride-2 grids anchored like the
+        # full song's; the last window's slice runs past the song end and
+        # pads like the bucketed path
+        aa = torch.stack([_frame_slice_audio(
+            audio, max(0, w0 - H), max(0, w0 - H) + span, span)
+            for w0 in group]).reshape(G * B, -1)
+        spec = make_log_spec(model, aa)
+        spec = (spec - lo) / (hi - lo) if imagewise else model.normalize(spec)
+        roll = forward(spec[..., None]).float()
+        if copy_stream is None:
+            return gi, group, roll, None
+        copy_stream.wait_stream(torch.cuda.current_stream(device))
+        host = torch.empty(roll.shape, dtype=roll.dtype, pin_memory=True)
+        with torch.cuda.stream(copy_stream):
+            host.copy_(roll, non_blocking=True)
+            roll.record_stream(copy_stream)
+            done = torch.cuda.Event()
+            done.record(copy_stream)
+        return gi, group, host, done
+
+    out = None
+    depth = max(1, int(pipeline_depth))
+    pending, nxt = [], 0
+    while nxt < len(starts) or pending:
+        while nxt < len(starts) and len(pending) < depth:
+            pending.append(dispatch(nxt))
+            nxt += G
+        gi, group, roll, done = pending.pop(0)
+        if done is not None:
+            done.synchronize()   # the pinned buffer is read only after this
+        r = roll.numpy().reshape((G, B) + tuple(roll.shape[1:]))
+        if out is None:
+            out = np.zeros((B, t_true) + r.shape[3:], np.float32)
+        for i, w0 in enumerate(group):
+            if gi + i >= n_real:
+                break
+            w1, f0 = min(t_true, w0 + W), max(0, w0 - H)
+            out[:, w0:w1] = r[i][:, w0 - f0:w1 - f0]
+    return torch.from_numpy(out)

@@ -33,7 +33,8 @@ from ..nn.unet import Decoder, Encoder, frozen_batch_stats
 from ..ops.normalize import Normalization
 from ..ops.spectrogram import make_frontend
 from ..vat import VATConfig, vat_loss
-from .common import frame_mask, make_log_norm_spec, transcribe_spec
+from .common import (frame_mask, make_log_norm_spec, transcribe_spec,
+                     transcribe_streaming)
 from .losses import binary_cross_entropy, mse_loss
 
 
@@ -50,11 +51,16 @@ def resolve_device(device=None) -> torch.device:
 @contextlib.contextmanager
 def fp32_math():
     """Full-fp32 matmuls and convolutions on CUDA (cuDNN convolutions
-    default to TF32), restored on exit."""
+    default to TF32), restored on exit. cuDNN's benchmark and
+    deterministic settings stay as the caller set them (`flags` would
+    reset them to False)."""
     mm = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
     try:
-        with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
             yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = mm
@@ -311,3 +317,45 @@ class ReconVAT(UNet):
         if bucket_frames:
             pianoroll = pianoroll[:, :t_true]
         return {"onset": pianoroll, "frame": pianoroll}
+
+    @torch.no_grad()
+    def transcribe_streaming(self, audio, window_frames: int = 640,
+                             halo_frames: int = 128,
+                             windows_per_batch: int = 1, mesh_ctx=None,
+                             pipeline_depth: int = 3):
+        """Bounded-memory transcription for hour-scale recordings
+        (counterpart of `reconvat_tpu/models/reconvat.py:421-443`): haloed
+        fixed-shape windows of the transcriber's first pass with
+        song-global normalization statistics; device memory is bounded by
+        the window, whatever the song's length
+        (`models/common.transcribe_streaming`). Returns onset == frame,
+        a (B, t_true, 88) fp32 tensor on the host."""
+        self.eval()
+        with fp32_math():
+            roll = transcribe_streaming(
+                self, lambda spec: self.transcriber(spec)[0], audio,
+                window_frames, halo_frames, windows_per_batch, mesh_ctx,
+                pipeline_depth)
+        return {"onset": roll, "frame": roll}
+
+    def load_reference_weights(self, path: str):
+        """Load a torch `.pt` of the reference's `state_dict` names (a
+        released checkpoint, or `weights.flax_to_torch` of a JAX tree)
+        onto this model (counterpart of
+        `reconvat_tpu/models/reconvat.py:445-456`). The file may hold a
+        state_dict or a module. Entries under `spectrogram.` (the
+        reference's frontend buffers), `normalize.` and `vat_loss.` have no
+        counterpart and are skipped; any other missing or unexpected key
+        raises before a weight is changed."""
+        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if hasattr(obj, "state_dict"):
+            obj = obj.state_dict()
+        own = self.state_dict().keys()
+        skipped = ("spectrogram.", "normalize.", "vat_loss.")
+        missing = [k for k in own if k not in obj]
+        unexpected = [k for k in obj
+                      if k not in own and not k.startswith(skipped)]
+        if missing or unexpected:
+            raise ValueError(f"weights of {path} do not fit the model: "
+                             f"missing {missing}, unexpected {unexpected}")
+        self.load_state_dict({k: obj[k] for k in own}, strict=True)

@@ -3,7 +3,7 @@ of the pipeline that `bench.py:113-167` runs).
 
     int16 audio --H2D--> float / 32768 on the device -> ReconVAT.transcribe
     -> threshold + bit-pack on the device (32x fewer D2H bytes than fp32)
-    -> async D2H on a side stream -> host note decode (rule2)
+    -> async D2H on a side stream -> native host note decode (rule2)
 
 `submit` enqueues the device work and the copy and returns at once, so a
 caller can keep several batches in flight while the host decodes earlier

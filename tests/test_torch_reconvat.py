@@ -191,13 +191,22 @@ def test_seeded_init_is_deterministic():
                            c["transcriber.linear1.weight"])
 
 
-def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch):
+def test_entry_point_needs_cuda_unless_cpu_is_asked(monkeypatch, tmp_path):
+    """The model and the transcription CLI raise without a card unless the
+    CPU is asked for, and the CLI writes nothing then."""
+    from reconvat_tpu_torch import transcribe_files
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         resolve_device(None)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         ReconVAT()
     assert resolve_device("cpu") == torch.device("cpu")
+    out = tmp_path / "out"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        transcribe_files.ex.run(transcribe_files.main,
+                                {"output_path": str(out)})
+    assert not out.exists()
 
 
 PORT_MODULES = [
@@ -215,6 +224,10 @@ PORT_MODULES = [
     "reconvat_tpu_torch.ops.filterbanks", "reconvat_tpu_torch.ops.mel_kernel",
     "reconvat_tpu_torch.ops.banded_attention_kernel",
     "reconvat_tpu_torch.ops.normalize", "reconvat_tpu_torch.ops.spectrogram",
+    "reconvat_tpu_torch.config", "reconvat_tpu_torch.transcribe_files",
+    "reconvat_tpu_torch.data", "reconvat_tpu_torch.data.audio_io",
+    "reconvat_tpu_torch.data.midi_io", "reconvat_tpu_torch.data.datasets",
+    "reconvat_tpu_torch.models.streaming_probe",
     "chip_smoke",
 ]
 
