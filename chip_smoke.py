@@ -22,7 +22,15 @@ transcription CLI (`reconvat_tpu_torch.transcribe_files`, phase 10) on
 plain versions, bucketed and exact, with the native note decoder, and
 streams a 5-minute song in haloed windows (phase 10b) against its bucketed
 transcription; each kernel is first held against its plain version at the
-CLI's and the streaming's shapes (phase 10a).
+CLI's and the streaming's shapes (phase 10a). Last, it runs the training CLI
+(`reconvat_tpu_torch.train_UNet_VAT`) at its defaults on a synthetic MAPS
+and MAESTRO corpus it writes (phase 11: 2 epochs of 10 bf16 VAT steps,
+logging, a checkpoint, the full-song evaluation, then a resume from the
+checkpoint), evaluates its final weights in fp32 through the kernels and
+the plain versions (phase 11a), runs one epoch each with the batched VAT
+chain and with the adversarial forward recomputed (phase 11b), and holds
+the bf16 attention kernels against their plain versions at the other
+shapes that run gives them (phase 11c).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -161,6 +169,29 @@ PROBE, PROBE_FACTOR, GRAD_FLOOR = 1e-6, 3.0, 5e-4
 CLI_BUCKET = 512
 STREAM_W, STREAM_H, SONG_SECONDS = 640, 128, 300.0
 STREAM_TAIL, STREAM_TAIL_ATOL = 64, 1e-3
+# the training CLI (phases 11-11b): its defaults (flagship, bf16, VAT,
+# batch_size 8 unlabeled, train_batch_size 1, 327,680-sample crops, 10
+# iterations an epoch) on a synthetic corpus of CORPUS_SECONDS songs in the
+# MAPS and MAESTRO layouts, with these overrides only
+TRAIN_CLI = dict(train_on="MAPS", small=True, epoches=2, logging_freq=1,
+                 saving_freq=2)
+CORPUS_SECONDS = 24.0
+# the keys of the JAX package's result_dict (`evaluate_wo_velocity`,
+# reconstruction=False, on eval-mode `run_on_batch` losses)
+RESULT_KEYS = [
+    "loss/test_LDS_l", "loss/test_frame", "loss/test_r_norm_l",
+    "metric/note/precision", "metric/note/recall", "metric/note/f1",
+    "metric/note/overlap", "metric/note-with-offsets/precision",
+    "metric/note-with-offsets/recall", "metric/note-with-offsets/f1",
+    "metric/note-with-offsets/overlap", "metric/frame/f1",
+    "metric/MusicNet/micro_avg_P", "metric/frame/precision",
+    "metric/frame/recall", "metric/frame/accuracy",
+    "metric/frame/substitution_error", "metric/frame/miss_error",
+    "metric/frame/false_alarm_error", "metric/frame/total_error",
+    "metric/frame/chroma_precision", "metric/frame/chroma_recall",
+    "metric/frame/chroma_accuracy", "metric/frame/chroma_substitution_error",
+    "metric/frame/chroma_miss_error", "metric/frame/chroma_false_alarm_error",
+    "metric/frame/chroma_total_error"]
 
 
 def log(msg: str) -> None:
@@ -416,6 +447,31 @@ def phase_attention(q, kpad, vpad, rel):
     return row
 
 
+def check_bf16_fwd(name, got, ref) -> tuple:
+    """The bf16 forward's (out, probs) against its bf16 plain version's:
+    probs within ATTN_BF16_PROBS_ATOL, out by the rule of bf16 out;
+    returns (out's max abs err, probs', the share of out elements not
+    equal)."""
+    (out, probs), (ref_out, ref_probs) = got, ref
+    if out.dtype != torch.bfloat16 or probs.dtype != torch.float32:
+        fail(f"{name} returned {out.dtype} out, {probs.dtype} probs")
+    err_p = check_close(f"{name} probs", probs, ref_probs,
+                        dict(rtol=0.0, atol=ATTN_BF16_PROBS_ATOL))
+    out, ref_out = out.float(), ref_out.float()
+    gap = (out - ref_out).abs()
+    err_out = gap.max().item()
+    allowed = (ATTN_BF16_OUT_RTOL * ref_out.abs()
+               + ATTN_BF16_OUT_FLOOR * ref_out.abs().max())
+    if not torch.isfinite(out).all() or bool((gap > allowed).any()):
+        fail(f"{name} out: max abs err {err_out} outside "
+             f"{ATTN_BF16_OUT_RTOL} |ref| + {ATTN_BF16_OUT_FLOOR} max|ref|")
+    ulp_moves = (gap > 0).float().mean().item()
+    if ulp_moves > ATTN_BF16_OUT_MOVED:
+        fail(f"{name} out: {ulp_moves} of the elements differ from the "
+             f"plain version (at most {ATTN_BF16_OUT_MOVED})")
+    return err_out, err_p, ulp_moves
+
+
 def phase_attention_bf16(q, kpad, vpad, rel):
     """Kernel 2's bf16-operand variant (q, kpad, vpad, out bf16; rel, probs
     fp32) against its bf16 plain version, on phase 3's inputs rounded to
@@ -429,23 +485,10 @@ def phase_attention_bf16(q, kpad, vpad, rel):
     L, D = q.shape[1], q.shape[3]
     out, probs = banded_attention_fwd(q, kpad, vpad, rel, W)
     torch.cuda.synchronize()
-    if out.dtype != torch.bfloat16 or probs.dtype != torch.float32:
-        fail(f"bf16 attention returned {out.dtype} out, {probs.dtype} probs")
-    ref_out, ref_probs = banded_attention(q, kpad, vpad, rel, W)
-    err_p = check_close("bf16 attention probs", probs, ref_probs,
-                        dict(rtol=0.0, atol=ATTN_BF16_PROBS_ATOL))
-    got, ref = out.float(), ref_out.float()
-    gap = (got - ref).abs()
-    err_out = gap.max().item()
-    allowed = (ATTN_BF16_OUT_RTOL * ref.abs()
-               + ATTN_BF16_OUT_FLOOR * ref.abs().max())
-    if not torch.isfinite(got).all() or bool((gap > allowed).any()):
-        fail(f"bf16 attention out: max abs err {err_out} outside "
-             f"{ATTN_BF16_OUT_RTOL} |ref| + {ATTN_BF16_OUT_FLOOR} max|ref|")
-    ulp_moves = (gap > 0).float().mean().item()
-    if ulp_moves > ATTN_BF16_OUT_MOVED:
-        fail(f"bf16 attention out: {ulp_moves} of the elements differ from "
-             f"the plain version (at most {ATTN_BF16_OUT_MOVED})")
+    ref = banded_attention(q, kpad, vpad, rel, W)
+    err_out, err_p, ulp_moves = check_bf16_fwd("bf16 attention", (out, probs),
+                                               ref)
+    ref = ref[0].float()
 
     # library yardstick: SDPA on the bf16 operands, the dense band mask
     # (band and q.rel bias) made in fp32 and cast to bf16
@@ -1898,6 +1941,451 @@ def phase_streaming(model) -> None:
         f"{SONG_SECONDS / sec4}, bucketed {SONG_SECONDS / sec_b}")
 
 
+def synth_song(rng, seconds: float):
+    """(note rows (onset s, offset s, MIDI note, velocity), int16 audio):
+    ~2 notes a second of three decaying harmonics, and a noise floor."""
+    n = int(seconds * 16000)
+    n_notes = int(seconds * 2)
+    onsets = np.sort(rng.rand(n_notes) * (seconds - 1.5))
+    rows = np.stack([onsets, onsets + 0.3 + rng.rand(n_notes) * 0.8,
+                     rng.randint(40, 90, n_notes),
+                     rng.randint(40, 120, n_notes)], axis=1)
+    x = rng.randn(n) * 1e-3
+    for onset, offset, note, vel in rows:
+        i0, i1 = int(onset * 16000), int(offset * 16000)
+        tt = np.arange(i1 - i0) / 16000
+        f0 = 440.0 * 2 ** ((note - 69) / 12.0)
+        env = np.exp(-tt * 3.0) * vel / 127.0
+        x[i0:i1] += env * sum(a * np.sin(2 * np.pi * f0 * h * tt)
+                              for h, a in ((1, 1.0), (2, 0.5), (3, 0.25)))
+    return rows, (x / np.abs(x).max() * 0.7 * 32767).astype(np.int16)
+
+
+def write_corpus(root: str, seed: int = 0) -> dict:
+    """Synthetic MAPS and MAESTRO corpora under root, 16 kHz WAV: MAPS 4
+    labeled songs in AkPnBcht (TSV), one each in ENSTDkAm and ENSTDkCl,
+    `overlapping.pkl`; MAESTRO 8 unlabeled songs (MIDI, the metadata
+    JSON). Returns the RECONVAT_*_ROOT variables that name them."""
+    import pickle
+
+    from scipy.io import wavfile
+
+    from reconvat_tpu_torch.data.labels import save_tsv
+    from reconvat_tpu_torch.data.midi_io import midi_to_hz, save_midi
+
+    rng = np.random.RandomState(seed)
+    maps, maestro = os.path.join(root, "MAPS"), os.path.join(root, "MAESTRO")
+    for d in ("flac", "tsvs"):
+        os.makedirs(os.path.join(maps, d))
+    os.makedirs(os.path.join(maestro, "2004"))
+    for group, count in (("AkPnBcht", 4), ("ENSTDkAm", 1), ("ENSTDkCl", 1)):
+        for i in range(count):
+            rows, audio = synth_song(rng, CORPUS_SECONDS)
+            name = f"synth{i:02d}_{group}"
+            wavfile.write(os.path.join(maps, "flac", name + ".wav"), 16000,
+                          audio)
+            save_tsv(os.path.join(maps, "tsvs", name + ".tsv"), rows)
+    with open(os.path.join(maps, "overlapping.pkl"), "wb") as f:
+        pickle.dump(["__none__"], f)
+    meta = []
+    for i in range(8):
+        rows, audio = synth_song(rng, CORPUS_SECONDS)
+        wav, midi = f"2004/m{i:02d}.wav", f"2004/m{i:02d}.midi"
+        wavfile.write(os.path.join(maestro, wav), 16000, audio)
+        save_midi(os.path.join(maestro, midi), midi_to_hz(rows[:, 2]),
+                  rows[:, :2], rows[:, 3] / 127.0)
+        meta.append({"split": "train", "audio_filename": wav,
+                     "midi_filename": midi})
+    with open(os.path.join(maestro, "maestro-v2.0.0.json"), "w") as f:
+        json.dump(meta, f)
+    return {"RECONVAT_MAPS_ROOT": maps, "RECONVAT_MAESTRO_ROOT": maestro}
+
+
+def train_cli(overrides: dict, env: dict) -> dict:
+    """One run of the training CLI through its `Experiment` with the
+    phase's corpus and overrides, instrumented: each train step's kernel
+    launches and each step interval of the loop's StepTimer, the
+    host-blocking time of each `save_checkpoint`, the final evaluation's
+    time. Every kernel count is set to 0 just before the run and read
+    just after; the losses are checked finite (`RECONVAT_NAN_CHECKS`)."""
+    from reconvat_tpu_torch import train_UNet_VAT as cli
+    from reconvat_tpu_torch.train import driver, profiler
+
+    counters = kernel_counters()
+    rec = {"step_launches": {k: 0 for k in counters}, "steps": 0,
+           "intervals": [], "ckpt_ms": [], "eval_ms": []}
+
+    def counts():
+        return {k: getattr(f, c) for k, (f, c) in counters.items()}
+
+    def counted(make):
+        def make_step(*args, **kw):
+            step = make(*args, **kw)
+
+            def run(*a):
+                before = counts()
+                out = step(*a)
+                for k, n in counts().items():
+                    rec["step_launches"][k] += n - before[k]
+                rec["steps"] += 1
+                return out
+            return run
+        return make_step
+
+    class Timer(profiler.StepTimer):
+        def tick(self):
+            if self._last is not None:
+                rec["intervals"].append(time.perf_counter() - self._last)
+            super().tick()
+
+    def timed(fn, key):
+        def run(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            rec[key].append((time.perf_counter() - t0) * 1e3)
+            return out
+        return run
+
+    saved = {k: os.environ.get(k) for k in [*env, "RECONVAT_NAN_CHECKS"]}
+    patched = {"make_train_step": counted(driver.make_train_step),
+               "evaluate_wo_velocity": timed(driver.evaluate_wo_velocity,
+                                             "eval_ms")}
+    orig = {k: getattr(driver, k) for k in patched}
+    orig_save, orig_timer = driver.ckpt.save_checkpoint, profiler.StepTimer
+    os.environ.update(env, RECONVAT_NAN_CHECKS="1")
+    for k, v in patched.items():
+        setattr(driver, k, v)
+    driver.ckpt.save_checkpoint = timed(orig_save, "ckpt_ms")
+    profiler.StepTimer = Timer
+    try:
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for f, c in counters.values():
+            setattr(f, c, 0)
+        t0 = time.perf_counter()
+        model, state, metrics = cli.ex.run(cli.train, overrides)
+        torch.cuda.synchronize()
+        rec["wall_s"] = time.perf_counter() - t0
+        rec["launches"] = counts()
+        rec["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        for k, v in orig.items():
+            setattr(driver, k, v)
+        driver.ckpt.save_checkpoint = orig_save
+        profiler.StepTimer = orig_timer
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    rec.update(model=model, state=state, metrics=metrics,
+               logdir=cli.ex.current_run.config["logdir"])
+    return rec
+
+
+def step_ms(rec, iteration: int = 10) -> list:
+    """The loop's step intervals (ms) inside its epochs: the interval that
+    spans an epoch's logging and checkpoint (every iteration-th tick) is
+    left out."""
+    return [dt * 1e3 for i, dt in enumerate(rec["intervals"], start=1)
+            if i % iteration]
+
+
+def bare_step_ms(trained) -> list:
+    """ms/step of the CLI's train step without its loader: a copy of the
+    CLI's model (bf16, reconstruction=False) and a fresh train state, one
+    labeled and eight unlabeled clips already on the card, two rounds of
+    10 steps after 2 warm-up; then a profile of 2 steps (device busy)."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model = ReconVAT(seed=42, reconstruction=False,
+                     compute_dtype="bfloat16")
+    model.load_state_dict(trained.state_dict(), strict=True)
+    state = create_train_state(model)
+    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    batch_l, batch_ul = train_batches(5)
+    batch_l = {k: v[:1] for k, v in batch_l.items()}
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    for _ in range(2):
+        step(state, batch_l, batch_ul, gen)
+    out = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            step(state, batch_l, batch_ul, gen)
+        torch.cuda.synchronize()
+        out.append((time.perf_counter() - t0) / 10 * 1e3)
+    log_profile("phase 11 bare CLI step profile (2 steps, B = 1 + 8, bf16, "
+                "reconstruction=False)", "step", 2, profile_groups(
+                    lambda: [step(state, batch_l, batch_ul, gen)
+                             for _ in range(2)]))
+    return out
+
+
+def phase_train_cli(rows, tmp: str) -> dict:
+    """Phase 11: `python -m reconvat_tpu_torch.train_UNet_VAT` at its
+    defaults on the card (bf16, VAT, B = 1 labeled + 8 unlabeled x 640
+    frames, 2 epochs of 10 steps), then a second run that resumes from
+    the first's latest checkpoint."""
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    env = write_corpus(os.path.join(tmp, "corpus"))
+    corpus_s = time.perf_counter() - t0
+    rec = train_cli(dict(TRAIN_CLI, root=os.path.join(tmp, "runs")), env)
+    launches = rec["launches"]
+    for name, n in launches.items():
+        expected = name == "mel_power" or name.endswith("_bf16")
+        if (n > 0) != expected:
+            fail(f"the training CLI (bf16) launched {name} {n} times")
+    for row in rows:
+        row["launches_train_cli"] = launches[row["name"]]
+    logdir, steps = rec["logdir"], rec["steps"]
+    if steps != 20 or rec["state"].step != 20:
+        fail(f"the CLI ran {steps} steps, state at {rec['state'].step}")
+    path = ckpt.latest_checkpoint(logdir)
+    if path is None or os.path.basename(path) != "model-2":
+        fail(f"the CLI's latest checkpoint is {path}")
+    import pickle
+
+    with open(os.path.join(logdir, "result_dict"), "rb") as f:
+        result = pickle.load(f)
+    if sorted(result) != sorted(RESULT_KEYS):
+        fail(f"result_dict keys {sorted(result)}")
+    if not all(np.isfinite(v).all() for v in result.values()):
+        fail("result_dict holds a non-finite value")
+    artifacts = sorted(os.listdir(logdir)) + [
+        f"MIDI_results/{n}" for n in sorted(os.listdir(
+            os.path.join(logdir, "MIDI_results")))]
+
+    resumed = train_cli(dict(TRAIN_CLI, root=os.path.join(tmp, "resumed"),
+                             epoches=0, resume_iteration="latest",
+                             trained_dir=logdir), env)
+    saved = ckpt.load_state(path)
+    if saved["step"] != 20 or resumed["state"].step != 20:
+        fail(f"resumed at step {resumed['state'].step}, saved "
+             f"{saved['step']}")
+    n_tensors = 0
+    for k, v in resumed["model"].state_dict().items():
+        if not torch.equal(v.cpu(), saved["model"][k]):
+            fail(f"resumed tensor {k} differs from the saved one")
+        n_tensors += 1
+    opt = resumed["state"].optimizer.state_dict()["state"]
+    for i, slots in saved["optimizer"]["state"].items():
+        for name, v in slots.items():
+            if not torch.equal(opt[i][name].cpu(), v):
+                fail(f"resumed optimizer state {i}.{name} differs")
+            n_tensors += 1
+    bare = bare_step_ms(rec["model"])
+    ms = step_ms(rec)
+    per_step = {k: n / steps for k, n in rec["step_launches"].items()}
+    audio_s = 327680 / 16000                       # labeled audio per step
+    n_songs = 2
+    log(f"phase 11 training CLI (flagship, reconstruction=False, bf16, VAT, "
+        f"batch_size 8 unlabeled + train_batch_size 1 labeled x 327680 "
+        f"samples, {TRAIN_CLI}; corpus of 14 x {CORPUS_SECONDS} s written "
+        f"in {corpus_s} s): {steps} steps; ms/step (loop StepTimer, within "
+        f"epochs) median {np.median(ms)} mean {np.mean(ms)} min {min(ms)} "
+        f"max {max(ms)}; audio-s/s trained (labeled) "
+        f"{audio_s / (np.median(ms) / 1e3)}; kernel launches per train step "
+        f"{per_step}; launches in the whole run {launches}; final "
+        f"evaluation {rec['eval_ms'][0] / n_songs} ms/song ({n_songs} "
+        f"songs of {CORPUS_SECONDS} s); save_checkpoint host-blocking ms "
+        f"{rec['ckpt_ms']}; peak device GB {rec['peak_gb']}; run wall "
+        f"{rec['wall_s']} s; the bare step (make_train_step on batches "
+        f"already on the card, no loader), two rounds of 10: {bare} "
+        f"ms/step; artifacts {artifacts}; resumed from "
+        f"{os.path.basename(path)} at step {resumed['state'].step}, "
+        f"{n_tensors} tensors bit-equal to the saved ones; note f1 "
+        f"{np.mean(result['metric/note/f1'])}, frame f1 "
+        f"{np.mean(result['metric/frame/f1'])}")
+    return rec
+
+
+def phase_train_cli_eval(rec) -> None:
+    """Phase 11a: the CLI's final weights in an fp32 model; the bucketed
+    full-song evaluation through the kernels against the plain versions
+    (posteriograms within POST_ATOL, notes equal outside the pitches near
+    0.5), and eval_batch_songs=2 against one song at a time."""
+    from reconvat_tpu_torch import evaluate
+    from reconvat_tpu_torch.data.datasets import MAPS
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+
+    songs = MAPS(os.path.join(os.path.dirname(os.path.dirname(
+        rec["logdir"])), "corpus", "MAPS"), groups=["ENSTDkAm", "ENSTDkCl"],
+        sequence_length=None, verbose=False)
+    models = {}
+    for route in ("kernels", "plain"):
+        models[route] = ReconVAT(seed=0, reconstruction=False)
+        models[route].load_state_dict(rec["model"].state_dict(), strict=True)
+        models[route].use_kernels(route == "kernels")
+        if route == "kernels":
+            # after 20 steps every bin of these songs lies below 0.5, so
+            # there is no note to compare: the output layer is scaled and
+            # shifted as for the transcription CLI (phase 10)
+            sharpen_output(models[route], [
+                torch.from_numpy(s["audio"])[None].cuda() for s in songs])
+            sharpened = models[route].state_dict()
+        else:
+            models[route].load_state_dict(sharpened, strict=True)
+    runners = {k: evaluate.make_bucketed_runner(m) for k, m in models.items()}
+
+    def rolls(outs):
+        return [(p["frame"][0].float().cpu().numpy(),
+                 {k: float(v) for k, v in losses.items()})
+                for p, losses, _ in outs]
+
+    per_song = {k: rolls([r(s) for s in songs]) for k, r in runners.items()}
+    grouped = rolls(runners["kernels"].run_group(list(songs), 2))
+    diffs, set_aside, notes = [], 0, 0
+    for (a, la), (b, lb), (g, lg) in zip(per_song["kernels"],
+                                         per_song["plain"], grouped):
+        d, s, n = same_notes("phase 11a kernels vs plain", a, b)
+        dg, _, _ = same_notes("phase 11a eval_batch_songs 2 vs 1", g, a)
+        for k in lb:
+            if not np.isclose(la[k], lb[k], rtol=1e-4, atol=1e-6) or \
+                    not np.isclose(lg[k], la[k], rtol=1e-4, atol=1e-6):
+                fail(f"phase 11a loss {k}: kernels {la[k]}, plain {lb[k]}, "
+                     f"grouped {lg[k]}")
+        diffs.append((d, dg))
+        set_aside += s
+        notes += n
+    t0 = time.perf_counter()
+    one = evaluate.evaluate_wo_velocity(songs, runners["kernels"],
+                                        reconstruction=False)
+    t1 = time.perf_counter()
+    two = evaluate.evaluate_wo_velocity(songs, runners["kernels"],
+                                        reconstruction=False, batch_songs=2)
+    t2 = time.perf_counter()
+    if list(one) != list(two):
+        fail("eval_batch_songs=2 gives other keys")
+    log(f"phase 11a the CLI's final weights in fp32, the output layer "
+        f"sharpened as in phase 10, bucketed full-song "
+        f"evaluation (2 songs of {CORPUS_SECONDS} s): posteriogram max abs "
+        f"diff (kernels vs plain, batch_songs 2 vs 1) {diffs} (tol "
+        f"{POST_ATOL}); {notes} notes, {set_aside} pitches set aside "
+        f"(an element within {POST_ATOL} of 0.5); evaluate_wo_velocity "
+        f"{(t1 - t0) * 1e3 / 2} ms/song one at a time, "
+        f"{(t2 - t1) * 1e3 / 2} with batch_songs 2; frame f1 "
+        f"{np.mean(one['metric/frame/f1'])} and "
+        f"{np.mean(two['metric/frame/f1'])}")
+
+
+def phase_train_cli_variants(rec, tmp: str) -> None:
+    """Phase 11b: one epoch each with vat_chain='batched' and with
+    RECONVAT_VAT_REMAT=1; ms/step and peak GB beside phase 11's (no
+    gate on speed)."""
+    env = {"RECONVAT_MAPS_ROOT": os.path.join(tmp, "corpus", "MAPS"),
+           "RECONVAT_MAESTRO_ROOT": os.path.join(tmp, "corpus", "MAESTRO")}
+    out = [f"phase 11 (separate chains): ms/step median "
+           f"{np.median(step_ms(rec))}, peak GB {rec['peak_gb']}"]
+    for name, over, extra in (("vat_chain=batched",
+                               {"vat_chain": "batched"}, {}),
+                              ("RECONVAT_VAT_REMAT=1", {},
+                               {"RECONVAT_VAT_REMAT": "1"})):
+        r = train_cli(dict(TRAIN_CLI, root=os.path.join(tmp, name),
+                           epoches=1, saving_freq=100, **over),
+                      {**env, **extra})
+        ms = step_ms(r)
+        per_step = {k: n / r["steps"] for k, n in r["step_launches"].items()
+                    if n}
+        out.append(f"{name}: ms/step median {np.median(ms)} mean "
+                   f"{np.mean(ms)}, peak GB {r['peak_gb']}, launches per "
+                   f"step {per_step}")
+    log(f"phase 11b training CLI variants, one epoch each: {'; '.join(out)}")
+
+
+def phase_bf16_kernels_at_train_cli_shapes() -> None:
+    """Phase 11c: the bf16 attention kernels at the shapes the training
+    CLI (bf16 by default) gives them beyond phases 3d-3f's B x 640: the
+    labeled chain (train_batch_size 1 x 640 frames: forward, backward and
+    its first pass), the batched VAT chain (1 + B rows), and the final
+    evaluation's bucket (1 x the bucket of a CORPUS_SECONDS song, forward
+    only), on inputs drawn as phase 3's. Each bf16 output is held against
+    its bf16 plain version by `bf16_held`, the fp32 routes on the same
+    inputs unrounded; the fp32 kernels, which set the rule's second term,
+    are held against their plain versions by phases 3-3c's tolerances.
+    Also read: the elements outside phases 3d-3f's per-element bound (one
+    bf16 flip of a large dS term can cross it; PERF.md §6, PR 12)."""
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.models.common import frames_in, next_bucket
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    frames = frames_in(SAMPLES)
+    bucket = next_bucket(frames_in(int(CORPUS_SECONDS * 16000)) + 2)
+    shapes = [(1, frames, True), (1 + B, frames, True), (1, bucket, False)]
+    rng = torch.Generator(device="cuda").manual_seed(7)
+    D, hw = 229, (W - 1) // 2
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=rng, device="cuda") * scale
+
+    def held(what, labels, k16, p16, k32, p32):
+        """bf16_held of each output; (largest diff over its limit, the
+        elements outside phases 3d-3f's bound)."""
+        share, outside = 0.0, 0
+        for label, a, b, c, d in zip(labels, k16, p16, k32, p32):
+            diff, tol = bf16_held(f"{what} {label}", a, b, c, d)
+            share = max(share, diff / tol if tol else 0.0)
+            if a.dtype == torch.bfloat16:
+                a, b = a.float(), b.float()
+                outside += int(((a - b).abs() > ATTN_BF16_OUT_RTOL * b.abs()
+                                + ATTN_BF16_OUT_FLOOR * b.abs().max()).sum())
+        return share, outside
+
+    read = []
+    for b, t, backward in shapes:
+        x32 = (randn(b, t, H, D, scale=D ** -0.25),
+               F.pad(randn(b, t, H, D, scale=D ** -0.25),
+                     (0, 0, 0, 0, hw, hw)),
+               F.pad(randn(b, t, H, D), (0, 0, 0, 0, hw, hw)),
+               randn(b, t, H, D))
+        x16 = tuple(x.to(torch.bfloat16) for x in x32)
+        rel = randn(H, D, W, scale=0.1 * D ** -0.25)
+        what = f"attention at {b} x {t}"
+        routes = {}
+        for name, x in (("16", x16), ("32", x32)):
+            routes[name] = (bak.banded_attention_fwd(*x[:3], rel, W),
+                            bak.banded_attention(*x[:3], rel, W))
+        torch.cuda.synchronize()
+        (k16, p16), (k32, p32) = routes["16"], routes["32"]
+        if k16[0].dtype != torch.bfloat16:
+            fail(f"bf16 {what} returned {k16[0].dtype} out")
+        for label, a, r in zip(("out", "probs"), k32, p32):
+            check_close(f"fp32 {what} {label}", a, r, ATTN_TOL)
+        line = (f"{b} x {t}: forward "
+                f"{held(what, ('out', 'probs'), k16, p16, k32, p32)}")
+        if backward:
+            for fn, plain, labels, part in (
+                    (bak.banded_attention_bwd, bak.banded_attention_bwd_plain,
+                     ("dq", "dk", "dv", "drel"), "backward"),
+                    (bak.banded_attention_bwd_partials,
+                     bak.banded_attention_bwd_partials_plain,
+                     ("dq", "dk_part", "dv_part", "drel_part"),
+                     "first pass")):
+                grads = {name: (fn(*x[:3], rel, x[3], W),
+                                plain(*x[:3], rel, x[3], W))
+                         for name, x in (("16", x16), ("32", x32))}
+                torch.cuda.synchronize()
+                check_grads(f"fp32 {what} {part}", *grads["32"], labels)
+                reading = held(f"{what} {part}", labels, *grads["16"],
+                               *grads["32"])
+                line += f"; {part} {reading}"
+        read.append(line)
+    log(f"phase 11c bf16 attention kernels at the training CLI's shapes "
+        f"(B x T frames: the labeled chain, the batched VAT chain, the "
+        f"evaluation bucket) against their bf16 plain versions by "
+        f"bf16_held (limit {BF16_FACTOR} x the plain versions' "
+        f"bf16-vs-fp32 gap + the fp32 kernel's gap; fp32 kernels within "
+        f"{ATTN_TOL} and {GRAD_TOL} over max|ref| of their plain "
+        f"versions); by part (largest diff over its limit, elements "
+        f"outside phases 3d-3f's per-element bound): {'; '.join(read)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -1933,6 +2421,18 @@ def main() -> int:
     phase_streaming(served[1])
     del served
     phase_train_bf16(rows, *phase_train(rows))
+    import shutil
+    import tempfile
+
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        rec = phase_train_cli(rows, tmp)
+        phase_train_cli_eval(rec)
+        phase_train_cli_variants(rec, tmp)
+        phase_bf16_kernels_at_train_cli_shapes()
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:
         row["max_err"] = row["max_abs_err"]
     log(json.dumps({"kernels": rows}))

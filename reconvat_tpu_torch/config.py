@@ -1,20 +1,24 @@
 """Minimal sacred-compatible experiment framework (the port's copy of
-`reconvat_tpu/config.py:24-90, 122-185`).
+`reconvat_tpu/config.py`).
 
 The reference drives every entry point through `sacred`
 (`train_UNet_Onset_VAT.py:15-87`): an `@ex.config` function whose local
 variables are the config, `with key=value` CLI overrides and
 `print_config`. The config function body is re-executed with overridden
 assignments pinned to the override value, so derived values see the
-overridden inputs. The file-storage observer of the training CLIs is not
-ported.
+overridden inputs. A `FileStorageObserver` that a config body appends to
+`ex.observers` archives the run's resolved config, its command line and the
+entry point's source in the run directory.
 """
 from __future__ import annotations
 
 import ast
 import inspect
+import json
+import os
 import sys
 import textwrap
+from datetime import datetime
 
 
 def _parse_value(text: str):
@@ -85,15 +89,51 @@ def resolve_config(config_fn, overrides):
     return cfg
 
 
+class FileStorageObserver:
+    """Writes `config.json` (the resolved config's plain values),
+    `run.json` (experiment name, start time, argv) and `_sources/` (the
+    entry point's source file) into `basedir`."""
+
+    def __init__(self, basedir):
+        self.basedir = basedir
+
+    @classmethod
+    def create(cls, basedir):
+        return cls(basedir)
+
+    def start(self, experiment_name, config, source_path=None):
+        os.makedirs(self.basedir, exist_ok=True)
+        cfg = {k: v for k, v in config.items()
+               if isinstance(v, (int, float, str, bool, list, dict,
+                                 tuple, type(None)))}
+        with open(os.path.join(self.basedir, "config.json"), "w") as f:
+            json.dump(cfg, f, indent=2, default=str)
+        with open(os.path.join(self.basedir, "run.json"), "w") as f:
+            json.dump({"experiment": experiment_name,
+                       "start_time": datetime.now().isoformat(),
+                       "argv": sys.argv}, f, indent=2)
+        if source_path and os.path.exists(source_path):
+            os.makedirs(os.path.join(self.basedir, "_sources"),
+                        exist_ok=True)
+            with open(source_path) as src, open(
+                    os.path.join(self.basedir, "_sources",
+                                 os.path.basename(source_path)), "w") as dst:
+                dst.write(src.read())
+
+
 class _Run:
     def __init__(self, config):
         self.config = config
 
 
 class Experiment:
-    def __init__(self, name):
+    def __init__(self, name, check=None):
+        """`check(config)`, when given, runs on each resolved config before
+        the observers start, so a run it refuses writes nothing."""
         self.name = name
+        self.check = check
         self._config_fns = []
+        self.observers = []
         self.current_run = None
 
     def config(self, fn):
@@ -109,12 +149,19 @@ class Experiment:
     def run(self, main_fn, overrides=None, commands=()):
         """Resolve the config with `overrides` and call `main_fn` with the
         config values its parameters name; returns what it returns (None
-        for `print_config`)."""
+        for `print_config`). The observers the config body appends start
+        before `main_fn` runs; each run starts with none."""
+        self.observers = []
         cfg = self._resolve(overrides or {})
         self.current_run = _Run(cfg)
         if "print_config" in commands:
             print_config(self.current_run)
             return None
+        if self.check is not None:
+            self.check(cfg)
+        for obs in self.observers:
+            obs.start(self.name, cfg,
+                      source_path=inspect.getsourcefile(main_fn))
         sig = inspect.signature(main_fn)
         has_var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
                          for p in sig.parameters.values())

@@ -193,3 +193,23 @@ def extract_notes_wo_velocity_plain(onsets, frames, onset_threshold=0.5,
     pitches = p[keep]
     intervals = np.stack([t[keep], offsets[keep]], axis=1)
     return pitches, intervals
+
+
+def notes_to_roll(pitches, intervals, shape):
+    """Note list -> binary pianoroll (the dense half of notes_to_frames;
+    `metrics.evaluate_multipitch_rolls` consumes it directly).
+
+    Interval-union via a +1/-1 difference array + cumsum instead of one
+    slice assignment per note: identical to `roll[on:off, p] = 1` per
+    note (overlaps union to 1 either way)."""
+    shape = tuple(shape)
+    pitches = np.asarray(pitches, dtype=np.int64).ravel()
+    if len(pitches) == 0:
+        return np.zeros(shape)
+    iv = np.asarray(intervals, dtype=np.int64).reshape(-1, 2)
+    on = np.clip(iv[:, 0], 0, shape[0])
+    off = np.clip(np.maximum(iv[:, 1], on), 0, shape[0])
+    diff = np.zeros((shape[0] + 1, shape[1]), dtype=np.int64)
+    np.add.at(diff, (on, pitches), 1)
+    np.add.at(diff, (off, pitches), -1)
+    return (np.cumsum(diff[:-1], axis=0) > 0).astype(float)

@@ -38,9 +38,13 @@ def frames_in(n_samples: int) -> int:
     return (n_samples - 1) // C.HOP_LENGTH + 1
 
 
-def frame_mask(t_true: int, n_frames: int, device=None) -> torch.Tensor:
-    """Boolean (n_frames,) mask of the true (unpadded) frames."""
-    return torch.arange(n_frames, device=device) < t_true
+def frame_mask(t_true, n_frames: int, device=None) -> torch.Tensor:
+    """Boolean (n_frames,) mask of the true (unpadded) frames; a (B,)
+    tensor of per-row t_true gives a (B, n_frames) mask."""
+    frames = torch.arange(n_frames, device=device)
+    if torch.is_tensor(t_true) and t_true.dim() == 1:
+        return frames[None] < t_true.to(device)[:, None]
+    return frames < t_true
 
 
 def make_log_spec(model, audio: torch.Tensor) -> torch.Tensor:
@@ -79,6 +83,27 @@ def pad_audio_to_frames(audio: torch.Tensor, t_pad: int) -> torch.Tensor:
     r = min(pad, x.shape[1] - 1)
     out = F.pad(x[:, None], (0, r), mode="reflect")[:, 0]
     return F.pad(out, (0, pad - r + 1))
+
+
+def pad_song_batch(item, t_pad: int):
+    """Host-side: full-song label dict -> batch-of-1 dict of numpy arrays
+    padded to t_pad frames (counterpart of
+    `reconvat_tpu/models/common.py:97`). Returns (batch, t_true)."""
+    audio = np.asarray(item["audio"])
+    if audio.ndim == 1:
+        audio = audio[None]
+    t_true = frames_in(audio.shape[1])
+    if t_true > t_pad:
+        raise ValueError(f"{t_true} frames exceed the bucket of {t_pad}")
+    batch = {"audio": pad_audio_to_frames(torch.from_numpy(audio),
+                                          t_pad).numpy()}
+    for k in ("onset", "offset", "frame", "velocity"):
+        if k in item:
+            v = np.asarray(item[k])
+            if v.ndim == 2:
+                v = v[None]
+            batch[k] = np.pad(v, ((0, 0), (0, t_pad - v.shape[1]), (0, 0)))
+    return batch, t_true
 
 
 def pack_roll_device(probs: torch.Tensor, threshold: float = 0.5):

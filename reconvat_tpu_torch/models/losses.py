@@ -12,9 +12,17 @@ import torch.nn.functional as F
 
 def _masked_mean(x, frame_mask=None):
     """Mean over the frames selected by frame_mask (bool, (frames,), axis 1
-    of x); the plain mean without a mask."""
+    of x); the plain mean without a mask. A (batch, frames) mask gives the
+    (batch,) vector of each row's own mean over its frames (the rows of
+    a batch of songs, each padded to the same bucket)."""
     if frame_mask is None:
         return x.mean()
+    if frame_mask.dim() == 2:
+        m = frame_mask.reshape(frame_mask.shape + (1,) * (x.dim() - 2))
+        scale = x[0].numel() // frame_mask.shape[1]   # trailing dims
+        dims = tuple(range(1, x.dim()))
+        return (torch.where(m, x, 0.0).sum(dims)
+                / (frame_mask.sum(1) * scale))
     m = frame_mask.reshape((1, -1) + (1,) * (x.dim() - 2))
     scale = x.numel() // frame_mask.numel()   # batch x trailing dims
     return torch.where(m, x, 0.0).sum() / (frame_mask.sum() * scale)

@@ -21,6 +21,7 @@ path.
 from __future__ import annotations
 
 import contextlib
+import os
 
 import numpy as np
 import torch
@@ -29,7 +30,8 @@ from torch import nn
 from .. import constants as C
 from ..nn.attention import MultiHeadAttention1D
 from ..nn.precision import promote_fp32, resolve_compute_dtype
-from ..nn.unet import Decoder, Encoder, frozen_batch_stats
+from ..nn.unet import (Decoder, Encoder, frozen_batch_stats, running_stats,
+                       use_running_stats)
 from ..ops.normalize import Normalization
 from ..ops.spectrogram import make_frontend
 from ..vat import VATConfig, vat_loss
@@ -175,6 +177,10 @@ class ReconVAT(UNet):
     starts in eval mode (BatchNorm on running statistics); `run_on_batch`
     sets the mode its `train` argument asks for and `transcribe` sets eval
     mode. xi, eps and kl_div configure VAT as in the JAX package.
+    vat_chain 'separate' runs the reference's two train-mode VAT chains
+    (labeled, unlabeled); 'batched' one chain over [labeled; unlabeled]
+    with BatchNorm on its running statistics (the JAX package's
+    `ReconVAT.vat_chain`).
     compute_dtype None is fp32, 'bfloat16' the JAX package's mixed
     precision, for serving and training alike; the parameters are fp32 in
     both."""
@@ -182,10 +188,14 @@ class ReconVAT(UNet):
     def __init__(self, log: bool = True, reconstruction: bool = True,
                  mode: str = "imagewise", xi: float = 1e-6,
                  eps: float = 2.0, kl_div: bool = False, seed: int = 0,
-                 device=None, compute_dtype=None):
+                 device=None, compute_dtype=None,
+                 vat_chain: str = "separate"):
         device = resolve_device(device)
+        if vat_chain not in ("separate", "batched"):
+            raise ValueError(f"unknown vat_chain {vat_chain!r}")
         frontend, n_bins = make_frontend("Mel")
         super().__init__(n_bins, reconstruction, compute_dtype)
+        self.vat_chain = vat_chain
         self.frontend = frontend
         self.n_bins = n_bins
         self.log = log
@@ -213,6 +223,52 @@ class ReconVAT(UNet):
         drops the final sample (327680 samples -> 640 frames)."""
         return make_log_norm_spec(self, audio, t_true)[..., None]
 
+    def _transcriber_fn(self, train: bool, stats=None):
+        """The VAT target: the transcriber alone, with BatchNorm in
+        `train` mode (batch statistics) or eval mode (running statistics,
+        or the `running_stats` copies `stats`) and the running statistics
+        left unchanged, the model's mode restored after each call. Each
+        call sets this up itself, so a recompute in the outer backward
+        (`RECONVAT_VAT_REMAT=1`) runs as the first pass did."""
+        def fn(x):
+            was = self.training
+            self.train(train)
+            try:
+                with frozen_batch_stats(self), use_running_stats(self,
+                                                                 stats):
+                    return self.transcribe_frames(x)
+            finally:
+                self.train(was)
+        return fn
+
+    def _supervised_losses(self, out, spec, frame_label, mask, prefix):
+        """(predictions without r_adv, losses) of the full forward's
+        output against the labels; with a (B, T) mask each loss is the
+        (B,) vector of the rows' own means."""
+        if self.reconstruction:
+            reconstruction, pianoroll, pianoroll2, a = out
+            predictions = {
+                "onset": pianoroll, "frame": pianoroll,
+                "frame2": pianoroll2, "onset2": pianoroll2,
+                "attention": a, "reconstruction": reconstruction,
+            }
+            losses = {
+                f"loss/{prefix}_reconstruction":
+                    mse_loss(reconstruction[..., 0], spec[..., 0].detach(),
+                             mask),
+                f"loss/{prefix}_frame":
+                    binary_cross_entropy(pianoroll, frame_label, mask),
+                f"loss/{prefix}_frame2":
+                    binary_cross_entropy(pianoroll2, frame_label, mask),
+            }
+        else:
+            pianoroll, a = out
+            predictions = {"onset": pianoroll, "frame": pianoroll,
+                           "attention": a}
+            losses = {f"loss/{prefix}_frame":
+                      binary_cross_entropy(pianoroll, frame_label, mask)}
+        return predictions, losses
+
     def run_on_batch(self, batch_l, batch_ul=None, generator=None,
                      vat: bool = False, train: bool = True, t_true=None):
         """Counterpart of the JAX package's `ReconVAT.run_on_batch`
@@ -224,9 +280,15 @@ class ReconVAT(UNet):
         (B, T, F)). `train` selects BatchNorm's mode (batch statistics, with
         the running statistics updated in place by the supervised forward
         only) and the loss names. The VAT directions are drawn from
-        `generator` (on the model's device): the unlabeled chain's first,
-        then the labeled chain's. t_true masks the spec normalization and
-        the losses to the true frames of a padded clip. Grad mode must be
+        `generator` (on the model's device): with `vat_chain='separate'`
+        the unlabeled chain's first, then the labeled chain's; with
+        'batched' one (2B, ...) draw for the chain over [labeled;
+        unlabeled], whose BatchNorm runs on the running statistics of
+        before this call and whose unlabeled reference is an eval-mode
+        forward. t_true masks
+        the spec normalization and the losses to the true frames of a
+        padded clip; a (B,) tensor masks each row by its own, and every
+        loss is then the (B,) vector of the rows' means. Grad mode must be
         on when `vat` or `batch_ul` is given (the power iteration
         differentiates).
 
@@ -240,14 +302,19 @@ class ReconVAT(UNet):
         mask = (None if t_true is None
                 else frame_mask(t_true, frame_label.shape[1], self.device))
         zero = torch.zeros((), device=self.device)
+        batched = (self.vat_chain == "batched" and vat
+                   and batch_ul is not None)
+        # the batched chain reads the running statistics of before this
+        # step's update, as the JAX package's chain reads the state's
+        stats = running_stats(self) if batched else None
 
         lds_ul, r_norm_ul = zero, zero
         if batch_ul is not None:
             spec_ul = self.make_spec(batch_ul["audio"])
-            with frozen_batch_stats(self):
-                lds_ul, _, rn = vat_loss(self.transcribe_frames, spec_ul,
-                                         generator, self.vat_cfg)
-            r_norm_ul = rn.abs().mean()
+            if not batched:
+                lds_ul, _, rn = vat_loss(self._transcriber_fn(train),
+                                         spec_ul, generator, self.vat_cfg)
+                r_norm_ul = rn.abs().mean()
 
         spec = self.make_spec(batch_l["audio"], t_true)
         out = self(spec)
@@ -257,41 +324,81 @@ class ReconVAT(UNet):
             # the supervised forward's clean prediction on this spec is the
             # VAT reference (the JAX package's y_ref reuse)
             y_ref = out[1] if self.reconstruction else out[0]
-            with frozen_batch_stats(self):
-                lds_l, r_adv, rn = vat_loss(self.transcribe_frames, spec,
-                                            generator, self.vat_cfg,
+            if batched:
+                b = spec.shape[0]
+                fn = self._transcriber_fn(False, stats)
+                with torch.no_grad():
+                    y_ref_ul = fn(spec_ul)
+                (lds_l, lds_ul), r_adv, rn = vat_loss(
+                    fn, torch.cat([spec, spec_ul]), generator, self.vat_cfg,
+                    y_ref=torch.cat([y_ref, y_ref_ul]), split=b)
+                r_norm_l, r_norm_ul = rn[:b].abs().mean(), rn[b:].abs().mean()
+                r_adv = r_adv[:b, ..., 0]
+            else:
+                lds_l, r_adv, rn = vat_loss(self._transcriber_fn(train),
+                                            spec, generator, self.vat_cfg,
                                             y_ref=y_ref)
+                r_adv = r_adv[..., 0]
+                r_norm_l = rn.abs().mean()
+
+        predictions, losses = self._supervised_losses(out, spec, frame_label,
+                                                      mask, prefix)
+        predictions["r_adv"] = r_adv
+        losses[f"loss/{prefix}_LDS_l"] = lds_l
+        if train:
+            losses[f"loss/{prefix}_LDS_ul"] = lds_ul
+            losses[f"loss/{prefix}_r_norm_l"] = r_norm_l
+            losses[f"loss/{prefix}_r_norm_ul"] = r_norm_ul
+        else:
+            losses[f"loss/{prefix}_r_norm_l"] = r_norm_l
+        return predictions, losses, spec[..., 0]
+
+    def run_on_batch_application(self, batch_l, batch_ul=None,
+                                 generator=None, vat: bool = False,
+                                 train: bool = True):
+        """Application-domain semi-supervised fine-tuning (counterpart of
+        `reconvat_tpu/models/reconvat.py:328-394`, reference
+        `UNet.run_on_batch_application`, `model/self_attention_VAT.py:
+        1205-1291`): `run_on_batch` plus the unlabeled consistency term
+        `loss/ul_consistency_wrt1` = BCE(frame2_ul, frame_ul detached)
+        between the two transcriber passes over the unlabeled audio. That
+        full forward leaves the running statistics unchanged, as the JAX
+        package discards its batch-stat update. Needs reconstruction."""
+        if not self.reconstruction:
+            raise ValueError("run_on_batch_application requires "
+                             "reconstruction=True")
+        self.train(train)
+        prefix = "train" if train else "test"
+        zero = torch.zeros((), device=self.device)
+
+        lds_ul, r_norm_ul, ul_consistency = zero, zero, zero
+        if batch_ul is not None:
+            spec_ul = self.make_spec(batch_ul["audio"])
+            with frozen_batch_stats(self):
+                _, ul_pianoroll, ul_pianoroll2, _ = self(spec_ul)
+            lds_ul, _, rn = vat_loss(self._transcriber_fn(train), spec_ul,
+                                     generator, self.vat_cfg,
+                                     y_ref=ul_pianoroll)
+            r_norm_ul = rn.abs().mean()
+            ul_consistency = binary_cross_entropy(ul_pianoroll2,
+                                                  ul_pianoroll.detach())
+
+        spec = self.make_spec(batch_l["audio"])
+        out = self(spec)
+
+        lds_l, r_adv, r_norm_l = zero, None, zero
+        if vat:
+            lds_l, r_adv, rn = vat_loss(self._transcriber_fn(train), spec,
+                                        generator, self.vat_cfg,
+                                        y_ref=out[1])
             r_adv = r_adv[..., 0]
             r_norm_l = rn.abs().mean()
-
-        if self.reconstruction:
-            reconstruction, pianoroll, pianoroll2, a = out
-            predictions = {
-                "onset": pianoroll, "frame": pianoroll,
-                "frame2": pianoroll2, "onset2": pianoroll2,
-                "attention": a, "r_adv": r_adv,
-                "reconstruction": reconstruction,
-            }
-            losses = {
-                f"loss/{prefix}_reconstruction":
-                    mse_loss(reconstruction[..., 0], spec[..., 0].detach(),
-                             mask),
-                f"loss/{prefix}_frame":
-                    binary_cross_entropy(pianoroll, frame_label, mask),
-                f"loss/{prefix}_frame2":
-                    binary_cross_entropy(pianoroll2, frame_label, mask),
-                f"loss/{prefix}_LDS_l": lds_l,
-            }
-        else:
-            pianoroll, a = out
-            predictions = {"onset": pianoroll, "frame": pianoroll,
-                           "attention": a, "r_adv": r_adv}
-            losses = {
-                f"loss/{prefix}_frame":
-                    binary_cross_entropy(pianoroll, frame_label, mask),
-                f"loss/{prefix}_LDS_l": lds_l,
-            }
+        predictions, losses = self._supervised_losses(
+            out, spec, batch_l["frame"], None, prefix)
+        predictions["r_adv"] = r_adv
+        losses[f"loss/{prefix}_LDS_l"] = lds_l
         if train:
+            losses["loss/ul_consistency_wrt1"] = ul_consistency
             losses[f"loss/{prefix}_LDS_ul"] = lds_ul
             losses[f"loss/{prefix}_r_norm_l"] = r_norm_l
             losses[f"loss/{prefix}_r_norm_ul"] = r_norm_ul
@@ -338,16 +445,19 @@ class ReconVAT(UNet):
                 pipeline_depth)
         return {"onset": roll, "frame": roll}
 
-    def load_reference_weights(self, path: str):
+    def load_reference_weights(self, source):
         """Load a torch `.pt` of the reference's `state_dict` names (a
-        released checkpoint, or `weights.flax_to_torch` of a JAX tree)
-        onto this model (counterpart of
+        released checkpoint, or `weights.flax_to_torch` of a JAX tree), or
+        such a state_dict itself, onto this model (counterpart of
         `reconvat_tpu/models/reconvat.py:445-456`). The file may hold a
         state_dict or a module. Entries under `spectrogram.` (the
         reference's frontend buffers), `normalize.` and `vat_loss.` have no
         counterpart and are skipped; any other missing or unexpected key
         raises before a weight is changed."""
-        obj = torch.load(path, map_location="cpu", weights_only=False)
+        if isinstance(source, (str, os.PathLike)):
+            obj = torch.load(source, map_location="cpu", weights_only=False)
+        else:
+            obj, source = source, "the state_dict"
         if hasattr(obj, "state_dict"):
             obj = obj.state_dict()
         own = self.state_dict().keys()
@@ -356,6 +466,6 @@ class ReconVAT(UNet):
         unexpected = [k for k in obj
                       if k not in own and not k.startswith(skipped)]
         if missing or unexpected:
-            raise ValueError(f"weights of {path} do not fit the model: "
+            raise ValueError(f"weights of {source} do not fit the model: "
                              f"missing {missing}, unexpected {unexpected}")
         self.load_state_dict({k: obj[k] for k in own}, strict=True)

@@ -104,6 +104,30 @@ def frozen_batch_stats(model: nn.Module):
             m.update_stats = True
 
 
+def running_stats(model: nn.Module) -> list:
+    """Copies of the (running_mean, running_var) of each `BatchNorm2d` of
+    `model`, in `modules()` order."""
+    return [(m.running_mean.clone(), m.running_var.clone())
+            for m in model.modules() if isinstance(m, BatchNorm2d)]
+
+
+@contextlib.contextmanager
+def use_running_stats(model: nn.Module, stats):
+    """Within the block, eval-mode `BatchNorm2d` layers of `model` read the
+    `running_stats` copies `stats` in place of their own buffers (which
+    this step may already have updated in place); None changes nothing."""
+    layers = [m for m in model.modules() if isinstance(m, BatchNorm2d)]
+    own = [(m.running_mean, m.running_var) for m in layers]
+    if stats is not None:
+        for m, (mean, var) in zip(layers, stats):
+            m.running_mean, m.running_var = mean, var
+    try:
+        yield
+    finally:
+        for m, (mean, var) in zip(layers, own):
+            m.running_mean, m.running_var = mean, var
+
+
 class EncBlock(nn.Module):
     """Reference `block` (`model/self_attention_VAT.py:844-859`)."""
 

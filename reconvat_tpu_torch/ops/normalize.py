@@ -20,14 +20,16 @@ def normalize_framewise(x: torch.Tensor, frame_mask=None) -> torch.Tensor:
 
 
 def normalize_imagewise(x: torch.Tensor, frame_mask=None) -> torch.Tensor:
-    """frame_mask (bool, (frames,)) restricts the min/max statistics to the
-    true frames of a padded spectrogram."""
+    """frame_mask (bool, (frames,), or (batch, frames) for a mask per row)
+    restricts the min/max statistics to the true frames of a padded
+    spectrogram."""
     dims = tuple(range(1, x.dim()))
     if frame_mask is None:
         x_max = x.amax(dim=dims, keepdim=True)
         x_min = x.amin(dim=dims, keepdim=True)
     else:
-        m = frame_mask.reshape((1, -1) + (1,) * (x.dim() - 2))
+        m = frame_mask if frame_mask.dim() == 2 else frame_mask[None]
+        m = m.reshape(m.shape + (1,) * (x.dim() - 2))
         x_max = torch.where(m, x, -torch.inf).amax(dim=dims, keepdim=True)
         x_min = torch.where(m, x, torch.inf).amin(dim=dims, keepdim=True)
     return (x - x_min) / (x_max - x_min)

@@ -73,9 +73,12 @@ def apply_gradients(model, state: TrainState) -> None:
     state.step += 1
 
 
-def make_train_step(model, alpha: float, vat: bool,
-                    use_unlabeled: bool) -> Callable:
+def make_train_step(model, alpha: float, vat: bool, use_unlabeled: bool,
+                    application: bool = False) -> Callable:
     """Builds step(state, batch_l, batch_ul, generator) -> losses.
+    `application=True` takes `run_on_batch_application` (the unlabeled
+    consistency fine-tuning objective, reference
+    `model/helper_functions.py:618-663`).
 
     Unlike the JAX package's pure step, this one updates in place, the
     PyTorch idiom: the model's parameters and BatchNorm running statistics
@@ -83,10 +86,13 @@ def make_train_step(model, alpha: float, vat: bool,
     losses are detached device scalars, with "loss/total" (every loss,
     LDS terms at alpha 1) beside the reference's keys."""
 
+    run = (model.run_on_batch_application if application
+           else model.run_on_batch)
+
     def step(state: TrainState, batch_l, batch_ul, generator):
         state.optimizer.zero_grad(set_to_none=True)
         with fp32_math():
-            _, losses, _ = model.run_on_batch(
+            _, losses, _ = run(
                 batch_l, batch_ul if use_unlabeled else None, generator,
                 vat=vat, train=True)
             total_loss_from_dict(losses, alpha).backward()

@@ -6,7 +6,8 @@
         output_path=Application/Output
 
 Reads the .flac and .wav files (16 kHz) of `input_path`, loads a torch
-`.pt` of the reference's state_dict names into the port's ReconVAT,
+`.pt` of the reference's state_dict names (or a `model-N` checkpoint of
+`reconvat_tpu_torch.train_UNet_VAT`) into the port's ReconVAT,
 transcribes each song in fp32 (bucketed to `bucket_frames`, exact with 0,
 or in haloed windows with `streaming=True` for hour-long recordings),
 decodes notes with the native decoder and writes one MIDI file per song to
@@ -68,7 +69,9 @@ def transcribe2midi(data, model, model_type, onset_threshold=0.5,
 def config():
     device = "cuda"
     model_type = "ReconVAT"
-    weight_path = None  # torch .pt of the reference's names; None = default
+    # torch .pt of the reference's names, or a model-N checkpoint directory
+    # of the port's training CLI; None = the default
+    weight_path = None
     # pad songs to this frame multiple (0 = exact per-song shapes,
     # reference-identical)
     bucket_frames = 512
@@ -101,10 +104,6 @@ def main(device, model_type, weight_path, bucket_frames, streaming,
     else:
         raise ValueError(f"unknown model_type {model_type}")
     wpath = weight_path or default_weight
-    if os.path.isdir(wpath):
-        raise NotImplementedError(
-            f"{wpath!r} is a checkpoint directory (orbax); the port loads "
-            f"torch .pt files only: ROADMAP §1 item 7")
 
     # the device first: without a card this raises before any work
     model = ReconVAT(log=log, reconstruction=True, mode=mode, seed=42,
@@ -112,7 +111,13 @@ def main(device, model_type, weight_path, bucket_frames, streaming,
     application_dataset = ApplicationDataset(input_path)
     if os.path.exists(wpath):
         print("Loading model weight")
-        model.load_reference_weights(wpath)
+        if os.path.isdir(wpath):
+            from .train.checkpoint import load_state
+
+            # a model-N directory of the training CLI
+            model.load_reference_weights(load_state(wpath)["model"])
+        else:
+            model.load_reference_weights(wpath)
         print("Loading done")
     else:
         print(f"WARNING: weight file {wpath!r} not found — "

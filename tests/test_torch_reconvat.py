@@ -228,6 +228,12 @@ PORT_MODULES = [
     "reconvat_tpu_torch.data", "reconvat_tpu_torch.data.audio_io",
     "reconvat_tpu_torch.data.midi_io", "reconvat_tpu_torch.data.datasets",
     "reconvat_tpu_torch.models.streaming_probe",
+    "reconvat_tpu_torch.metrics", "reconvat_tpu_torch.utils",
+    "reconvat_tpu_torch.evaluate", "reconvat_tpu_torch.data.labels",
+    "reconvat_tpu_torch.data.loader", "reconvat_tpu_torch.train.prepare",
+    "reconvat_tpu_torch.train.profiler", "reconvat_tpu_torch.train.checkpoint",
+    "reconvat_tpu_torch.train.loop", "reconvat_tpu_torch.train.driver",
+    "reconvat_tpu_torch.train_UNet_VAT",
     "chip_smoke",
 ]
 

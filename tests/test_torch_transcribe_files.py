@@ -165,7 +165,9 @@ def test_cli_config_and_limits(tmp_path, capsys):
     with pytest.raises(NotImplementedError, match="item 10"):
         cli.ex.run(cli.main, {"model_type": "baseline_Multi_Inst",
                               "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="item 7"):
+    # a directory that is not a checkpoint of the port (an orbax one of
+    # the JAX package holds no state.pt) raises naming the reason
+    with pytest.raises(ValueError, match="orbax"):
         cli.ex.run(cli.main, {"weight_path": str(tmp_path), "device": "cpu"})
 
 
