@@ -30,7 +30,15 @@ checkpoint), evaluates its final weights in fp32 through the kernels and
 the plain versions (phase 11a), runs one epoch each with the batched VAT
 chain and with the adversarial forward recomputed (phase 11b), and holds
 the bf16 attention kernels against their plain versions at the other
-shapes that run gives them (phase 11c).
+shapes that run gives them (phase 11c). Then UNetOnset: the six attention
+rows at its Stack's shapes (6 heads of 128; B x 640 and the evaluation
+bucket), held and timed (phase 12); one fp32 train step with
+reconstruction and VAT through the kernels against the plain versions
+(phase 12a); its training CLI (`reconvat_tpu_torch.train_UNet_Onset_VAT`)
+at its defaults (bf16, 8 labeled + 8 unlabeled clips; phase 12b); and the
+evaluation CLI (`reconvat_tpu_torch.evaluate_cli`) on that run's and phase
+11's checkpoints, kernels against plain versions, with UNetOnset streaming
+one song (phase 12c).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -192,6 +200,18 @@ RESULT_KEYS = [
     "metric/frame/chroma_accuracy", "metric/frame/chroma_substitution_error",
     "metric/frame/chroma_miss_error", "metric/frame/chroma_false_alarm_error",
     "metric/frame/chroma_total_error"]
+
+
+# UNetOnset (phases 12-12c): its Stack attention's heads and width (6 x
+# 128 over the 176 onset and feature columns, `models/unet_onset.py`); the
+# keys of the JAX package's result_dict of UNet_Onset (reconstruction=False);
+# the length of the song it streams
+UO_H, UO_D = 6, 128
+ONSET_RESULT_KEYS = [
+    "loss/test_frame", "loss/test_onset", "loss/test_LDS_l_frame",
+    "loss/test_LDS_l_onset", "loss/test_r_norm_l",
+    *(k for k in RESULT_KEYS if k.startswith("metric/"))]
+ONSET_SONG_SECONDS = 60.0
 
 
 def log(msg: str) -> None:
@@ -387,13 +407,13 @@ def sdpa_inputs(q, kpad, vpad, rel):
     """The library yardstick's operands: SDPA over the padded sequence
     with a dense additive mask carrying the band and the skewed q.rel
     bias (built untimed)."""
-    L = q.shape[1]
+    b, L, h = q.shape[:3]
     qh, kh, vh = (t.transpose(1, 2) for t in (q, kpad, vpad))
     qrel = torch.einsum("blhd,hdw->bhlw", q, rel)
-    mask = torch.full((B, H, L, L + W - 1), float("-inf"), device="cuda")
+    mask = torch.full((b, h, L, L + W - 1), float("-inf"), device="cuda")
     cols = torch.arange(L, device="cuda")[:, None] + torch.arange(
         W, device="cuda")
-    mask.scatter_(3, cols.expand(B, H, L, W), qrel)
+    mask.scatter_(3, cols.expand(b, h, L, W), qrel)
     return qh, kh, vh, mask
 
 
@@ -1711,14 +1731,15 @@ def perturb_stats(model, seed: int) -> None:
                 m.bias.add_(0.05 * randn(m.bias))
 
 
-def sharpen_output(model, clips, scale: float = 16.0) -> None:
+def sharpen_output(model, clips, scale: float = 16.0, lin=None) -> None:
     """Scale the output layer by `scale`, then shift each pitch's bias to
     the middle of the widest gap between consecutive logits of the clips
     (bucketed and exact, true frames) in its top 1.5-2.5 %: ~2 % active
     bins per pitch and no logit at the threshold. At random init a few
     pitches carry all the activity and sit on the threshold, where the
-    notes comparison has to set them aside."""
-    lin = model.transcriber.linear1
+    notes comparison has to set them aside. `lin`: the output layer,
+    ReconVAT's `transcriber.linear1` by default."""
+    lin = model.transcriber.linear1 if lin is None else lin
     logits = []
     with torch.no_grad():
         lin.weight *= scale
@@ -1961,9 +1982,9 @@ def synth_song(rng, seconds: float):
     return rows, (x / np.abs(x).max() * 0.7 * 32767).astype(np.int16)
 
 
-def write_corpus(root: str, seed: int = 0) -> dict:
-    """Synthetic MAPS and MAESTRO corpora under root, 16 kHz WAV: MAPS 4
-    labeled songs in AkPnBcht (TSV), one each in ENSTDkAm and ENSTDkCl,
+def write_corpus(root: str, seed: int = 0, labeled: int = 4) -> dict:
+    """Synthetic MAPS and MAESTRO corpora under root, 16 kHz WAV: MAPS
+    `labeled` songs in AkPnBcht (TSV), one each in ENSTDkAm and ENSTDkCl,
     `overlapping.pkl`; MAESTRO 8 unlabeled songs (MIDI, the metadata
     JSON). Returns the RECONVAT_*_ROOT variables that name them."""
     import pickle
@@ -1978,7 +1999,8 @@ def write_corpus(root: str, seed: int = 0) -> dict:
     for d in ("flac", "tsvs"):
         os.makedirs(os.path.join(maps, d))
     os.makedirs(os.path.join(maestro, "2004"))
-    for group, count in (("AkPnBcht", 4), ("ENSTDkAm", 1), ("ENSTDkCl", 1)):
+    for group, count in (("AkPnBcht", labeled), ("ENSTDkAm", 1),
+                         ("ENSTDkCl", 1)):
         for i in range(count):
             rows, audio = synth_song(rng, CORPUS_SECONDS)
             name = f"synth{i:02d}_{group}"
@@ -2001,15 +2023,18 @@ def write_corpus(root: str, seed: int = 0) -> dict:
     return {"RECONVAT_MAPS_ROOT": maps, "RECONVAT_MAESTRO_ROOT": maestro}
 
 
-def train_cli(overrides: dict, env: dict) -> dict:
+def train_cli(overrides: dict, env: dict, cli=None) -> dict:
     """One run of the training CLI through its `Experiment` with the
     phase's corpus and overrides, instrumented: each train step's kernel
     launches and each step interval of the loop's StepTimer, the
     host-blocking time of each `save_checkpoint`, the final evaluation's
     time. Every kernel count is set to 0 just before the run and read
-    just after; the losses are checked finite (`RECONVAT_NAN_CHECKS`)."""
-    from reconvat_tpu_torch import train_UNet_VAT as cli
+    just after; the losses are checked finite (`RECONVAT_NAN_CHECKS`).
+    `cli`: the CLI's module, `train_UNet_VAT` by default."""
     from reconvat_tpu_torch.train import driver, profiler
+
+    if cli is None:
+        from reconvat_tpu_torch import train_UNet_VAT as cli
 
     counters = kernel_counters()
     rec = {"step_launches": {k: 0 for k in counters}, "steps": 0,
@@ -2091,22 +2116,16 @@ def step_ms(rec, iteration: int = 10) -> list:
             if i % iteration]
 
 
-def bare_step_ms(trained) -> list:
-    """ms/step of the CLI's train step without its loader: a copy of the
-    CLI's model (bf16, reconstruction=False) and a fresh train state, one
-    labeled and eight unlabeled clips already on the card, two rounds of
-    10 steps after 2 warm-up; then a profile of 2 steps (device busy)."""
-    from reconvat_tpu_torch.models.reconvat import ReconVAT
+def bare_step_ms(model, batch_l, batch_ul, label: str) -> list:
+    """ms/step of a training CLI's step without its loader: `model` (a copy
+    of the CLI's) with a fresh train state, batches already on the card,
+    two rounds of 10 steps after 2 warm-up; then a profile of 2 steps
+    (device busy), logged under `label`."""
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
 
-    model = ReconVAT(seed=42, reconstruction=False,
-                     compute_dtype="bfloat16")
-    model.load_state_dict(trained.state_dict(), strict=True)
     state = create_train_state(model)
     step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
-    batch_l, batch_ul = train_batches(5)
-    batch_l = {k: v[:1] for k, v in batch_l.items()}
     gen = torch.Generator(device="cuda").manual_seed(0)
     for _ in range(2):
         step(state, batch_l, batch_ul, gen)
@@ -2118,10 +2137,8 @@ def bare_step_ms(trained) -> list:
             step(state, batch_l, batch_ul, gen)
         torch.cuda.synchronize()
         out.append((time.perf_counter() - t0) / 10 * 1e3)
-    log_profile("phase 11 bare CLI step profile (2 steps, B = 1 + 8, bf16, "
-                "reconstruction=False)", "step", 2, profile_groups(
-                    lambda: [step(state, batch_l, batch_ul, gen)
-                             for _ in range(2)]))
+    log_profile(label, "step", 2, profile_groups(
+        lambda: [step(state, batch_l, batch_ul, gen) for _ in range(2)]))
     return out
 
 
@@ -2179,7 +2196,17 @@ def phase_train_cli(rows, tmp: str) -> dict:
             if not torch.equal(opt[i][name].cpu(), v):
                 fail(f"resumed optimizer state {i}.{name} differs")
             n_tensors += 1
-    bare = bare_step_ms(rec["model"])
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+
+    # the CLI's model (bf16, reconstruction=False) on one labeled and
+    # eight unlabeled clips
+    copy = ReconVAT(seed=42, reconstruction=False, compute_dtype="bfloat16")
+    copy.load_state_dict(rec["model"].state_dict(), strict=True)
+    batch_l, batch_ul = train_batches(5)
+    bare = bare_step_ms(
+        copy, {k: v[:1] for k, v in batch_l.items()}, batch_ul,
+        "phase 11 bare CLI step profile (2 steps, B = 1 + 8, bf16, "
+        "reconstruction=False)")
     ms = step_ms(rec)
     per_step = {k: n / steps for k, n in rec["step_launches"].items()}
     audio_s = 327680 / 16000                       # labeled audio per step
@@ -2298,6 +2325,23 @@ def phase_train_cli_variants(rec, tmp: str) -> None:
     log(f"phase 11b training CLI variants, one epoch each: {'; '.join(out)}")
 
 
+def held_outputs(what, labels, k16, p16, k32, p32) -> tuple:
+    """bf16_held of each output of a bf16 kernel (k16) against its bf16
+    plain version (p16), the fp32 routes (k32, p32) on the same inputs
+    unrounded; (largest diff over its limit, largest diff, the elements
+    outside phases 3d-3f's per-element bound)."""
+    share, worst, outside = 0.0, 0.0, 0
+    for label, a, b, c, d in zip(labels, k16, p16, k32, p32):
+        diff, tol = bf16_held(f"{what} {label}", a, b, c, d)
+        share = max(share, diff / tol if tol else 0.0)
+        worst = max(worst, diff)
+        if a.dtype == torch.bfloat16:
+            a, b = a.float(), b.float()
+            outside += int(((a - b).abs() > ATTN_BF16_OUT_RTOL * b.abs()
+                            + ATTN_BF16_OUT_FLOOR * b.abs().max()).sum())
+    return share, worst, outside
+
+
 def phase_bf16_kernels_at_train_cli_shapes() -> None:
     """Phase 11c: the bf16 attention kernels at the shapes the training
     CLI (bf16 by default) gives them beyond phases 3d-3f's B x 640: the
@@ -2324,19 +2368,6 @@ def phase_bf16_kernels_at_train_cli_shapes() -> None:
     def randn(*shape, scale=1.0):
         return torch.randn(shape, generator=rng, device="cuda") * scale
 
-    def held(what, labels, k16, p16, k32, p32):
-        """bf16_held of each output; (largest diff over its limit, the
-        elements outside phases 3d-3f's bound)."""
-        share, outside = 0.0, 0
-        for label, a, b, c, d in zip(labels, k16, p16, k32, p32):
-            diff, tol = bf16_held(f"{what} {label}", a, b, c, d)
-            share = max(share, diff / tol if tol else 0.0)
-            if a.dtype == torch.bfloat16:
-                a, b = a.float(), b.float()
-                outside += int(((a - b).abs() > ATTN_BF16_OUT_RTOL * b.abs()
-                                + ATTN_BF16_OUT_FLOOR * b.abs().max()).sum())
-        return share, outside
-
     read = []
     for b, t, backward in shapes:
         x32 = (randn(b, t, H, D, scale=D ** -0.25),
@@ -2357,8 +2388,9 @@ def phase_bf16_kernels_at_train_cli_shapes() -> None:
             fail(f"bf16 {what} returned {k16[0].dtype} out")
         for label, a, r in zip(("out", "probs"), k32, p32):
             check_close(f"fp32 {what} {label}", a, r, ATTN_TOL)
-        line = (f"{b} x {t}: forward "
-                f"{held(what, ('out', 'probs'), k16, p16, k32, p32)}")
+        share, _, outside = held_outputs(what, ("out", "probs"), k16, p16,
+                                         k32, p32)
+        line = f"{b} x {t}: forward {(share, outside)}"
         if backward:
             for fn, plain, labels, part in (
                     (bak.banded_attention_bwd, bak.banded_attention_bwd_plain,
@@ -2372,9 +2404,9 @@ def phase_bf16_kernels_at_train_cli_shapes() -> None:
                          for name, x in (("16", x16), ("32", x32))}
                 torch.cuda.synchronize()
                 check_grads(f"fp32 {what} {part}", *grads["32"], labels)
-                reading = held(f"{what} {part}", labels, *grads["16"],
-                               *grads["32"])
-                line += f"; {part} {reading}"
+                share, _, outside = held_outputs(f"{what} {part}", labels,
+                                                 *grads["16"], *grads["32"])
+                line += f"; {part} {(share, outside)}"
         read.append(line)
     log(f"phase 11c bf16 attention kernels at the training CLI's shapes "
         f"(B x T frames: the labeled chain, the batched VAT chain, the "
@@ -2384,6 +2416,425 @@ def phase_bf16_kernels_at_train_cli_shapes() -> None:
         f"{ATTN_TOL} and {GRAD_TOL} over max|ref| of their plain "
         f"versions); by part (largest diff over its limit, elements "
         f"outside phases 3d-3f's per-element bound): {'; '.join(read)}")
+
+
+def attention_draw(rng, b: int, t: int, h: int, d: int):
+    """(q, kpad, vpad, d_out) fp32 and rel at B x T frames, H heads of Dh,
+    drawn as phase 3's."""
+    import torch.nn.functional as F
+
+    hw = (W - 1) // 2
+
+    def randn(*shape, scale=1.0):
+        return torch.randn(shape, generator=rng, device="cuda") * scale
+
+    q = randn(b, t, h, d, scale=d ** -0.25)
+    kpad = F.pad(randn(b, t, h, d, scale=d ** -0.25), (0, 0, 0, 0, hw, hw))
+    vpad = F.pad(randn(b, t, h, d), (0, 0, 0, 0, hw, hw))
+    d_out = randn(b, t, h, d)
+    return (q, kpad, vpad, d_out), randn(h, d, W, scale=0.1 * d ** -0.25)
+
+
+def time_rows_at(rows, x32, rel, errs) -> None:
+    """Each attention row's ms, plain_ms, library_ms and bound at the
+    shape of x32 (q, kpad, vpad, d_out; bf16 rows on them rounded), into
+    the row under `<key>_h6`, with its max abs err from `errs`."""
+    suffix = "_h6"
+    import torch.nn.functional as F
+
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    by_name = {row["name"]: row for row in rows}
+    b, L, h, d = x32[0].shape
+    fwd_flops = b * L * h * W * (3 * 2 * d + 5)
+    bwd_flops = b * L * h * W * (15 * d + 10)
+    part_flops = bwd_flops - b * L * h * W * 10
+    for dtype in (torch.float32, torch.bfloat16):
+        q, kpad, vpad, d_out = (t.to(dtype) for t in x32)
+        size = q.element_size()
+        peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
+        tag = "_bf16" if dtype == torch.bfloat16 else ""
+        out, probs = bak.banded_attention_fwd(q, kpad, vpad, rel, W)
+        grads = bak.banded_attention_bwd(q, kpad, vpad, rel, d_out, W)
+        parts = bak.banded_attention_bwd_partials(q, kpad, vpad, rel, d_out,
+                                                  W)
+        qh, kh, vh, mask = (t.to(dtype).detach().requires_grad_(i < 3)
+                            for i, t in enumerate(sdpa_inputs(
+                                *(x.float() for x in (q, kpad, vpad)), rel)))
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qh, kh, vh, attn_mask=mask,
+                                                  scale=1.0)
+
+        def sdpa_fwd():
+            with torch.no_grad():
+                return sdpa()
+
+        sdpa_out = sdpa()
+        g = d_out.transpose(1, 2)
+        fwd_in = size * (q.numel() + kpad.numel() + vpad.numel()) \
+            + 4 * rel.numel()
+        bwd_in = fwd_in + size * d_out.numel()
+        args = (q, kpad, vpad, rel, d_out, W)
+        spec = (
+            ("banded_attention_fwd", fwd_flops,
+             fwd_in + size * out.numel() + 4 * probs.numel(),
+             lambda: bak.banded_attention_fwd(*args[:4], W),
+             lambda: bak.banded_attention(*args[:4], W), sdpa_fwd),
+            ("banded_attention_bwd", bwd_flops,
+             bwd_in + size * sum(t.numel() for t in grads[:3])
+             + 4 * grads[3].numel(),
+             lambda: bak.banded_attention_bwd(*args),
+             lambda: bak.banded_attention_bwd_plain(*args),
+             lambda: torch.autograd.grad(sdpa_out, (qh, kh, vh), g,
+                                         retain_graph=True)),
+            ("banded_attention_bwd_partials", part_flops,
+             bwd_in + size * parts[0].numel()
+             + 4 * sum(t.numel() for t in parts[1:]),
+             lambda: bak.banded_attention_bwd_partials(*args),
+             lambda: bak.banded_attention_bwd_partials_plain(*args), None))
+        for name, flops, nbytes, kernel, plain, library in spec:
+            bound_ms, bound_by = bound(flops, nbytes, peak)
+            row = by_name[name + tag]
+            row.update({
+                f"ms{suffix}": time_ms(kernel),
+                f"plain_ms{suffix}": time_ms(plain),
+                f"bound_ms{suffix}": bound_ms,
+                f"bound_by{suffix}": bound_by,
+                f"library_ms{suffix}": (time_ms(library) if library
+                                        else None),
+                f"max_abs_err{suffix}": errs[name + tag]})
+        del qh, kh, vh, mask, sdpa_out
+
+
+def phase_attention_unet_onset(rows) -> None:
+    """Phase 12: the six attention rows at UNetOnset's Stack shapes (H =
+    UO_H heads of Dh = UO_D), B x 640 frames (the training CLI's labeled
+    and unlabeled chains) and 1 x the evaluation bucket of a
+    CORPUS_SECONDS song, forward, backward and its first pass: the fp32
+    kernels within ATTN_TOL / GRAD_TOL (over max|ref|) of their plain
+    versions and within TF32X3_TRUTH_FACTOR x the fp32 plain version's
+    error against float64; the bf16 kernels against their bf16 plain
+    versions by `bf16_held` (phase 11c's rule). Then each row's time and
+    bound at B x 640 (keys `*_h6` of the kernels line)."""
+    from reconvat_tpu_torch.models.common import frames_in, next_bucket
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    bucket = next_bucket(frames_in(int(CORPUS_SECONDS * 16000)) + 2)
+    rng = torch.Generator(device="cuda").manual_seed(12)
+    read = []
+    for b, t in ((B, frames_in(SAMPLES)), (1, bucket)):
+        x32, rel = attention_draw(rng, b, t, UO_H, UO_D)
+        x16 = tuple(x.to(torch.bfloat16) for x in x32)
+        x64 = tuple(x.double() for x in x32)
+        what = f"attention at {b} x {t}, H={UO_H}, Dh={UO_D}"
+        errs, line = {}, [f"{b} x {t}:"]
+        for name, fn, plain, labels in (
+                ("banded_attention_fwd", bak.banded_attention_fwd,
+                 bak.banded_attention, ("out", "probs")),
+                ("banded_attention_bwd", bak.banded_attention_bwd,
+                 bak.banded_attention_bwd_plain, ("dq", "dk", "dv", "drel")),
+                ("banded_attention_bwd_partials",
+                 bak.banded_attention_bwd_partials,
+                 bak.banded_attention_bwd_partials_plain,
+                 ("dq", "dk_part", "dv_part", "drel_part"))):
+            def call(f, x):
+                r = rel.double() if x[0].dtype == torch.float64 else rel
+                return (f(*x[:3], r, W) if name == "banded_attention_fwd"
+                        else f(*x[:3], r, x[3], W))
+
+            k32, p32 = call(fn, x32), call(plain, x32)
+            k16, p16 = call(fn, x16), call(plain, x16)
+            torch.cuda.synchronize()
+            if name == "banded_attention_fwd":
+                errs[name] = max(check_close(f"fp32 {what} {label}", a, r,
+                                             ATTN_TOL)
+                                 for label, a, r in zip(labels, k32, p32))
+            else:
+                errs[name] = check_grads(f"fp32 {what} {name}", k32, p32,
+                                         labels)
+            truth = nearer_float64(f"fp32 {what} {name}", k32, p32,
+                                   call(plain, x64), labels)
+            if k16[0].dtype != torch.bfloat16:
+                fail(f"bf16 {what} {name} returned {k16[0].dtype}")
+            share, errs[name + "_bf16"], outside = held_outputs(
+                f"{what} {name}", labels, k16, p16, k32, p32)
+            line.append(f"{name} fp32 err {errs[name]}, against float64 "
+                        f"{truth}; bf16 share of limit {share}, elements "
+                        f"outside phases 3d-3f's bound {outside}")
+        if b == B:
+            time_rows_at(rows, x32, rel, errs)
+        read.append(" ".join(line))
+        del x32, x16, x64
+    timing = {row["name"]: {k: row[k] for k in (
+        "ms_h6", "plain_ms_h6", "library_ms_h6", "bound_ms_h6",
+        "bound_by_h6")} for row in rows if "ms_h6" in row}
+    log(f"phase 12 attention kernels at UNetOnset's Stack shapes (H={UO_H}, "
+        f"Dh={UO_D}, W={W}; B x T frames: the training CLI's chains, the "
+        f"evaluation bucket) against their plain versions (fp32 {ATTN_TOL}, "
+        f"{GRAD_TOL} over max|ref|, against float64 at most "
+        f"{TF32X3_TRUTH_FACTOR} x the plain version's error; bf16 by "
+        f"bf16_held): {'; '.join(read)}; times at {B} x 640: {timing}")
+
+
+def onset_batches(seed: int):
+    """train_batches(seed) with ~1 % of the onset labels active."""
+    batch_l, batch_ul = train_batches(seed)
+    rng = np.random.RandomState(seed + 100)
+    batch_l["onset"] = torch.tensor(
+        rng.rand(*batch_l["frame"].shape) < 0.01, dtype=torch.float32,
+        device="cuda")
+    return batch_l, batch_ul
+
+
+def phase_unet_onset_step(rows) -> None:
+    """Phase 12a: UNetOnset (fp32, reconstruction=True) on B labeled + B
+    unlabeled clips: two VAT train steps with the counts reset just
+    before and read just after, then one step through the kernels against
+    the same step through the plain versions (phase 8's rule: losses and
+    every gradient without VAT, losses with VAT at xi 1e-2)."""
+    from reconvat_tpu_torch.models.unet_onset import UNetOnset
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model = UNetOnset(seed=0, reconstruction=True)
+    state = create_train_state(model)
+    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    batches = [onset_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, *batches[0], gen)                        # warm-up
+    ms, peak_gb, launches, losses = counted_steps(step, state, batches, gen,
+                                                  2, "fp32")
+    for row in rows:
+        row["launches_unet_onset_step"] = launches[row["name"]] / 2
+    last = {k: v.item() for k, v in losses[-1].items()}
+    log(f"phase 12a UNetOnset train step (fp32, reconstruction=True, VAT, "
+        f"B={B} + {B} x {SAMPLES} samples): {ms} ms/step, peak "
+        f"{peak_gb} GB, launches per step "
+        f"{ {k: n / 2 for k, n in launches.items()} }, last losses {last}; "
+        f"kernels vs plain versions: {compare_routes(model, *batches[0])}")
+
+
+def phase_unet_onset_cli(rows, tmp: str) -> dict:
+    """Phase 12b: `python -m reconvat_tpu_torch.train_UNet_Onset_VAT` at its
+    defaults (bf16, reconstruction=False, VAT, B = 8 labeled + 8
+    unlabeled x 640 frames) on a corpus of write_corpus's layout with B
+    labeled songs, TRAIN_CLI's overrides: 2 epochs of 10 steps, logging, a
+    checkpoint, the full-song evaluation; then the bare step of its
+    weights at the same batch, and its profile."""
+    import pickle
+
+    from reconvat_tpu_torch import train_UNet_Onset_VAT as onset_cli
+    from reconvat_tpu_torch.models.unet_onset import UNetOnset
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+
+    t0 = time.perf_counter()
+    env = write_corpus(os.path.join(tmp, "corpus_onset"), seed=1, labeled=B)
+    corpus_s = time.perf_counter() - t0
+    rec = train_cli(dict(TRAIN_CLI, root=os.path.join(tmp, "runs_onset")),
+                    env, onset_cli)
+    launches, steps = rec["launches"], rec["steps"]
+    for name, n in launches.items():
+        expected = name == "mel_power" or name.endswith("_bf16")
+        if (n > 0) != expected:
+            fail(f"the UNetOnset training CLI (bf16) launched {name} {n} "
+                 f"times")
+    if steps != 20 or rec["state"].step != 20:
+        fail(f"the UNetOnset CLI ran {steps} steps, state at "
+             f"{rec['state'].step}")
+    for row in rows:
+        row["launches_unet_onset_cli"] = launches[row["name"]]
+    path = ckpt.latest_checkpoint(rec["logdir"])
+    if path is None or os.path.basename(path) != "model-2":
+        fail(f"the UNetOnset CLI's latest checkpoint is {path}")
+    with open(os.path.join(rec["logdir"], "result_dict"), "rb") as f:
+        result = pickle.load(f)
+    if sorted(result) != sorted(ONSET_RESULT_KEYS):
+        fail(f"UNetOnset result_dict keys {sorted(result)}")
+    if not all(np.isfinite(v).all() for v in result.values()):
+        fail("UNetOnset result_dict holds a non-finite value")
+    copy = UNetOnset(seed=42, reconstruction=False, compute_dtype="bfloat16")
+    copy.load_state_dict(rec["model"].state_dict(), strict=True)
+    bare = bare_step_ms(copy, *onset_batches(5),
+                        f"phase 12b bare UNetOnset CLI step profile (2 "
+                        f"steps, B = {B} + {B}, bf16, reconstruction=False)")
+    del copy
+    ms = step_ms(rec)
+    per_step = {k: n / steps for k, n in rec["step_launches"].items()}
+    audio_s = B * SAMPLES / 16000                  # labeled audio per step
+    log(f"phase 12b UNetOnset training CLI (bf16, reconstruction=False, "
+        f"VAT, batch_size {B} unlabeled + train_batch_size {B} labeled x "
+        f"{SAMPLES} samples, {TRAIN_CLI}; corpus of {B + 10} x "
+        f"{CORPUS_SECONDS} s written in {corpus_s} s): {steps} steps; "
+        f"ms/step (loop StepTimer, within epochs) median {np.median(ms)} "
+        f"mean {np.mean(ms)} min {min(ms)} max {max(ms)}; audio-s/s "
+        f"trained (labeled) {audio_s / (np.median(ms) / 1e3)}; kernel "
+        f"launches per train step {per_step}; launches in the whole run "
+        f"{launches}; final evaluation {rec['eval_ms'][0] / 2} ms/song (2 "
+        f"songs); save_checkpoint host-blocking ms {rec['ckpt_ms']}; peak "
+        f"device GB {rec['peak_gb']}; run wall {rec['wall_s']} s; the bare "
+        f"step, two rounds of 10: {bare} ms/step; note f1 "
+        f"{np.mean(result['metric/note/f1'])}, frame f1 "
+        f"{np.mean(result['metric/frame/f1'])}")
+    return rec
+
+
+def phase_evaluate_cli(rows, flagship, onset, tmp: str) -> None:
+    """Phase 12c: `python -m reconvat_tpu_torch.evaluate_cli` through its
+    `Experiment` on the `model-2` of phase 12b (UNet_Onset) and of phase
+    11 (ReconVAT), counts reset just before and read just after. Then, on
+    each model's weights with its output layers sharpened
+    (`sharpen_output`: UNetOnset's onset head, then its frame head), the
+    bucketed full-song posteriograms through the kernels against the
+    plain versions (`same_notes`, each roll), a non-zero note count, and
+    the CLI on a `.pt` of those weights equal to the kernels' evaluation
+    (deterministic cuDNN). Last, one 60-s song streamed with the
+    sharpened UNetOnset against its bucketed transcription, both rolls
+    (phase 10b's bounds)."""
+    import pickle
+
+    from reconvat_tpu_torch import decode, evaluate, evaluate_cli
+    from reconvat_tpu_torch.data.datasets import MAPS
+    from reconvat_tpu_torch.models import get_model
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+
+    counters = kernel_counters()
+    cudnn = torch.backends.cudnn
+    read, onset_model = [], None
+    for model_type, rec, keys, corpus in (
+            ("UNet_Onset", onset, ONSET_RESULT_KEYS, "corpus_onset"),
+            ("ReconVAT", flagship, RESULT_KEYS, "corpus")):
+        heads = ("frame", "onset") if model_type == "UNet_Onset" else (
+            "frame",)
+        maps = os.path.join(tmp, corpus, "MAPS")
+        weight = ckpt.latest_checkpoint(rec["logdir"])
+        out = os.path.join(tmp, f"evaluated_{model_type}")
+        saved_root = os.environ.get("RECONVAT_MAPS_ROOT")
+        os.environ["RECONVAT_MAPS_ROOT"] = maps
+
+        def run_cli(weight_file):
+            """(result_dict, launches, seconds) of one CLI run."""
+            torch.cuda.synchronize()
+            for f, c in counters.values():
+                setattr(f, c, 0)
+            t0 = time.perf_counter()
+            evaluate_cli.ex.run(evaluate_cli.main, dict(
+                model_type=model_type, weight_file=weight_file,
+                output_folder=out))
+            torch.cuda.synchronize()
+            sec = time.perf_counter() - t0
+            launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
+            with open(os.path.join(evaluate_cli.ex.current_run.config[
+                    "logdir"], "result_dict_infer"), "rb") as f:
+                return pickle.load(f), launches, sec
+
+        try:
+            result, launches, sec = run_cli(weight)
+            for name, n in launches.items():
+                expected = name in ("mel_power", "banded_attention_fwd")
+                if (n > 0) != expected:
+                    fail(f"the evaluation CLI ({model_type}, fp32) launched "
+                         f"{name} {n} times")
+            for row in rows:
+                row[f"launches_evaluate_cli_{model_type}"] = \
+                    launches[row["name"]]
+            if sorted(result) != sorted(keys) or not all(
+                    np.isfinite(v).all() for v in result.values()):
+                fail(f"evaluation CLI ({model_type}) result_dict keys "
+                     f"{sorted(result)} or a non-finite value")
+            songs = MAPS(maps, groups=["ENSTDkAm", "ENSTDkCl"],
+                         sequence_length=None, verbose=False)
+            models = {}
+            for route in ("kernels", "plain"):
+                m = get_model(model_type, reconstruction=False, seed=0)
+                m.load_reference_weights(ckpt.load_state(weight)["model"])
+                m.use_kernels(route == "kernels")
+                models[route] = m
+            clips = [torch.from_numpy(s["audio"])[None].cuda()
+                     for s in songs]
+            layers = ([models["kernels"].transcriber.linear_onset,
+                       models["kernels"].transcriber.combine_stack.linear]
+                      if model_type == "UNet_Onset" else [None])
+            for lin in layers:
+                sharpen_output(models["kernels"], clips, lin=lin)
+            sharpened = models["kernels"].state_dict()
+            models["plain"].load_state_dict(sharpened, strict=True)
+            runners = {k: evaluate.make_bucketed_runner(m)
+                       for k, m in models.items()}
+            diffs, notes, set_aside = [], 0, 0
+            for song in songs:
+                pk, lk, _ = runners["kernels"](song)
+                pp, lp, _ = runners["plain"](song)
+                for head in heads:
+                    d, n_aside, _ = same_notes(
+                        f"phase 12c {model_type} {head}",
+                        pk[head][0].float().cpu().numpy(),
+                        pp[head][0].float().cpu().numpy())
+                    diffs.append(d)
+                    set_aside += n_aside
+                for k in lp:
+                    if not np.isclose(float(lk[k]), float(lp[k]), rtol=1e-4,
+                                      atol=1e-6):
+                        fail(f"phase 12c {model_type} loss {k}: kernels "
+                             f"{float(lk[k])}, plain {float(lp[k])}")
+                p, _ = decode.extract_notes_wo_velocity(
+                    pk["onset"][0].float().cpu().numpy(),
+                    pk["frame"][0].float().cpu().numpy(), rule="rule2")
+                notes += len(p)
+            if notes == 0:
+                fail(f"phase 12c {model_type}: no note in the sharpened "
+                     f"evaluation")
+            pt = os.path.join(tmp, f"{model_type}_sharpened.pt")
+            torch.save(sharpened, pt)
+            cudnn.deterministic = True
+            try:
+                sharp, _, sharp_sec = run_cli(pt)
+                mine = evaluate.evaluate_wo_velocity(
+                    songs, evaluate.make_bucketed_runner(models["kernels"]),
+                    reconstruction=False)
+            finally:
+                cudnn.deterministic = False
+            for k in mine:
+                if not np.allclose(sharp[k], mine[k], rtol=0, atol=1e-12):
+                    fail(f"phase 12c {model_type}: the CLI's {k} "
+                         f"{sharp[k]}, the kernels' evaluation {mine[k]}")
+        finally:
+            if saved_root is None:
+                os.environ.pop("RECONVAT_MAPS_ROOT", None)
+            else:
+                os.environ["RECONVAT_MAPS_ROOT"] = saved_root
+        if model_type == "UNet_Onset":
+            onset_model = models["kernels"]
+        read.append(
+            f"{model_type}: CLI on {os.path.basename(weight)} {sec} s "
+            f"(2 songs), launches {launches}, note f1 "
+            f"{np.mean(result['metric/note/f1'])}; sharpened: kernels vs "
+            f"plain max abs diff {max(diffs)} (tol {POST_ATOL}), {notes} "
+            f"notes, {set_aside} pitch columns set aside, the CLI on its "
+            f".pt ({sharp_sec} s) equal to the kernels' evaluation, note "
+            f"f1 {np.mean(sharp['metric/note/f1'])}, frame f1 "
+            f"{np.mean(sharp['metric/frame/f1'])}")
+
+    rng = np.random.RandomState(3)
+    _, audio = synth_song(rng, ONSET_SONG_SECONDS)
+    song = torch.from_numpy(audio.astype(np.float32) / 32768.0)[None].cuda()
+    streamed = onset_model.transcribe_streaming(song, STREAM_W, STREAM_H)
+    full = onset_model.transcribe(song, CLI_BUCKET)
+    stream_read = {}
+    for head in ("onset", "frame"):
+        gap = (streamed[head] - full[head].cpu()).abs()
+        inner = gap[:, :-STREAM_TAIL].max().item()
+        tail = gap[:, -STREAM_TAIL:].max().item()
+        if inner > POST_ATOL or tail > STREAM_TAIL_ATOL:
+            fail(f"UNetOnset streamed and bucketed {head} differ by {inner} "
+                 f"inside and {tail} over the last {STREAM_TAIL} frames")
+        stream_read[head] = (inner, tail,
+                             (streamed[head] > 0.5).float().mean().item())
+    log(f"phase 12c evaluation CLI: {'; '.join(read)}; UNetOnset streaming "
+        f"(1 x {ONSET_SONG_SECONDS} s, W={STREAM_W} H={STREAM_H}) against "
+        f"bucketed transcribe (bucket {CLI_BUCKET}), by roll (max abs diff "
+        f"inside, tol {POST_ATOL}; over the last {STREAM_TAIL} frames, tol "
+        f"{STREAM_TAIL_ATOL}; share of bins above 0.5) {stream_read}")
 
 
 def main() -> int:
@@ -2431,6 +2882,10 @@ def main() -> int:
         phase_train_cli_eval(rec)
         phase_train_cli_variants(rec, tmp)
         phase_bf16_kernels_at_train_cli_shapes()
+        phase_attention_unet_onset(rows)
+        phase_unet_onset_step(rows)
+        onset = phase_unet_onset_cli(rows, tmp)
+        phase_evaluate_cli(rows, rec, onset, tmp)
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:

@@ -1,0 +1,157 @@
+"""What the port's models share: the device rule, fp32 math, the seeded
+init, and `TranscriptionModel`, the signal chain, VAT target, kernel switch
+and reference-weight loader of a model built on it (`ReconVAT`,
+`UNetOnset`).
+"""
+from __future__ import annotations
+
+import contextlib
+import os
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..nn.attention import MultiHeadAttention1D
+from ..nn.unet import frozen_batch_stats, use_running_stats
+from ..ops.normalize import Normalization
+from ..vat import VATConfig
+from .common import make_log_norm_spec
+
+
+def resolve_device(device=None) -> torch.device:
+    """`device` as given, else CUDA; raises when CUDA is asked for (or
+    defaulted to) and there is none. Never falls back to the CPU."""
+    device = torch.device("cuda" if device is None else device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run on the CPU")
+    return device
+
+
+@contextlib.contextmanager
+def fp32_math():
+    """Full-fp32 matmuls and convolutions on CUDA (cuDNN convolutions
+    default to TF32), restored on exit. cuDNN's benchmark and
+    deterministic settings stay as the caller set them (`flags` would
+    reset them to False)."""
+    mm = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cudnn = torch.backends.cudnn
+    try:
+        with cudnn.flags(enabled=True, benchmark=cudnn.benchmark,
+                         deterministic=cudnn.deterministic,
+                         allow_tf32=False):
+            yield
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = mm
+
+
+@torch.no_grad()
+def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
+    """Seeded init mirroring the JAX package's initializers: conv and linear
+    weights Uniform(+-1/sqrt(fan_in)) (torch's default), biases zero,
+    attention projections N(0, 2/fan_out), `rel` N(0, 1), BatchNorm at
+    identity. Draws in `modules()` order from `generator`."""
+    attn_linears = set()
+    for m in module.modules():
+        if isinstance(m, MultiHeadAttention1D):
+            for lin in (m.W_k, m.W_q, m.W_v):
+                lin.weight.normal_(0.0, float(np.sqrt(2.0 / lin.out_features)),
+                                   generator=generator)
+                attn_linears.add(lin)
+            m.rel.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, nn.BatchNorm2d):
+            m.reset_parameters()
+        elif (isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
+              and m not in attn_linears):
+            # torch's fan_in: dim 1 of the weight times the kernel area
+            # (ConvTranspose2d weights are (in, out, kh, kw))
+            fan_in = m.weight[0].numel()
+            m.weight.uniform_(-1.0 / np.sqrt(fan_in), 1.0 / np.sqrt(fan_in),
+                              generator=generator)
+            if m.bias is not None:
+                m.bias.zero_()
+
+
+class TranscriptionModel:
+    """Mixin of an `nn.Module` network with the Mel signal chain. The class
+    names its VAT target `vat_target(x)` (the transcriber alone: a roll, or
+    a dict of rolls) and the reference state_dict's prefixes that have no
+    counterpart here (`REFERENCE_ONLY`)."""
+
+    REFERENCE_ONLY = ("spectrogram.", "normalize.", "vat_loss.")
+
+    def _init_chain(self, frontend, n_bins, log, mode, xi, eps, kl_div,
+                    seed, device, vat_chain):
+        """Called after the network is built: the signal chain, VAT's
+        configuration, the seeded parameters, eval mode, the device."""
+        if vat_chain not in ("separate", "batched"):
+            raise ValueError(f"unknown vat_chain {vat_chain!r}")
+        self.vat_chain = vat_chain
+        self.frontend = frontend
+        self.n_bins = n_bins
+        self.log = log
+        self.normalize = Normalization(mode)
+        # the spec image is (B, T, F, 1): the perturbation's per-vector L2
+        # norm runs over the bins axis
+        self.vat_cfg = VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=2)
+        init_parameters(self, torch.Generator().manual_seed(seed))
+        self.eval()
+        self.to(device)
+
+    @property
+    def device(self) -> torch.device:
+        return self.frontend.mel_basis.device
+
+    def use_kernels(self, flag: bool) -> None:
+        """Route the mel frontend and the attention cores through the CUDA
+        kernels (True, the default) or their plain versions (False)."""
+        for m in self.modules():
+            if hasattr(m, "use_kernel"):
+                m.use_kernel = flag
+
+    def make_spec(self, audio, t_true=None):
+        """audio (B, N) float in [-1, 1] -> normalized log-spec (B,T,F,1);
+        drops the final sample (327680 samples -> 640 frames)."""
+        return make_log_norm_spec(self, audio, t_true)[..., None]
+
+    def _transcriber_fn(self, train: bool, stats=None):
+        """The VAT target: `vat_target` with BatchNorm in `train` mode
+        (batch statistics) or eval mode (running statistics, or the
+        `running_stats` copies `stats`) and the running statistics left
+        unchanged, the model's mode restored after each call. Each call
+        sets this up itself, so a recompute in the outer backward
+        (`RECONVAT_VAT_REMAT=1`) runs as the first pass did."""
+        def fn(x):
+            was = self.training
+            self.train(train)
+            try:
+                with frozen_batch_stats(self), use_running_stats(self,
+                                                                 stats):
+                    return self.vat_target(x)
+            finally:
+                self.train(was)
+        return fn
+
+    def load_reference_weights(self, source):
+        """Load a torch `.pt` of the reference's `state_dict` names (a
+        released checkpoint, or `weights.flax_to_torch` of a JAX tree), or
+        such a state_dict itself, onto this model. The file may hold a
+        state_dict or a module. Entries under `REFERENCE_ONLY` have no
+        counterpart and are skipped; any other missing or unexpected key
+        raises before a weight is changed."""
+        if isinstance(source, (str, os.PathLike)):
+            obj = torch.load(source, map_location="cpu", weights_only=False)
+        else:
+            obj, source = source, "the state_dict"
+        if hasattr(obj, "state_dict"):
+            obj = obj.state_dict()
+        own = self.state_dict().keys()
+        missing = [k for k in own if k not in obj]
+        unexpected = [k for k in obj
+                      if k not in own and not k.startswith(self.REFERENCE_ONLY)]
+        if missing or unexpected:
+            raise ValueError(f"weights of {source} do not fit the model: "
+                             f"missing {missing}, unexpected {unexpected}")
+        self.load_state_dict({k: obj[k] for k in own}, strict=True)

@@ -136,6 +136,13 @@ def transcribe_spec(model, audio, bucket_frames: int = 0):
 # streaming (bounded-memory) full-song transcription
 # ---------------------------------------------------------------------------
 
+def tree_map(fn, *trees):
+    """fn over the leaves of a tensor (or array) or a dict of them."""
+    if isinstance(trees[0], dict):
+        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
+    return fn(*trees)
+
+
 def _frame_slice_audio(audio, f0: int, f1: int, t_pad: int):
     """Audio samples whose signal chain reproduces frames [f0, f1) of the
     full song, right-padded like the bucketed path (reflect at the slice
@@ -157,8 +164,9 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
 
     audio (B, N) float in [-1, 1], moved to the model's device whole (the
     audio is small next to the activations); `forward(spec_image)` maps a
-    (B', T, F, 1) normalized spec to a (B', T, P) roll. Returns the
-    (B, t_true, P) fp32 roll on the host.
+    (B', T, F, 1) normalized spec to a (B', T, P) roll, or to a dict of
+    such rolls (UNetOnset's {"onset", "frame"}). Returns the (B, t_true,
+    P) fp32 roll on the host, or the dict of them.
 
     1. `imagewise` normalization needs the song-global log-spec min/max:
        pass 1 reduces them over spectrogram chunks of W frames with a
@@ -170,7 +178,7 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
        window's W interior frames. `windows_per_batch` = G windows are
        stacked into one forward (leading axis G*B; the last group is
        filled with copies of the last window, whose outputs are dropped);
-       up to `pipeline_depth` groups are in flight, each group's roll
+       up to `pipeline_depth` groups are in flight, each group's rolls
        copied to pinned host memory on a side stream (CUDA) while later
        groups run. Output is identical for any depth.
 
@@ -202,7 +210,8 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     if t_true <= span:  # short clip: one bucketed call is already bounded
         spec = make_log_norm_spec(model, pad_audio_to_frames(audio, span),
                                   t_true)
-        return forward(spec[..., None])[:, :t_true].float().cpu()
+        return tree_map(lambda r: r[:, :t_true].float().cpu(),
+                         forward(spec[..., None]))
 
     G = max(1, int(windows_per_batch))
     imagewise = model.normalize.mode == "imagewise"
@@ -229,7 +238,7 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
                    else None)
 
     def dispatch(gi):
-        """Enqueue window group gi; returns (gi, its starts, its roll (on
+        """Enqueue window group gi; returns (gi, its starts, its rolls (on
         the host once `done` has completed), done event or None)."""
         group = starts[gi:gi + G]
         # f0 = w0 - H keeps every window's stride-2 grids anchored like the
@@ -240,14 +249,20 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
             for w0 in group]).reshape(G * B, -1)
         spec = make_log_spec(model, aa)
         spec = (spec - lo) / (hi - lo) if imagewise else model.normalize(spec)
-        roll = forward(spec[..., None]).float()
+        rolls = tree_map(lambda r: r.float(), forward(spec[..., None]))
         if copy_stream is None:
-            return gi, group, roll, None
+            return gi, group, rolls, None
         copy_stream.wait_stream(torch.cuda.current_stream(device))
-        host = torch.empty(roll.shape, dtype=roll.dtype, pin_memory=True)
-        with torch.cuda.stream(copy_stream):
+
+        def to_host(roll):
+            host = torch.empty(roll.shape, dtype=roll.dtype,
+                               pin_memory=True)
             host.copy_(roll, non_blocking=True)
             roll.record_stream(copy_stream)
+            return host
+
+        with torch.cuda.stream(copy_stream):
+            host = tree_map(to_host, rolls)
             done = torch.cuda.Event()
             done.record(copy_stream)
         return gi, group, host, done
@@ -259,15 +274,21 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
         while nxt < len(starts) and len(pending) < depth:
             pending.append(dispatch(nxt))
             nxt += G
-        gi, group, roll, done = pending.pop(0)
+        gi, group, rolls, done = pending.pop(0)
         if done is not None:
-            done.synchronize()   # the pinned buffer is read only after this
-        r = roll.numpy().reshape((G, B) + tuple(roll.shape[1:]))
+            done.synchronize()   # the pinned buffers are read only after this
+        rolls = tree_map(lambda roll: roll.numpy().reshape(
+            (G, B) + tuple(roll.shape[1:])), rolls)
         if out is None:
-            out = np.zeros((B, t_true) + r.shape[3:], np.float32)
+            out = tree_map(lambda r: np.zeros((B, t_true) + r.shape[3:],
+                                               np.float32), rolls)
         for i, w0 in enumerate(group):
             if gi + i >= n_real:
                 break
             w1, f0 = min(t_true, w0 + W), max(0, w0 - H)
-            out[:, w0:w1] = r[i][:, w0 - f0:w1 - f0]
-    return torch.from_numpy(out)
+
+            def put(dst, r):
+                dst[:, w0:w1] = r[i][:, w0 - f0:w1 - f0]
+
+            tree_map(put, out, rolls)
+    return tree_map(torch.from_numpy, out)

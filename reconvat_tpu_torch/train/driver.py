@@ -20,6 +20,7 @@ from ..data.loader import (DataLoader, cycle, device_batch,
                            prefetch_to_device)
 from ..evaluate import (evaluate_wo_velocity, make_bucketed_runner,
                         print_metrics)
+from ..models.base import resolve_device
 from ..utils import summary
 from . import checkpoint as ckpt
 from . import profiler
@@ -40,6 +41,31 @@ def build_mesh(cfg):
             f"{cfg.get('multihost', False)}: training over a device mesh "
             f"is not ported (ROADMAP §1 item 11, multi-GPU)")
     return None
+
+
+def check_settings(cfg):
+    """Raise for the settings the training CLIs of the port do not run: a
+    device mesh, the folded U-Net layout, the plain attention, another
+    frontend, and CUDA without a card. The CLIs' `Experiment` runs it
+    before the observers write the run directory."""
+    build_mesh(cfg)
+    if cfg["spec"] != "Mel":
+        raise NotImplementedError(
+            f"spec={cfg['spec']!r}: only the Mel frontend is ported "
+            f"(ROADMAP §1 item 10)")
+    if cfg["attn_impl"] == "xla":
+        raise ValueError(
+            "attn_impl='xla' selects the plain attention, which must not "
+            "be the training path; use 'auto' or 'pallas' (the kernels)")
+    if cfg["attn_impl"] not in ("auto", "pallas"):
+        raise ValueError(f"unknown attn_impl {cfg['attn_impl']!r}")
+    if cfg["conv_layout"] == "folded":
+        raise NotImplementedError(
+            "conv_layout='folded' is the JAX package's TPU layout; the port "
+            "runs the NHWC-equivalent layout only ('auto' or 'nhwc')")
+    if cfg["conv_layout"] not in ("auto", "nhwc"):
+        raise ValueError(f"unknown conv_layout {cfg['conv_layout']!r}")
+    resolve_device(cfg["device"])
 
 
 def run_training(model, cfg, datasets=None):

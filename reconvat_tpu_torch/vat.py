@@ -28,6 +28,7 @@ from typing import Callable
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from .models.common import tree_map
 from .models.losses import binary_cross_entropy, binary_kl_div
 
 GRAD_RESCUE = 1e10   # d * 1e10 underflow rescue of the UNet variants
@@ -59,18 +60,11 @@ def l2_normalize(d, axis: int = -1, binwise: bool = False):
     return d / norm.clamp_min(1e-30)
 
 
-def _tree_map(fn, *trees):
-    """fn over the leaves of a tensor or a dict of tensors."""
-    if isinstance(trees[0], dict):
-        return {k: fn(*(t[k] for t in trees)) for k in trees[0]}
-    return fn(*trees)
-
-
 def _tree_objective(y_pred, y_ref, kl_div: bool):
     """BCE (or KL) of each leaf; the total sums the leaves in sorted key
     order, as `jax.tree_util.tree_leaves` orders a dict."""
     obj = binary_kl_div if kl_div else binary_cross_entropy
-    losses = _tree_map(obj, y_pred, y_ref)
+    losses = tree_map(obj, y_pred, y_ref)
     if not isinstance(losses, dict):
         return losses, losses
     leaves = [losses[k] for k in sorted(losses)]
@@ -97,7 +91,7 @@ def vat_loss(apply_fn: Callable, x, generator, cfg: VATConfig, init_d=None,
     if y_ref is None:
         with torch.no_grad():
             y_ref = apply_fn(x)
-    y_ref = _tree_map(torch.Tensor.detach, y_ref)
+    y_ref = tree_map(torch.Tensor.detach, y_ref)
     if init_d is None:
         d = torch.randn(x.shape, generator=generator, device=x.device,
                         dtype=x.dtype)
@@ -127,7 +121,7 @@ def vat_loss(apply_fn: Callable, x, generator, cfg: VATConfig, init_d=None,
         return objective(y_pred, y_ref)[1], r_adv, d_normalized
 
     def seg(tree, sl):
-        return _tree_map(lambda a: a[sl], tree)
+        return tree_map(lambda a: a[sl], tree)
 
     head, tail = slice(None, split), slice(split, None)
     return ((objective(seg(y_pred, head), seg(y_ref, head))[1],

@@ -371,7 +371,8 @@ def test_attention_kernel_refuses_mixed_dtypes(cuda_device):
 FWD_MODEL_SIZES = [(2, 64, 31, 229, True),     # full-width tiles
                    (2, 33, 7, 57, True),       # ragged tile
                    (2, 40, 15, 64, False),     # no rel
-                   (1, 64, 32, 256, True)]     # the kernels' limits
+                   (1, 64, 32, 256, True),     # the kernels' limits
+                   (2, 70, 31, 128, True)]     # UNetOnset's Stack heads
 FWD_CARD_SIZES = [(8, 640, 31, 229, True)] + FWD_MODEL_SIZES[1:]
 
 
@@ -543,7 +544,8 @@ def test_split_tf32x2(values):
 
 
 @pytest.mark.parametrize("B,L,window,Dh", [(2, 100, 31, 229),
-                                           (2, 33, 7, 57)])     # ragged tile
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (2, 70, 31, 128)])   # UNetOnset
 def test_fp32_first_pass_tf32x3_model_matches_plain(B, L, window, Dh):
     """The CPU model of the fp32 tensor-core first pass (dense 32 x 64
     tiles, zero padding to D8, 3xTF32 products) against the plain first
@@ -790,7 +792,8 @@ def test_split_bf16x3_is_exact(values):
 
 
 @pytest.mark.parametrize("B,L,window,Dh", [(2, 100, 31, 229),
-                                           (2, 33, 7, 57)])     # ragged tile
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (2, 70, 31, 128)])   # UNetOnset
 def test_bf16_first_pass_mma_model_matches_plain(B, L, window, Dh):
     """The CPU model of the bf16 tensor-core first pass (dense 32 x 64
     tiles, zero padding to D16, the three rel terms) against the bf16

@@ -234,6 +234,10 @@ PORT_MODULES = [
     "reconvat_tpu_torch.train.profiler", "reconvat_tpu_torch.train.checkpoint",
     "reconvat_tpu_torch.train.loop", "reconvat_tpu_torch.train.driver",
     "reconvat_tpu_torch.train_UNet_VAT",
+    "reconvat_tpu_torch.models", "reconvat_tpu_torch.models.base",
+    "reconvat_tpu_torch.models.unet_onset",
+    "reconvat_tpu_torch.train_UNet_Onset_VAT",
+    "reconvat_tpu_torch.evaluate_cli",
     "chip_smoke",
 ]
 
