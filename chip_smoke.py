@@ -38,7 +38,13 @@ reconstruction and VAT through the kernels against the plain versions
 at its defaults (bf16, 8 labeled + 8 unlabeled clips; phase 12b); and the
 evaluation CLI (`reconvat_tpu_torch.evaluate_cli`) on that run's and phase
 11's checkpoints, kernels against plain versions, with UNetOnset streaming
-one song (phase 12c).
+one song (phase 12c). Then the Onsets-and-Frames family, Thickstun and
+Prestack, whose only kernel is the mel kernel: the fp32 train steps of
+`OnsetsAndFrames` (no VAT; profiled) and `FrameStackVAT` (VAT) at 8 x 640
+frames, held through the kernel against the plain mel route (phase 13); the O&F training CLI at its defaults and with `model_name=frame
+VAT=True` (13a); the Thickstun and Prestack training CLIs for one epoch and
+the evaluation CLI on their checkpoints, kernel against plain (13b); and a
+bf16 eval forward of each of the five models, kernel against plain (13c).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -212,6 +218,21 @@ ONSET_RESULT_KEYS = [
     "loss/test_LDS_l_onset", "loss/test_r_norm_l",
     *(k for k in RESULT_KEYS if k.startswith("metric/"))]
 ONSET_SONG_SECONDS = 60.0
+
+# The Onsets-and-Frames family, Thickstun and Prestack (phases 13-13c): the
+# keys of the JAX package's result_dict of each (eval-mode `run_on_batch`
+# losses, then the metrics); Prestack's crop in phase 13b: at the CLI's
+# 640 frames its bare fp32 step peaks near the card's 80 GB (phase 13b
+# prints the peak; cuDNN's FFT convolutions take large workspaces), at
+# 320 frames near 47 GB (PERF.md §4), so the phase trains on 320-frame
+# crops
+METRIC_KEYS = [k for k in RESULT_KEYS if k.startswith("metric/")]
+OF_RESULT_KEYS = {
+    "onset_frame": ["loss/test_frame", "loss/test_onset", "loss/test_LDS_l",
+                    "loss/test_r_norm_l", *METRIC_KEYS],
+    "frame": ["loss/test_frame", "loss/test_LDS", *METRIC_KEYS]}
+BASELINE_RESULT_KEYS = ["loss/train_frame", *METRIC_KEYS]
+PRESTACK_FRAMES = 320
 
 
 def log(msg: str) -> None:
@@ -848,6 +869,7 @@ def per_batch(r) -> str:
 
 
 KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
+                 ("cudnn_rnn", ("rnn", "lstm")),    # the recurrences
                  ("banded_attention_bwd", ("bwd_partials_tf32x3_kernel",
                                            "bwd_partials_mma_kernel",
                                            "bwd_overlap_add_kernel",
@@ -855,17 +877,26 @@ KERNEL_GROUPS = (("mel_power", ("mel_fft_kernel",)),
                  ("banded_attention_fwd", ("banded_attention",)),
                  ("convolutions_bn", ("conv", "cudnn", "implicit", "dgrad",
                                       "wgrad", "fprop", "fft", "gemm_cf32",
+                                      "pointwise_mult_and_sum_complex",
                                       "bn_fw", "bn_bw", "batch_norm")),
                  ("matmuls", ("gemm", "gemv")),
                  ("copy_kernels", ("copy_kernel",)),   # dtype casts among them
                  ("copies", ("memcpy", "memset")))
 
 
+# operators whose device time (every kernel they launch) the profiles
+# report beside the kernel groups: cuDNN's RNN runs its recurrent GEMMs
+# and cell kernels under `_cudnn_rnn`, named as no group above names them
+PROFILE_OPS = ("aten::_cudnn_rnn", "aten::_cudnn_rnn_backward",
+               "aten::cudnn_convolution", "aten::convolution_backward",
+               "aten::mm", "aten::addmm")
+
+
 def profile_groups(fn):
     """Run fn() under torch.profiler. Returns (wall s, device busy ms,
     device ms by kernel group, top kernels, device operations run: kernels,
-    copies and sets), or None when the profiler recorded no device
-    kernels."""
+    copies and sets, device ms of each of PROFILE_OPS), or None when the
+    profiler recorded no device kernels."""
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -874,8 +905,11 @@ def profile_groups(fn):
         fn()
         torch.cuda.synchronize()
         sec = time.perf_counter() - t0
-    kernels, n_ops = {}, 0
+    kernels, n_ops, ops = {}, 0, {}
     for e in prof.key_averages():
+        if e.key in PROFILE_OPS:
+            ops[e.key] = getattr(e, "device_time_total",
+                                 getattr(e, "cuda_time_total", 0.0)) / 1e3
         if not str(e.device_type).endswith("CUDA"):
             continue
         us = getattr(e, "self_device_time_total", None)
@@ -893,7 +927,7 @@ def profile_groups(fn):
                       if any(k in low for k in keys)), "other")
         groups[group] += us / 1e3
     top = sorted(kernels.items(), key=lambda kv: -kv[1])[:8]
-    return sec, busy_ms, groups, top, n_ops
+    return sec, busy_ms, groups, top, n_ops, ops
 
 
 def log_profile(label: str, unit: str, n: int, prof) -> None:
@@ -901,12 +935,13 @@ def log_profile(label: str, unit: str, n: int, prof) -> None:
         log(f"{label}: the profiler recorded no device kernels; device "
             f"time not measured")
         return
-    sec, busy_ms, groups, top, n_ops = prof
+    sec, busy_ms, groups, top, n_ops, ops = prof
     log(f"{label}: wall {sec * 1e3 / n} ms/{unit}, device busy "
         f"{busy_ms / n} ms/{unit}, busy share {busy_ms / (sec * 1e3)}, "
         f"device operations {n_ops / n} /{unit}; "
         f"device ms/{unit} by group "
-        f"{ {g: v / n for g, v in groups.items()} }; top kernels "
+        f"{ {g: v / n for g, v in groups.items()} }; by operator "
+        f"{ {k: v / n for k, v in ops.items()} }; top kernels "
         f"(ms/{unit}) {[(k[:60], v / 1e3 / n) for k, v in top]}")
 
 
@@ -1170,14 +1205,21 @@ def step_grads(model, batch_l, batch_ul, seed: int, vat: bool):
 
 def compare_routes(model, batch_l, batch_ul) -> str:
     """One step's losses and gradients through the kernels against the
-    same step through the plain versions, from the same state: without
-    VAT (losses and every gradient), and with VAT at xi = 1e-2 from the
-    same directions (losses)."""
+    same step through the plain versions, from the same state (and the
+    same dropout masks, drawn from the same seed): without VAT (losses and
+    every gradient), and with VAT at xi = 1e-2 from the same directions
+    (losses)."""
     import copy
     import dataclasses
 
+    from reconvat_tpu_torch.nn.layers import new_dropout_masks
+
+    new_dropout_masks(model, None)    # each run draws its own from `seed`
     plain = copy.deepcopy(model)
     plain.use_kernels(False)
+    for m in plain.modules():
+        if isinstance(m, torch.nn.LSTM):
+            m.flatten_parameters()        # the copy holds its weights apart
     start = {k: v.clone() for k, v in model.state_dict().items()}
 
     def run(m, bl, bul, vat):
@@ -1218,13 +1260,13 @@ def compare_routes(model, batch_l, batch_ul) -> str:
             fail(f"train step with VAT (xi 1e-2): {k} {lvk[k]} (kernels) "
                  f"vs {lvp[k]} (plain)")
     model.load_state_dict(start)
-    unet_grad = gk["transcriber.Unet1_encoder.block1.conv1.weight"]
+    first, grad = next(iter(gk.items()))            # the input layer's
     return (f"without VAT: losses agree (rtol {STEP_LOSS_RTOL}), every "
             f"gradient within {PROBE_FACTOR}x the plain route's movement "
             f"under a {PROBE} audio probe + {GRAD_FLOOR} of the largest "
-            f"({top}; largest gap {worst} of it), U-Net input "
-            f"layer gradient max {unet_grad.abs().max().item()}; with VAT "
-            f"at xi 1e-2: losses kernels {lvk} plain {lvp}")
+            f"({top}; largest gap {worst} of it), {first} gradient max "
+            f"{grad.abs().max().item()}; with VAT at xi 1e-2: losses "
+            f"kernels {lvk} plain {lvp}")
 
 
 def kernel_counters() -> dict:
@@ -1245,12 +1287,15 @@ def kernel_counters() -> dict:
                 (bak.banded_attention_bwd_partials, "launches_bf16")}
 
 
-def counted_steps(step, state, batches, gen, n_steps: int, dtype: str):
+def counted_steps(step, state, batches, gen, n_steps: int, dtype: str,
+                  path_kernels=None):
     """Run n_steps train steps with every launch count set to 0 just
     before and read just after, and peak memory reset before. Fails
     unless the step launched `mel_power` and each attention kernel of its
-    dtype, and no attention kernel of the other dtype. Returns (ms/step,
-    peak GB, launches, losses of the steps)."""
+    dtype, and no attention kernel of the other dtype; or, where
+    `path_kernels` names the kernels of the path, unless it launched each
+    of them and no other. Returns (ms/step, peak GB, launches, losses of
+    the steps)."""
     counters = kernel_counters()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1264,8 +1309,9 @@ def counted_steps(step, state, batches, gen, n_steps: int, dtype: str):
     launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     for name, n in launches.items():
-        expected = name == "mel_power" or name.endswith("_bf16") == (
-            dtype == "bf16")
+        expected = (name in path_kernels if path_kernels is not None
+                    else name == "mel_power" or name.endswith("_bf16") == (
+                        dtype == "bf16"))
         if (n > 0) != expected:
             fail(f"{dtype} training path launched {name} {n} times")
     if not all(np.isfinite(v.item()) for ls in losses for v in ls.values()):
@@ -2116,29 +2162,35 @@ def step_ms(rec, iteration: int = 10) -> list:
             if i % iteration]
 
 
-def bare_step_ms(model, batch_l, batch_ul, label: str) -> list:
+def bare_step_ms(model, batch_l, batch_ul, label: str, vat: bool = True,
+                 steps: int = 10, profile_steps: int = 2,
+                 warmup: int = 2) -> list:
     """ms/step of a training CLI's step without its loader: `model` (a copy
     of the CLI's) with a fresh train state, batches already on the card,
-    two rounds of 10 steps after 2 warm-up; then a profile of 2 steps
-    (device busy), logged under `label`."""
+    two rounds of `steps` steps after `warmup`; then a profile of
+    `profile_steps` steps (device busy; none at 0), logged under `label`.
+    `vat`: the VAT step on batch_l and batch_ul, else the supervised step
+    on batch_l."""
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
 
     state = create_train_state(model)
-    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    step = make_train_step(model, 1.0, vat=vat, use_unlabeled=vat)
     gen = torch.Generator(device="cuda").manual_seed(0)
-    for _ in range(2):
+    for _ in range(warmup):
         step(state, batch_l, batch_ul, gen)
     out = []
     for _ in range(2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        for _ in range(10):
+        for _ in range(steps):
             step(state, batch_l, batch_ul, gen)
         torch.cuda.synchronize()
-        out.append((time.perf_counter() - t0) / 10 * 1e3)
-    log_profile(label, "step", 2, profile_groups(
-        lambda: [step(state, batch_l, batch_ul, gen) for _ in range(2)]))
+        out.append((time.perf_counter() - t0) / steps * 1e3)
+    if profile_steps:
+        log_profile(label, "step", profile_steps, profile_groups(
+            lambda: [step(state, batch_l, batch_ul, gen)
+                     for _ in range(profile_steps)]))
     return out
 
 
@@ -2837,6 +2889,328 @@ def phase_evaluate_cli(rows, flagship, onset, tmp: str) -> None:
         f"{STREAM_TAIL_ATOL}; share of bins above 0.5) {stream_read}")
 
 
+def phase_mel_at_family_shapes(fe) -> str:
+    """The mel kernel against its plain version at the shapes the new
+    paths give it (B x T frames): the O&F steps' 8 x 640, Thickstun's 1 x
+    640, Prestack's 1 x PRESTACK_FRAMES crops and the evaluation bucket
+    1 x 1280."""
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power, mel_power_plain
+
+    rng = torch.Generator(device="cuda").manual_seed(13)
+    hop = fe.stft.hop_length
+    args = (fe.stft.wcos, fe.stft.wsin, fe.mel_basis, hop)
+    errs = []
+    for b, t in ((B, 640), (1, 640), (1, PRESTACK_FRAMES), (1, 1280)):
+        x = torch.randn((b, t * hop - 1), generator=rng, device="cuda") * 0.1
+        got = mel_power(x, *args, fe.stft.window, fe.twiddle, fe.band)
+        if tuple(got.shape) != (b, t, fe.n_mels):
+            fail(f"mel_power at {b} x {t} frames gave {tuple(got.shape)}")
+        errs.append(f"{b} x {t}: " + str(check_close(
+            f"mel_power at {b} x {t} frames", got, mel_power_plain(x, *args),
+            MEL_TOL)))
+    return "; ".join(errs)
+
+
+def phase_onsets_frames_steps(rows, fe) -> None:
+    """Phase 13: the O&F family's fp32 train steps at its CLI's shape
+    (model_complexity 48, 8 x 640 frames): `OnsetsAndFrames` without VAT
+    and `FrameStackVAT` with VAT on 8 + 8 clips (the CLI's xi 1e-6 and
+    eps 0.1), each timed with the counts reset just before and read just
+    after (mel launches per step) and held through the kernels against the
+    plain versions (phase 8's rule, the same weights, dropout masks and
+    generator state); the plain O&F step profiled (the cuDNN RNN
+    operators' device ms against the convolutions', the busy share)."""
+    from reconvat_tpu_torch.models.onsets_frames import (FrameStackVAT,
+                                                         OnsetsAndFrames)
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    mel_read = phase_mel_at_family_shapes(fe)
+    batches = [onset_batches(seed) for seed in range(2)]
+    read = []
+    for key, cls, vat in (("onsets_frames_step", OnsetsAndFrames, False),
+                          ("framestack_vat_step", FrameStackVAT, True)):
+        model = cls(seed=0, xi=1e-6, eps=0.1)
+        state = create_train_state(model)
+        step = make_train_step(model, 1.0, vat=vat, use_unlabeled=vat)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(state, *batches[0], gen)                    # warm-up
+        n = 3
+        ms, peak_gb, launches, losses = counted_steps(
+            step, state, batches, gen, n, "fp32", path_kernels={"mel_power"})
+        for row in rows:
+            row[f"launches_{key}"] = launches[row["name"]] / n
+        if not vat:
+            # one step of the plain O&F step: the profiler's own pass over
+            # a step's 15,000 device operations (40,000 with VAT) takes
+            # seconds
+            log_profile(f"phase 13 {cls.__name__} step profile (1 step, "
+                        f"fp32, B = {B} x 640)", "step", 1,
+                        profile_groups(lambda: step(state, *batches[0],
+                                                    gen)))
+        read.append(
+            f"{cls.__name__} ({'VAT, 8 + 8' if vat else 'no VAT, 8'} x 640):"
+            f" {ms} ms/step, peak {peak_gb} GB, mel launches per step "
+            f"{launches['mel_power'] / n}, last losses "
+            f"{ {k: v.item() for k, v in losses[-1].items()} }; kernels vs "
+            f"plain versions: {compare_routes(model, *batches[0])}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"phase 13 the O&F family's train steps (fp32, model_complexity "
+        f"48): {'; '.join(read)}; the mel kernel at the family's shapes, max "
+        f"abs err against its plain version (tol {MEL_TOL}): {mel_read}")
+
+
+def _corpus_env(tmp: str) -> dict:
+    """The RECONVAT_*_ROOT variables of phase 12b's corpus (B labeled
+    songs)."""
+    root = os.path.join(tmp, "corpus_onset")
+    return {"RECONVAT_MAPS_ROOT": os.path.join(root, "MAPS"),
+            "RECONVAT_MAESTRO_ROOT": os.path.join(root, "MAESTRO")}
+
+
+def _only_mel(what, launches) -> None:
+    for name, n in launches.items():
+        if (n > 0) != (name == "mel_power"):
+            fail(f"{what} launched {name} {n} times")
+
+
+def _result(logdir, name, keys) -> dict:
+    import pickle
+
+    with open(os.path.join(logdir, name), "rb") as f:
+        result = pickle.load(f)
+    if sorted(result) != sorted(keys):
+        fail(f"{logdir}/{name} keys {sorted(result)}")
+    if not all(np.isfinite(v).all() for v in result.values()):
+        fail(f"{logdir}/{name} holds a non-finite value")
+    return result
+
+
+def phase_onsets_frames_cli(rows, tmp: str) -> None:
+    """Phase 13a: `python -m reconvat_tpu_torch.train_baseline_onset_frame_
+    VAT` through its `Experiment` on phase 12b's corpus with TRAIN_CLI's
+    overrides, at its defaults (`onset_frame`, fp32, VAT off, 8 labeled
+    clips of 640 frames, 10 steps an epoch) and with `model_name=frame
+    VAT=True` (8 + 8 clips; its `tensorboard_log` differentiates the
+    eval-mode VAT through the BiLSTM, cuDNN's RNN backward); each against
+    its bare step on the same batch."""
+    from reconvat_tpu_torch import train_baseline_onset_frame_VAT as of_cli
+    from reconvat_tpu_torch.models.onsets_frames import (FrameStackVAT,
+                                                         OnsetsAndFrames)
+
+    env = _corpus_env(tmp)
+    read = []
+    for key, overrides, cls in (
+            ("of_cli", {}, OnsetsAndFrames),
+            ("of_cli_frame_vat", {"model_name": "frame", "VAT": True},
+             FrameStackVAT)):
+        rec = train_cli(dict(TRAIN_CLI, root=os.path.join(tmp, key),
+                             **overrides), env, of_cli)
+        _only_mel(f"the O&F CLI ({overrides})", rec["launches"])
+        if rec["steps"] != 20 or rec["state"].step != 20:
+            fail(f"the O&F CLI ran {rec['steps']} steps")
+        for row in rows:
+            row[f"launches_{key}"] = rec["launches"][row["name"]]
+        result = _result(rec["logdir"], "result_dict",
+                         OF_RESULT_KEYS[overrides.get("model_name",
+                                                      "onset_frame")])
+        vat = overrides.get("VAT", False)
+        copy = cls(seed=42, xi=1e-6, eps=0.1)
+        copy.load_state_dict(rec["model"].state_dict(), strict=True)
+        batch_l, batch_ul = onset_batches(6)
+        # the step phase 13 profiled, at the CLI's weights
+        bare = bare_step_ms(copy, batch_l, batch_ul, "", vat=vat, steps=3,
+                            profile_steps=0)
+        del copy
+        torch.cuda.empty_cache()
+        ms = step_ms(rec)
+        per_step = rec["step_launches"]["mel_power"] / rec["steps"]
+        read.append(
+            f"{overrides or 'defaults'}: ms/step (loop StepTimer, within "
+            f"epochs) median {np.median(ms)} mean {np.mean(ms)} min "
+            f"{min(ms)} max {max(ms)}, the bare step {bare}; mel launches "
+            f"per step {per_step}, in the run {rec['launches']['mel_power']};"
+            f" final evaluation {rec['eval_ms'][0] / 2} ms/song (2 songs of "
+            f"{CORPUS_SECONDS} s); save_checkpoint ms {rec['ckpt_ms']}; peak "
+            f"device GB {rec['peak_gb']}; run wall {rec['wall_s']} s; note "
+            f"f1 {np.mean(result['metric/note/f1'])}, frame f1 "
+            f"{np.mean(result['metric/frame/f1'])}")
+    log(f"phase 13a the O&F training CLI (fp32, {B} labeled x 640 frames, "
+        f"{TRAIN_CLI}): {'; '.join(read)}")
+
+
+def phase_baseline_clis(rows, tmp: str) -> None:
+    """Phase 13b: the bare Prestack step at 640 frames (its peak memory);
+    `train_baseline_Thickstun` and `train_baseline_Prestack` for one epoch
+    at batch 1 (a full sweep of phase 12b's B labeled songs; Thickstun on
+    640-frame crops, Prestack on PRESTACK_FRAMES), each against its bare
+    step; then `evaluate_cli` on each `model-1`, counts
+    reset just before and read just after, and the bucketed full-song
+    posteriograms of those weights through the kernels against the plain
+    versions (`same_notes`)."""
+    from reconvat_tpu_torch import evaluate, evaluate_cli
+    from reconvat_tpu_torch import train_baseline_Prestack as prestack_cli
+    from reconvat_tpu_torch import train_baseline_Thickstun as thickstun_cli
+    from reconvat_tpu_torch.data.datasets import MAPS
+    from reconvat_tpu_torch.models import get_model
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    env = _corpus_env(tmp)
+    counters = kernel_counters()
+    # the bare Prestack step at the CLI's 640 frames, for its peak (the
+    # reason for PRESTACK_FRAMES)
+    model = get_model("Prestack", seed=0)
+    step = make_train_step(model, 1.0, vat=False, use_unlabeled=False)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    step(create_train_state(model),
+         {k: v[:1] for k, v in onset_batches(7)[0].items()}, None, None)
+    read = [f"the bare Prestack step at 1 x 640 frames: peak "
+            f"{torch.cuda.max_memory_allocated() / 1e9} GB of "
+            f"{torch.cuda.get_device_properties(0).total_memory / 1e9} GB"]
+    del model, step
+    torch.cuda.empty_cache()
+    for name, cli, frames in (("Thickstun", thickstun_cli, 640),
+                              ("Prestack", prestack_cli, PRESTACK_FRAMES)):
+        rec = train_cli(dict(TRAIN_CLI, epoches=1, saving_freq=1,
+                             sequence_length=frames * 512,
+                             root=os.path.join(tmp, name)), env, cli)
+        _only_mel(f"the {name} CLI", rec["launches"])
+        if rec["steps"] != B or rec["state"].step != B:
+            fail(f"the {name} CLI ran {rec['steps']} steps, not one per "
+                 f"labeled song")
+        _result(rec["logdir"], "result_dict", BASELINE_RESULT_KEYS)
+        copy = get_model(name, seed=42)
+        copy.load_state_dict(rec["model"].state_dict(), strict=True)
+        batch_l = {k: v[:1, :frames] if k != "audio"
+                   else v[:1, :frames * 512]
+                   for k, v in onset_batches(7)[0].items()}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        bare = bare_step_ms(copy, batch_l, None, f"phase 13b bare {name} "
+                            f"CLI step profile (1 step, fp32, 1 x {frames})",
+                            vat=False, steps=1, profile_steps=1, warmup=1)
+        bare_gb = torch.cuda.max_memory_allocated() / 1e9
+        del copy
+        torch.cuda.empty_cache()
+        weight = ckpt.latest_checkpoint(rec["logdir"])
+        if weight is None or os.path.basename(weight) != "model-1":
+            fail(f"the {name} CLI's latest checkpoint is {weight}")
+        saved_root = os.environ.get("RECONVAT_MAPS_ROOT")
+        os.environ["RECONVAT_MAPS_ROOT"] = env["RECONVAT_MAPS_ROOT"]
+        try:
+            torch.cuda.synchronize()
+            for f, c in counters.values():
+                setattr(f, c, 0)
+            t0 = time.perf_counter()
+            evaluate_cli.ex.run(evaluate_cli.main, dict(
+                model_type=name, weight_file=weight,
+                output_folder=os.path.join(tmp, f"evaluated_{name}")))
+            torch.cuda.synchronize()
+            eval_s = time.perf_counter() - t0
+            launches = {k: getattr(f, c) for k, (f, c) in counters.items()}
+            _only_mel(f"the evaluation CLI ({name})", launches)
+            for row in rows:
+                row[f"launches_{name.lower()}_cli"] = \
+                    rec["launches"][row["name"]]
+                row[f"launches_evaluate_cli_{name}"] = launches[row["name"]]
+            result = _result(evaluate_cli.ex.current_run.config["logdir"],
+                             "result_dict_infer", BASELINE_RESULT_KEYS)
+        finally:
+            if saved_root is None:
+                os.environ.pop("RECONVAT_MAPS_ROOT", None)
+            else:
+                os.environ["RECONVAT_MAPS_ROOT"] = saved_root
+        songs = MAPS(env["RECONVAT_MAPS_ROOT"],
+                     groups=["ENSTDkAm", "ENSTDkCl"], sequence_length=None,
+                     verbose=False)
+        runners = {}
+        for route in ("kernels", "plain"):
+            m = get_model(name, seed=0)
+            m.load_reference_weights(ckpt.load_state(weight)["model"])
+            m.use_kernels(route == "kernels")
+            runners[route] = evaluate.make_bucketed_runner(m)
+        diffs, aside, notes = [], 0, 0
+        for song in songs:
+            pk, lk, _ = runners["kernels"](song)
+            pp, lp, _ = runners["plain"](song)
+            d, n_aside, n_notes = same_notes(
+                f"phase 13b {name}", pk["frame"][0].float().cpu().numpy(),
+                pp["frame"][0].float().cpu().numpy())
+            diffs.append(d)
+            aside += n_aside
+            notes += n_notes
+            for k in lp:
+                if not np.isclose(float(lk[k]), float(lp[k]), rtol=1e-4,
+                                  atol=1e-6):
+                    fail(f"phase 13b {name} loss {k}: kernels "
+                         f"{float(lk[k])}, plain {float(lp[k])}")
+        del runners
+        torch.cuda.empty_cache()
+        ms = step_ms(rec, iteration=B)
+        read.append(
+            f"{name} (1 x {frames} frames): {rec['steps']} steps, ms/step "
+            f"(loop StepTimer) median {np.median(ms)} min {min(ms)} max "
+            f"{max(ms)}, the bare step {bare}, its peak {bare_gb} GB; mel launches in the run "
+            f"{rec['launches']['mel_power']}; final evaluation "
+            f"{rec['eval_ms'][0] / 2} ms/song; CLI peak GB {rec['peak_gb']};"
+            f" run wall {rec['wall_s']} s; evaluation CLI {eval_s} s, mel "
+            f"launches {launches['mel_power']}, note f1 "
+            f"{np.mean(result['metric/note/f1'])}; kernels vs plain "
+            f"posteriograms max abs diff {max(diffs)} (tol {POST_ATOL}), "
+            f"{notes} notes, {aside} pitch columns set aside")
+    log(f"phase 13b the baseline CLIs (fp32, batch 1, one epoch over {B} "
+        f"songs) and the evaluation CLI on their model-1: {'; '.join(read)}")
+
+
+def phase_families_bf16(rows) -> None:
+    """Phase 13c: the eval forward of each new model in bf16
+    (`compute_dtype='bfloat16'`, the fp32 model's weights): `transcribe`
+    of 2 clips of 640 frames through the mel kernel against the plain mel
+    route, both rolls, by `bf16_held`. The mel kernel is fp32 in both
+    dtypes, so the two bf16 routes differ only by the frontend's fp32
+    rounding carried through the bf16 trunk, where it can flip a bf16
+    rounding; the limit is BF16_FACTOR x the plain route's own bf16-vs-fp32
+    gap + the two fp32 routes' gap, all read in this run."""
+    from reconvat_tpu_torch.models import get_model
+
+    rng = np.random.RandomState(14)
+    audio = torch.tensor(rng.randn(2, SAMPLES) * 0.1, dtype=torch.float32,
+                         device="cuda")
+    read = []
+    for name in ("OnsetsAndFrames", "FrameStack", "OnsetStack", "Thickstun",
+                 "Prestack"):
+        clip = audio[:, :PRESTACK_FRAMES * 512] if name == "Prestack" \
+            else audio
+        out = {}
+        for dtype in (None, "bfloat16"):
+            for route in ("kernels", "plain"):
+                m = get_model(name, seed=0, compute_dtype=dtype)
+                m.use_kernels(route == "kernels")
+                out[dtype, route] = m.transcribe(clip)
+                del m
+        gaps = {}
+        for roll in ("onset", "frame"):
+            diff, tol = bf16_held(
+                f"{name} {roll}", out["bfloat16", "kernels"][roll],
+                out["bfloat16", "plain"][roll], out[None, "kernels"][roll],
+                out[None, "plain"][roll])
+            move = (out["bfloat16", "kernels"][roll]
+                    - out[None, "kernels"][roll]).abs().max().item()
+            if move == 0:
+                fail(f"{name} {roll}: the bf16 model equals the fp32 one")
+            gaps[roll] = (diff, tol, move)
+        read.append(f"{name} {gaps}")
+        torch.cuda.empty_cache()
+    log(f"phase 13c bf16 eval forwards (2 x 640 frames; Prestack 2 x "
+        f"{PRESTACK_FRAMES}), kernels vs plain mel route by bf16_held, per "
+        f"roll (largest gap, limit, the kernel route's bf16-vs-fp32 move): "
+        f"{'; '.join(read)}")
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -2886,6 +3260,18 @@ def main() -> int:
         phase_unet_onset_step(rows)
         onset = phase_unet_onset_cli(rows, tmp)
         phase_evaluate_cli(rows, rec, onset, tmp)
+        del rec, onset
+        torch.cuda.empty_cache()
+        took = [f"phases 1-12c {time.perf_counter() - t_start} s"]
+        for label, phase, args in (
+                ("13", phase_onsets_frames_steps, (rows, fe)),
+                ("13a", phase_onsets_frames_cli, (rows, tmp)),
+                ("13b", phase_baseline_clis, (rows, tmp)),
+                ("13c", phase_families_bf16, (rows,))):
+            t0 = time.perf_counter()
+            phase(*args)
+            took.append(f"{label} {time.perf_counter() - t0} s")
+        log(f"phase times: {', '.join(took)}")
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
     for row in rows:

@@ -346,13 +346,21 @@ def evaluate_wo_velocity(data, run_on_batch, onset_threshold=0.5,
     return results
 
 
+def metric_parts(key):
+    """(category, name) of a `metric/<category>/<name>` key; None for any
+    other key, `OnsetStackVAT`'s `metric/test_accuracy` loss among them."""
+    parts = key.split("/")
+    return tuple(parts[1:]) if len(parts) == 3 and parts[0] == "metric" \
+        else None
+
+
 def print_metrics(results):
     """`category name: mean ± std` table (reference
     `train_UNet_Onset_VAT.py:164-167`)."""
     lines = []
     for key, values in results.items():
-        if key.startswith("metric/"):
-            _, category, name = key.split("/")
+        if metric_parts(key):
+            category, name = metric_parts(key)
             line = (f"{category:>32} {name:25}: "
                     f"{np.mean(values):.3f} ± {np.std(values):.3f}")
             print(line)

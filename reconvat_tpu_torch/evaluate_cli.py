@@ -5,8 +5,9 @@ library it drives is `reconvat_tpu_torch/evaluate.py`):
     python -m reconvat_tpu_torch.evaluate_cli with model_type=UNet_Onset \
         weight_file=runs/.../model-200
 
-`model_type` is a ported model (`ReconVAT`, `UNet_Onset`); the JAX
-package's others raise. `weight_file` is a torch `.pt` of the reference's
+`model_type` is a ported model: the root CLI's `ReconVAT`, `UNet_Onset`,
+`OnsetsAndFrames`, `Thickstun` and `Prestack` (and `FrameStack`,
+`OnsetStack`); `Segmentation` and the JAX package's other models raise. `weight_file` is a torch `.pt` of the reference's
 state_dict names, a `model-N` checkpoint directory of the port's training
 CLIs, or None (random weights, with a warning); an orbax checkpoint of the
 JAX package raises. The songs of MAPS `ENSTDkAm` and `ENSTDkCl` (under
@@ -84,7 +85,8 @@ def main(model_type, reconstruction, weight_file, mode, inference, device,
     print_config(ex.current_run)
 
     from .data.datasets import MAPS
-    from .evaluate import evaluate_wo_velocity, make_bucketed_runner
+    from .evaluate import (evaluate_wo_velocity, make_bucketed_runner,
+                           metric_parts)
     from .train.prepare import _roots
 
     inference_state = "infer" if inference else "no_infer"
@@ -102,8 +104,8 @@ def main(model_type, reconstruction, weight_file, mode, inference, device,
         save_path=os.path.join(logdir, f"MIDI_results-{inference_state}"))
 
     for key, values in metrics.items():
-        if key.startswith("metric/"):
-            _, category, name = key.split("/")
+        if metric_parts(key):
+            category, name = metric_parts(key)
             print(f"{category:>32} {name:25}: "
                   f"{np.mean(values) * 100:.3f} ± {np.std(values) * 100:.3f}")
     os.makedirs(logdir, exist_ok=True)

@@ -3,6 +3,10 @@ imported lazily by name:
 
     from reconvat_tpu_torch.models.reconvat import ReconVAT
     from reconvat_tpu_torch.models.unet_onset import UNetOnset
+    from reconvat_tpu_torch.models.onsets_frames import (OnsetsAndFrames,
+        FrameStackVAT, OnsetStackVAT)
+    from reconvat_tpu_torch.models.thickstun import Thickstun
+    from reconvat_tpu_torch.models.prestack import Prestack
 
 `MODEL_REGISTRY` holds the ported ones; the JAX package's other names raise
 `NotImplementedError` in `get_model`.
@@ -11,12 +15,19 @@ imported lazily by name:
 MODEL_REGISTRY = {
     "ReconVAT": ("reconvat_tpu_torch.models.reconvat", "ReconVAT"),
     "UNet_Onset": ("reconvat_tpu_torch.models.unet_onset", "UNetOnset"),
+    "OnsetsAndFrames": ("reconvat_tpu_torch.models.onsets_frames",
+                        "OnsetsAndFrames"),
+    "FrameStack": ("reconvat_tpu_torch.models.onsets_frames",
+                   "FrameStackVAT"),
+    "OnsetStack": ("reconvat_tpu_torch.models.onsets_frames",
+                   "OnsetStackVAT"),
+    "Thickstun": ("reconvat_tpu_torch.models.thickstun", "Thickstun"),
+    "Prestack": ("reconvat_tpu_torch.models.prestack", "Prestack"),
 }
 
 # the JAX package's registry names that have no port yet
 NOT_PORTED = (
-    "OnsetsAndFrames", "FrameStack", "OnsetStack", "Thickstun",
-    "Segmentation", "Prestack", "VATSelfAttention1D", "VATCNNAttention1D",
+    "Segmentation", "VATSelfAttention1D", "VATCNNAttention1D",
     "VATCNNAttentionOnsetFrame", "OnsetsAndFramesSelfAttention",
     "SimpleOnsetFrame", "StandaloneSelfAttention1D",
     "StandaloneSelfAttention2D", "Reconstructor")

@@ -1,7 +1,8 @@
 """What the port's models share: the device rule, fp32 math, the seeded
 init, and `TranscriptionModel`, the signal chain, VAT target, kernel switch
 and reference-weight loader of a model built on it (`ReconVAT`,
-`UNetOnset`).
+`UNetOnset`; `FrameSpecModel`, its (B, T, F) spec and serving path, for
+the Onsets-and-Frames family, Thickstun and Prestack).
 """
 from __future__ import annotations
 
@@ -16,7 +17,7 @@ from ..nn.attention import MultiHeadAttention1D
 from ..nn.unet import frozen_batch_stats, use_running_stats
 from ..ops.normalize import Normalization
 from ..vat import VATConfig
-from .common import make_log_norm_spec
+from .common import make_log_norm_spec, transcribe_spec
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,7 +53,9 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init mirroring the JAX package's initializers: conv and linear
     weights Uniform(+-1/sqrt(fan_in)) (torch's default), biases zero,
     attention projections N(0, 2/fan_out), `rel` N(0, 1), BatchNorm at
-    identity. Draws in `modules()` order from `generator`."""
+    identity, every LSTM weight and bias Uniform(+-1/sqrt(hidden)) (torch's
+    default; the sum b_ih + b_hh is the JAX package's fused bias). Draws
+    in `modules()` order from `generator`."""
     attn_linears = set()
     for m in module.modules():
         if isinstance(m, MultiHeadAttention1D):
@@ -63,6 +66,10 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
             m.rel.normal_(0.0, 1.0, generator=generator)
         elif isinstance(m, nn.BatchNorm2d):
             m.reset_parameters()
+        elif isinstance(m, nn.LSTM):
+            bound = 1.0 / np.sqrt(m.hidden_size)
+            for w in m.parameters():
+                w.uniform_(-bound, bound, generator=generator)
         elif (isinstance(m, (nn.Conv2d, nn.ConvTranspose2d, nn.Linear))
               and m not in attn_linears):
             # torch's fan_in: dim 1 of the weight times the kernel area
@@ -82,10 +89,11 @@ class TranscriptionModel:
 
     REFERENCE_ONLY = ("spectrogram.", "normalize.", "vat_loss.")
 
-    def _init_chain(self, frontend, n_bins, log, mode, xi, eps, kl_div,
-                    seed, device, vat_chain):
+    def _init_chain(self, frontend, n_bins, log, mode, vat_cfg, seed,
+                    device, vat_chain="separate"):
         """Called after the network is built: the signal chain, VAT's
-        configuration, the seeded parameters, eval mode, the device."""
+        configuration (its `norm_axis` is the bins axis of the family's
+        `make_spec`), the seeded parameters, eval mode, the device."""
         if vat_chain not in ("separate", "batched"):
             raise ValueError(f"unknown vat_chain {vat_chain!r}")
         self.vat_chain = vat_chain
@@ -93,9 +101,7 @@ class TranscriptionModel:
         self.n_bins = n_bins
         self.log = log
         self.normalize = Normalization(mode)
-        # the spec image is (B, T, F, 1): the perturbation's per-vector L2
-        # norm runs over the bins axis
-        self.vat_cfg = VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=2)
+        self.vat_cfg = vat_cfg
         init_parameters(self, torch.Generator().manual_seed(seed))
         self.eval()
         self.to(device)
@@ -110,6 +116,12 @@ class TranscriptionModel:
         for m in self.modules():
             if hasattr(m, "use_kernel"):
                 m.use_kernel = flag
+
+    @staticmethod
+    def image_vat_cfg(xi, eps, kl_div) -> VATConfig:
+        """VAT on the (B, T, F, 1) spec image of `make_spec`: the
+        perturbation's per-vector L2 norm runs over the bins axis."""
+        return VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=2)
 
     def make_spec(self, audio, t_true=None):
         """audio (B, N) float in [-1, 1] -> normalized log-spec (B,T,F,1);
@@ -155,3 +167,31 @@ class TranscriptionModel:
             raise ValueError(f"weights of {source} do not fit the model: "
                              f"missing {missing}, unexpected {unexpected}")
         self.load_state_dict({k: obj[k] for k in own}, strict=True)
+
+
+class FrameSpecModel(TranscriptionModel):
+    """A `TranscriptionModel` on the (B, T, F) spec (the Onsets-and-Frames
+    family, Thickstun, Prestack), with the serving path over `_rolls`."""
+
+    def make_spec(self, audio, t_true=None):
+        """audio (B, N) -> normalized log-spec (B, T, F)."""
+        return make_log_norm_spec(self, audio, t_true)
+
+    def _rolls(self, spec):
+        """(onset, frame) rolls of the eval-mode forward; a model with one
+        roll returns it twice."""
+        raise NotImplementedError
+
+    @torch.no_grad()
+    def transcribe(self, audio, bucket_frames: int = 0):
+        """Serving path: the eval-mode forward's onset and frame rolls.
+        bucket_frames > 0 pads the clip to a frame-bucket boundary, masks
+        the normalization statistics to the true frames and trims the
+        padded tail."""
+        self.eval()
+        with fp32_math():
+            spec, t_true = transcribe_spec(self, audio, bucket_frames)
+            onset, frame = self._rolls(spec)
+        if bucket_frames:
+            onset, frame = onset[:, :t_true], frame[:, :t_true]
+        return {"onset": onset, "frame": frame}

@@ -130,8 +130,9 @@ class UNetOnset(TranscriptionModel, OnsetUNet):
         device = resolve_device(device)
         frontend, n_bins = make_frontend("Mel")
         super().__init__(n_bins, reconstruction, compute_dtype)
-        self._init_chain(frontend, n_bins, log, mode, xi, eps, kl_div, seed,
-                         device, vat_chain)
+        self._init_chain(frontend, n_bins, log, mode,
+                         self.image_vat_cfg(xi, eps, kl_div), seed, device,
+                         vat_chain)
 
     vat_target = OnsetUNet.transcribe_heads
 

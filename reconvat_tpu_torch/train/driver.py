@@ -1,13 +1,14 @@
-"""The training driver of the VAT training CLI (the port's counterpart of
+"""The training driver of the training CLIs (the port's counterpart of
 `reconvat_tpu/train/driver.py`, reference `train_UNet_Onset_VAT.py:
 82-170`): prepare the datasets -> loaders with device prefetch -> train
-state -> epoch loop (`train_VAT_model`, `tensorboard_log`, periodic
-checkpoints) -> full-song evaluation of the test split, on one device.
+state -> epoch loop (`train_VAT_model`, or the supervised baselines'
+full-epoch `train_model`; `tensorboard_log`, periodic checkpoints) ->
+full-song evaluation of the test split, on one device.
 
 One `torch.Generator` on the model's device, seeded from `seed`, draws
-every VAT direction in place of the JAX package's key splits, so a run's
-random stream differs from the JAX package's; the loaders' orders and the
-datasets' crops are the same for a seed.
+every VAT direction and dropout mask in place of the JAX package's key
+splits, so a run's random stream differs from the JAX package's; the
+loaders' orders and the datasets' crops are the same for a seed.
 """
 from __future__ import annotations
 
@@ -46,25 +47,28 @@ def build_mesh(cfg):
 def check_settings(cfg):
     """Raise for the settings the training CLIs of the port do not run: a
     device mesh, the folded U-Net layout, the plain attention, another
-    frontend, and CUDA without a card. The CLIs' `Experiment` runs it
-    before the observers write the run directory."""
+    frontend, and CUDA without a card. `attn_impl` and `conv_layout` are
+    read where a CLI has them (the baselines' have neither). The CLIs'
+    `Experiment` runs it before the observers write the run directory."""
     build_mesh(cfg)
     if cfg["spec"] != "Mel":
         raise NotImplementedError(
             f"spec={cfg['spec']!r}: only the Mel frontend is ported "
             f"(ROADMAP §1 item 10)")
-    if cfg["attn_impl"] == "xla":
+    attn_impl = cfg.get("attn_impl", "auto")
+    if attn_impl == "xla":
         raise ValueError(
             "attn_impl='xla' selects the plain attention, which must not "
             "be the training path; use 'auto' or 'pallas' (the kernels)")
-    if cfg["attn_impl"] not in ("auto", "pallas"):
-        raise ValueError(f"unknown attn_impl {cfg['attn_impl']!r}")
-    if cfg["conv_layout"] == "folded":
+    if attn_impl not in ("auto", "pallas"):
+        raise ValueError(f"unknown attn_impl {attn_impl!r}")
+    conv_layout = cfg.get("conv_layout", "auto")
+    if conv_layout == "folded":
         raise NotImplementedError(
             "conv_layout='folded' is the JAX package's TPU layout; the port "
             "runs the NHWC-equivalent layout only ('auto' or 'nhwc')")
-    if cfg["conv_layout"] not in ("auto", "nhwc"):
-        raise ValueError(f"unknown conv_layout {cfg['conv_layout']!r}")
+    if conv_layout not in ("auto", "nhwc"):
+        raise ValueError(f"unknown conv_layout {conv_layout!r}")
     resolve_device(cfg["device"])
 
 

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from ..data.loader import BATCH_KEYS, device_batch
-from ..evaluate import _eval_forward, evaluate_wo_velocity
+from ..evaluate import _eval_forward, evaluate_wo_velocity, metric_parts
 from ..models.reconvat import fp32_math
 from ..utils import png_bytes
 from . import profiler
@@ -369,8 +369,8 @@ def tensorboard_log(logger, model, batch_visualize, validation_set,
         results = evaluate_wo_velocity(validation_set, runner,
                                        reconstruction=reconstruction)
         for k, values in results.items():
-            if k.startswith("metric/"):
-                _, category, name = k.split("/")
+            if metric_parts(k):
+                category, name = metric_parts(k)
                 if verbose:
                     print(f"{category:>32} {name:25}: "
                           f"{np.mean(values):.3f} ± {np.std(values):.3f}")

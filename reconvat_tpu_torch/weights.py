@@ -11,10 +11,29 @@ name with a layout change per leaf:
   batch_stats mean / var                -> running_mean / running_var
   rel                                   -> rel (as is)
 
-Both 4-D cases are the same axis permutation (3, 2, 0, 1).
+Both 4-D cases are the same axis permutation (3, 2, 0, 1), but for
+Thickstun's `CNN_freq` and `CNN_time`: the reference's weights are
+(O, I, freq, time) and the JAX kernels (time, freq, I, O), so (3, 2, 1, 0)
+(`reconvat_tpu/models/thickstun.py:126-137`).
+
+The families whose JAX modules are named otherwise than the reference's
+get the reference's names back (`_torch_path`), the inverse of the JAX
+package's loaders:
+  - a BiLSTM's `{fwd,bwd}_w_ih`, `_w_hh` (F or H, 4H) and `_bias` (4H) ->
+    `weight_ih_l0[_reverse]`, `weight_hh_l0[_reverse]` (transposed; the
+    gate order i, f, g, o is torch's), `bias_ih_l0[_reverse]` = the fused
+    bias and `bias_hh_l0[_reverse]` = 0;
+  - the O&F conv trunk's `conv0/bn0/conv1/bn1/conv2/bn2/fc` -> `cnn.0/1/3/4/
+    8/9`, `fc.0`; `frame_conv` / `frame_linear` -> `frame_stack.0` / `.1`
+    (`reconvat_tpu/models/onsets_frames.py:205-219`);
+  - Prestack's `Unet1_*` -> `prestack_model.0.Unet1_*`, `resnet` ->
+    `prestack_model.1`, and Flax's list names `layer1_0`, `downsample_0`
+    -> `layer1.0`, `downsample.0` (`reconvat_tpu/models/prestack.py:
+    198-224`).
 """
 from __future__ import annotations
 
+import re
 from collections import OrderedDict
 
 import numpy as np
@@ -29,8 +48,37 @@ def _walk(tree, prefix=()):
             yield prefix + (key,), np.asarray(val)
 
 
+_CONVSTACK = {"conv0": "cnn.0", "bn0": "cnn.1", "conv1": "cnn.3",
+              "bn1": "cnn.4", "conv2": "cnn.8", "bn2": "cnn.9", "fc": "fc.0"}
+_FREQ_MAJOR = {("CNN_freq",), ("CNN_time",)}      # Thickstun's convolutions
+_LSTM_LEAF = re.compile(r"(fwd|bwd)_(w_ih|w_hh|bias)$")
+
+
+def _torch_path(path):
+    """The reference's module path of a JAX module path. A U-Net at the
+    root of the tree is Prestack's (the flagship's sits under
+    `transcriber`)."""
+    out = []
+    for i, seg in enumerate(path):
+        if i and path[i - 1] in ("convstack", "frame_conv") \
+                and seg in _CONVSTACK:
+            seg = _CONVSTACK[seg]
+        elif seg == "frame_conv":
+            seg = "frame_stack.0"
+        elif seg == "frame_linear":
+            seg = "frame_stack.1"
+        elif i == 0 and seg.startswith("Unet1_"):
+            seg = "prestack_model.0." + seg
+        elif i == 0 and seg == "resnet":
+            seg = "prestack_model.1"
+        elif path[0] == "resnet":
+            seg = re.sub(r"^(\w+)_(\d+)$", r"\1.\2", seg)
+        out.append(seg)
+    return tuple(out)
+
+
 def _key(path, name):
-    return ".".join((*path, name))
+    return ".".join((*_torch_path(path), name))
 
 
 def _tensor(w):
@@ -43,9 +91,20 @@ def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
     sd = OrderedDict()
     for path, w in _walk(variables["params"]):
         mod, leaf = path[:-1], path[-1]
+        lstm = _LSTM_LEAF.match(leaf)
+        if lstm:
+            sfx = "_l0" + ("" if lstm.group(1) == "fwd" else "_reverse")
+            if lstm.group(2) == "bias":
+                sd[_key(mod, "bias_ih" + sfx)] = _tensor(w)
+                sd[_key(mod, "bias_hh" + sfx)] = _tensor(np.zeros_like(w))
+            else:
+                sd[_key(mod, f"weight_{lstm.group(2)[2:]}{sfx}")] = \
+                    _tensor(w.T)
+            continue
         if leaf == "kernel":
             if w.ndim == 4:
-                w = w.transpose(3, 2, 0, 1)
+                w = w.transpose((3, 2, 1, 0) if mod in _FREQ_MAJOR
+                                else (3, 2, 0, 1))
             elif w.ndim == 2:
                 w = w.T
             else:

@@ -219,8 +219,8 @@ def test_evaluate_cli_reconvat_from_pt(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ({"model_type": "Thickstun"}, NotImplementedError, "item 10"),
-    ({"model_type": "Prestack"}, NotImplementedError, "item 10"),
+    ({"model_type": "Segmentation"}, NotImplementedError, "item 10"),
+    ({"model_type": "VATSelfAttention1D"}, NotImplementedError, "item 10"),
     ({"spec": "CQT"}, NotImplementedError, "Mel frontend"),
     ({"weight_file": "orbax"}, ValueError, "orbax"),
     ({}, RuntimeError, "no CUDA device"),

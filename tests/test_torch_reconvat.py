@@ -238,6 +238,12 @@ PORT_MODULES = [
     "reconvat_tpu_torch.models.unet_onset",
     "reconvat_tpu_torch.train_UNet_Onset_VAT",
     "reconvat_tpu_torch.evaluate_cli",
+    "reconvat_tpu_torch.nn.layers", "reconvat_tpu_torch.models.onsets_frames",
+    "reconvat_tpu_torch.models.thickstun",
+    "reconvat_tpu_torch.models.prestack",
+    "reconvat_tpu_torch.train_baseline_onset_frame_VAT",
+    "reconvat_tpu_torch.train_baseline_Thickstun",
+    "reconvat_tpu_torch.train_baseline_Prestack",
     "chip_smoke",
 ]
 

@@ -331,7 +331,7 @@ def test_model_registry_and_refusals(monkeypatch, tmp_path):
     assert isinstance(model, UNetOnset)
     assert type(get_model("ReconVAT", device="cpu")).__name__ == "ReconVAT"
     with pytest.raises(NotImplementedError, match="item 10"):
-        get_model("Thickstun", device="cpu")
+        get_model("Segmentation", device="cpu")
     with pytest.raises(KeyError):
         get_model("NoSuchModel")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
