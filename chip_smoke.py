@@ -45,6 +45,16 @@ frames, held through the kernel against the plain mel route (phase 13); the O&F 
 VAT=True` (13a); the Thickstun and Prestack training CLIs for one epoch and
 the evaluation CLI on their checkpoints, kernel against plain (13b); and a
 bf16 eval forward of each of the five models, kernel against plain (13c).
+Then Segmentation ("baseline_Multi_Inst"): an fp32 VAT train step at 8 + 8
+x 640 frames, profiled, the mel kernel against the plain route (phase 14);
+its training CLI for one epoch, the transcription CLI with
+`model_type=baseline_Multi_Inst` and the evaluation CLI with
+`model_type=Segmentation` on its weights, and a 60-s song streamed against
+its bucketed transcription (14a-14b); a bf16 forward (14c). Last, the
+attention models: the fp32 attention kernels at their heads (8 of Dh = 6
+and 8 of Dh = 96, with drawn and zero `rel`) against their plain versions
+and float64, timed (phase 15), and a train step of each of the nine
+models through the kernels against the plain versions (15a).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -54,6 +64,7 @@ or when any check fails. Imports nothing of JAX or of `reconvat_tpu`.
 """
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -174,6 +185,17 @@ BF16_VAT_XI = 0.1
 # them in other orders, an fp32 rounding that no relative bound and no
 # input probe sees
 PROBE, PROBE_FACTOR, GRAD_FLOOR = 1e-6, 3.0, 5e-4
+# the Reconstructor's loss, the BCE of its clamped reconstruction, weighs
+# each element by 1 / (p (1 - p)): at random init its gradient is set by
+# the few elements next to the clamp, which a change at the size of the
+# routes' rounding moves by as much as the gradient itself, so its
+# gradients are held on the elements CLAMP_MARGIN or more inside [0, 1]
+CLAMP_MARGIN = 1e-2
+# Segmentation's VAT `r_norm` entries (the mean |normalized direction|)
+# move by up to 0.4 % between the routes; they are held within
+# STEP_LOSS_RTOL + PROBE_FACTOR x the plain route's own spread under
+# R_NORM_PROBES audio probes and its mel computed in float64
+R_NORM_PROBES = 2
 # the transcription CLI (phase 10): its default bucket; streaming (phase
 # 10b): the CLI's windows and halo, a synthetic song of SONG_SECONDS, held
 # against the bucketed transcribe of the song by the bounds of the JAX
@@ -1187,31 +1209,75 @@ def train_batches(seed: int):
     return {"audio": audio(), "frame": label}, {"audio": audio()}
 
 
-def step_grads(model, batch_l, batch_ul, seed: int, vat: bool):
+def step_grads(model, batch_l, batch_ul, seed: int, vat: bool,
+               objective=None):
     """Losses and per-parameter gradients of one training forward and
-    backward (no update), VAT directions from `seed`."""
+    backward (no update), VAT directions from `seed`; with `objective`
+    (predictions, losses, spec) -> scalar, the gradients of that scalar in
+    place of the total loss's."""
     from reconvat_tpu_torch.models.reconvat import fp32_math
     from reconvat_tpu_torch.train.state import total_loss_from_dict
 
     model.zero_grad(set_to_none=True)
     gen = torch.Generator(device=model.device).manual_seed(seed)
     with fp32_math():
-        _, losses, _ = model.run_on_batch(batch_l, batch_ul, gen, vat=vat,
-                                          train=True)
-        total_loss_from_dict(losses, 1.0).backward()
+        preds, losses, spec = model.run_on_batch(batch_l, batch_ul, gen,
+                                                 vat=vat, train=True)
+        (total_loss_from_dict(losses, 1.0) if objective is None else
+         objective(preds, losses, spec)).backward()
     return ({k: v.item() for k, v in losses.items()},
             {n: p.grad.detach().clone() for n, p in model.named_parameters()})
 
 
-def compare_routes(model, batch_l, batch_ul) -> str:
+def probed(batch, seed: int, keys=("audio",)):
+    """`batch` with each of `keys` moved by PROBE: the audio relatively,
+    the 0/1 frame roll absolutely, by seeded normal noise."""
+    out = dict(batch)
+    for i, key in enumerate(keys):
+        x = batch[key]
+        noise = PROBE * torch.randn(x.shape, device=x.device, generator=(
+            torch.Generator(device=x.device).manual_seed(seed + i)))
+        out[key] = x * (1 + noise) if key == "audio" else x + noise
+    return out
+
+
+@contextlib.contextmanager
+def float64_mel(model):
+    """Inside, `model`'s mel frontend computes in float64 (the plain
+    version on float64 copies of its bases), its output cast to fp32."""
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power_plain
+
+    fe = model.frontend
+
+    def hook(_, inputs, out):
+        return mel_power_plain(
+            inputs[0].double(), fe.stft.wcos.double(), fe.stft.wsin.double(),
+            fe.mel_basis.double(), fe.stft.hop_length).to(out.dtype)
+
+    handle = fe.register_forward_hook(hook)
+    try:
+        yield
+    finally:
+        handle.remove()
+
+
+def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
     """One step's losses and gradients through the kernels against the
     same step through the plain versions, from the same state (and the
     same dropout masks, drawn from the same seed): without VAT (losses and
     every gradient), and with VAT at xi = 1e-2 from the same directions
-    (losses)."""
+    (losses, at STEP_LOSS_RTOL).
+
+    The Reconstructor's gradients are those of its BCE on the elements
+    the plain route puts CLAMP_MARGIN or more inside [0, 1], and its probe
+    moves both inputs (audio and frame roll). With `r_norm_spread` the VAT
+    step's `r_norm` entries are held within STEP_LOSS_RTOL + PROBE_FACTOR x
+    the plain route's own spread (R_NORM_PROBES audio probes of both
+    batches, and its mel in float64)."""
     import copy
     import dataclasses
 
+    from reconvat_tpu_torch.models.reconvat import fp32_math
     from reconvat_tpu_torch.nn.layers import new_dropout_masks
 
     new_dropout_masks(model, None)    # each run draws its own from `seed`
@@ -1221,17 +1287,31 @@ def compare_routes(model, batch_l, batch_ul) -> str:
         if isinstance(m, torch.nn.LSTM):
             m.flatten_parameters()        # the copy holds its weights apart
     start = {k: v.clone() for k, v in model.state_dict().items()}
+    objective, keep_share = None, None
+    probe = probed(batch_l, 9)
+    if type(model).__name__ == "Reconstructor":
+        plain.load_state_dict(start)
+        gen = torch.Generator(device=plain.device).manual_seed(5)
+        with torch.no_grad(), fp32_math():
+            preds, _, _ = plain.run_on_batch(batch_l, None, gen, train=True)
+        rec = preds["reconstruction"][..., 0]
+        keep = ((rec >= CLAMP_MARGIN) & (rec <= 1 - CLAMP_MARGIN)).float()
+        keep_share = keep.mean().item()
+
+        def objective(preds, _, spec):
+            bce = torch.nn.functional.binary_cross_entropy(
+                preds["reconstruction"][..., 0].clamp(0.0, 1.0),
+                spec.detach(), reduction="none")
+            return (bce * keep).sum() / keep.sum()
+
+        probe = probed(batch_l, 9, ("audio", "frame"))
 
     def run(m, bl, bul, vat):
         m.load_state_dict(start)
-        return step_grads(m, bl, bul, seed=5, vat=vat)
+        return step_grads(m, bl, bul, seed=5, vat=vat, objective=objective)
 
     lk, gk = run(model, batch_l, None, False)
     lp, gp = run(plain, batch_l, None, False)
-    audio = batch_l["audio"]
-    noise = torch.randn(audio.shape, device=audio.device, generator=(
-        torch.Generator(device=audio.device).manual_seed(9)))
-    probe = {**batch_l, "audio": audio * (1 + PROBE * noise)}
     _, gq = run(plain, probe, None, False)
     for k in lp:
         if not np.isclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
@@ -1251,22 +1331,41 @@ def compare_routes(model, batch_l, batch_ul) -> str:
             fail(f"kernel route lost the gradient of {name}")
         worst = max(worst, diff / top)
     cfg = model.vat_cfg
-    model.vat_cfg = plain.vat_cfg = dataclasses.replace(cfg, xi=1e-2)
-    lvk, _ = run(model, batch_l, batch_ul, True)
-    lvp, _ = run(plain, batch_l, batch_ul, True)
-    model.vat_cfg = cfg
-    for k in lvp:
-        if not np.isclose(lvk[k], lvp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
-            fail(f"train step with VAT (xi 1e-2): {k} {lvk[k]} (kernels) "
-                 f"vs {lvp[k]} (plain)")
+    lvk = lvp = None
+    spread = {}
+    if cfg is not None:             # the supervised models have no VAT
+        model.vat_cfg = plain.vat_cfg = dataclasses.replace(cfg, xi=1e-2)
+        lvk, _ = run(model, batch_l, batch_ul, True)
+        lvp, _ = run(plain, batch_l, batch_ul, True)
+        if r_norm_spread:
+            readings = [run(plain, probed(batch_l, 20 + 2 * j),
+                            probed(batch_ul, 40 + 2 * j), True)[0]
+                        for j in range(R_NORM_PROBES)]
+            with float64_mel(plain):
+                readings.append(run(plain, batch_l, batch_ul, True)[0])
+            spread = {k: max(abs(r[k] - lvp[k]) for r in readings)
+                      for k in lvp if "_r_norm_" in k}
+        model.vat_cfg = cfg
+        for k in lvp:
+            tol = (1e-6 + STEP_LOSS_RTOL * abs(lvp[k])
+                   + PROBE_FACTOR * spread.get(k, 0.0))
+            if not abs(lvk[k] - lvp[k]) <= tol:
+                fail(f"train step with VAT (xi 1e-2): {k} {lvk[k]} "
+                     f"(kernels) vs {lvp[k]} (plain; tolerance {tol}, the "
+                     f"plain route's r_norm spread {spread})")
     model.load_state_dict(start)
     first, grad = next(iter(gk.items()))            # the input layer's
     return (f"without VAT: losses agree (rtol {STEP_LOSS_RTOL}), every "
             f"gradient within {PROBE_FACTOR}x the plain route's movement "
-            f"under a {PROBE} audio probe + {GRAD_FLOOR} of the largest "
+            f"under a {PROBE} input probe + {GRAD_FLOOR} of the largest "
             f"({top}; largest gap {worst} of it), {first} gradient max "
-            f"{grad.abs().max().item()}; with VAT at xi 1e-2: losses "
-            f"kernels {lvk} plain {lvp}")
+            f"{grad.abs().max().item()}"
+            + ("" if keep_share is None else
+               f" (the BCE on the {keep_share} share of elements at least "
+               f"{CLAMP_MARGIN} inside [0, 1]; probe on audio and frame)")
+            + f"; with VAT at xi 1e-2: losses kernels {lvk} plain {lvp}"
+            + (f" (r_norm within rtol + {PROBE_FACTOR} x the plain route's "
+               f"spread {spread})" if spread else ""))
 
 
 def kernel_counters() -> dict:
@@ -2487,11 +2586,12 @@ def attention_draw(rng, b: int, t: int, h: int, d: int):
     return (q, kpad, vpad, d_out), randn(h, d, W, scale=0.1 * d ** -0.25)
 
 
-def time_rows_at(rows, x32, rel, errs) -> None:
+def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
+                 dtypes=(torch.float32, torch.bfloat16)) -> None:
     """Each attention row's ms, plain_ms, library_ms and bound at the
-    shape of x32 (q, kpad, vpad, d_out; bf16 rows on them rounded), into
-    the row under `<key>_h6`, with its max abs err from `errs`."""
-    suffix = "_h6"
+    shape of x32 (q, kpad, vpad, d_out; bf16 rows on them rounded), for
+    the operand `dtypes`, into the row under `<key><suffix>`, with its max
+    abs err from `errs`."""
     import torch.nn.functional as F
 
     from reconvat_tpu_torch.ops import banded_attention_kernel as bak
@@ -2501,7 +2601,7 @@ def time_rows_at(rows, x32, rel, errs) -> None:
     fwd_flops = b * L * h * W * (3 * 2 * d + 5)
     bwd_flops = b * L * h * W * (15 * d + 10)
     part_flops = bwd_flops - b * L * h * W * 10
-    for dtype in (torch.float32, torch.bfloat16):
+    for dtype in dtypes:
         q, kpad, vpad, d_out = (t.to(dtype) for t in x32)
         size = q.element_size()
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
@@ -3166,8 +3266,10 @@ def phase_baseline_clis(rows, tmp: str) -> None:
         f"songs) and the evaluation CLI on their model-1: {'; '.join(read)}")
 
 
-def phase_families_bf16(rows) -> None:
-    """Phase 13c: the eval forward of each new model in bf16
+def phase_families_bf16(rows, names=("OnsetsAndFrames", "FrameStack",
+                                      "OnsetStack", "Thickstun", "Prestack"),
+                        label: str = "13c") -> None:
+    """Phase 13c (and 14c): the eval forward of each model in bf16
     (`compute_dtype='bfloat16'`, the fp32 model's weights): `transcribe`
     of 2 clips of 640 frames through the mel kernel against the plain mel
     route, both rolls, by `bf16_held`. The mel kernel is fp32 in both
@@ -3181,8 +3283,7 @@ def phase_families_bf16(rows) -> None:
     audio = torch.tensor(rng.randn(2, SAMPLES) * 0.1, dtype=torch.float32,
                          device="cuda")
     read = []
-    for name in ("OnsetsAndFrames", "FrameStack", "OnsetStack", "Thickstun",
-                 "Prestack"):
+    for name in names:
         clip = audio[:, :PRESTACK_FRAMES * 512] if name == "Prestack" \
             else audio
         out = {}
@@ -3205,9 +3306,385 @@ def phase_families_bf16(rows) -> None:
             gaps[roll] = (diff, tol, move)
         read.append(f"{name} {gaps}")
         torch.cuda.empty_cache()
-    log(f"phase 13c bf16 eval forwards (2 x 640 frames; Prestack 2 x "
+    log(f"phase {label} bf16 eval forwards (2 x 640 frames; Prestack 2 x "
         f"{PRESTACK_FRAMES}), kernels vs plain mel route by bf16_held, per "
         f"roll (largest gap, limit, the kernel route's bf16-vs-fp32 move): "
+        f"{'; '.join(read)}")
+
+
+# Segmentation (phase 14): the song it streams and the halo of its
+# `transcribe_streaming` (the 17 x 17 attention pair's reach at time / 16).
+# The attention models (phase 15): their heads, 8 of Dh = 6 (width 48) and
+# 8 of Dh = 96 (`OnsetsAndFramesSelfAttention`'s 768).
+SEG_SONG_SECONDS, SEG_HALO = 60.0, 256
+AM_H, AM_DH = 8, (6, 96)
+
+
+def phase_segmentation_step(rows) -> None:
+    """Phase 14: a Segmentation VAT train step at the CLI's shape (fp32,
+    8 labeled + 8 unlabeled clips of 640 frames, xi 1e-6, eps 1e-2): three
+    steps with the counts reset just before and read just after (the mel
+    kernel, 2 launches a step, and no other), ms/step and peak GB; one
+    step profiled (busy share, top device operations); then one step
+    through the mel kernel against the plain mel route (phase 8's rule,
+    the same weights, dropout masks and generator state; the VAT step's
+    r_norm entries by the plain route's spread, `compare_routes`)."""
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model = SemanticSegmentation(seed=0)
+    state = create_train_state(model)
+    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    batches = [train_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, *batches[0], gen)                        # warm-up
+    n = 3
+    ms, peak_gb, launches, losses = counted_steps(
+        step, state, batches, gen, n, "fp32", path_kernels={"mel_power"})
+    for row in rows:
+        row["launches_segmentation_step"] = launches[row["name"]] / n
+    log_profile(f"phase 14 Segmentation step profile (1 step, fp32, VAT, "
+                f"B = {B} + {B} x 640)", "step", 1,
+                profile_groups(lambda: step(state, *batches[0], gen)))
+    log(f"phase 14 Segmentation train step (fp32, VAT, xi 1e-6, eps 1e-2, "
+        f"B = {B} + {B} x 640 frames): {ms} ms/step, peak {peak_gb} GB, "
+        f"mel launches per step {launches['mel_power'] / n}, last losses "
+        f"{ {k: v.item() for k, v in losses[-1].items()} }; kernels vs "
+        f"plain versions: "
+        f"{compare_routes(model, *batches[0], r_norm_spread=True)}")
+
+
+def phase_multi_inst_cli(rows, tmp: str) -> dict:
+    """Phase 14a: `python -m reconvat_tpu_torch.train_baseline_Multi_Inst`
+    through its `Experiment` for one epoch at its defaults (fp32, VAT off,
+    8 labeled clips of 640 frames, 10 steps) with TRAIN_CLI's overrides on
+    phase 12b's corpus, against its bare step on the same batch size."""
+    from reconvat_tpu_torch import train_baseline_Multi_Inst as multi_cli
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+
+    rec = train_cli(dict(TRAIN_CLI, epoches=1, saving_freq=1,
+                         root=os.path.join(tmp, "multi_inst")),
+                    _corpus_env(tmp), multi_cli)
+    _only_mel("the Multi_Inst CLI", rec["launches"])
+    if rec["steps"] != 10 or rec["state"].step != 10:
+        fail(f"the Multi_Inst CLI ran {rec['steps']} steps")
+    for row in rows:
+        row["launches_multi_inst_cli"] = rec["launches"][row["name"]]
+    result = _result(rec["logdir"], "result_dict", RESULT_KEYS)
+    copy = SemanticSegmentation(seed=42)
+    copy.load_state_dict(rec["model"].state_dict(), strict=True)
+    bare = bare_step_ms(copy, onset_batches(6)[0], None, "", vat=False,
+                        steps=3, profile_steps=0)
+    del copy
+    torch.cuda.empty_cache()
+    ms = step_ms(rec)
+    log(f"phase 14a the Multi_Inst training CLI (fp32, VAT off, {B} labeled "
+        f"x 640 frames, one epoch of 10 steps, {TRAIN_CLI} but epoches=1 "
+        f"saving_freq=1): ms/step (loop "
+        f"StepTimer, within the epoch) median {np.median(ms)} min "
+        f"{min(ms)} max {max(ms)}, the bare step {bare}; mel launches per "
+        f"step {rec['step_launches']['mel_power'] / rec['steps']}, in the "
+        f"run {rec['launches']['mel_power']}; final evaluation "
+        f"{rec['eval_ms'][0] / 2} ms/song (2 songs of {CORPUS_SECONDS} s); "
+        f"save_checkpoint ms {rec['ckpt_ms']}; peak device GB "
+        f"{rec['peak_gb']}; run wall {rec['wall_s']} s; note f1 "
+        f"{np.mean(result['metric/note/f1'])}, frame f1 "
+        f"{np.mean(result['metric/frame/f1'])}")
+    return rec
+
+
+def phase_segmentation_clis(rows, rec, tmp: str) -> None:
+    """Phase 14b: on phase 14a's final weights, statistics and biases
+    perturbed and the output layer sharpened (phase 10's `perturb_stats`,
+    `sharpen_output`), saved as a `.pt`: the transcription CLI with
+    `model_type=baseline_Multi_Inst` on `Application/Input` through its
+    `Experiment` (one mel launch per clip) against `transcribe2midi`
+    through the plain versions (`same_notes`); the evaluation CLI with
+    `model_type=Segmentation` on phase 14a's `model-1` (one mel launch per
+    song, the JAX package's keys), and the bucketed full-song
+    posteriograms of the `.pt` through the kernels against the plain
+    versions; and a SEG_SONG_SECONDS song streamed at halo SEG_HALO
+    against its bucketed transcription at the seeded init (phase 10b's
+    bounds, the JAX package's test's) and on the sharpened weights (those
+    bounds + PROBE_FACTOR x the plain route's own gap there)."""
+    import pickle
+
+    from reconvat_tpu_torch import evaluate, evaluate_cli
+    from reconvat_tpu_torch import transcribe_files as cli
+    from reconvat_tpu_torch.data.datasets import MAPS, ApplicationDataset
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+
+    counters = kernel_counters()
+
+    def counts_reset():
+        torch.cuda.synchronize()
+        for f, c in counters.values():
+            setattr(f, c, 0)
+
+    def counts():
+        return {k: getattr(f, c) for k, (f, c) in counters.items()}
+
+    input_path = os.path.join(HERE, "Application", "Input")
+    data = ApplicationDataset(input_path)
+    kernels = SemanticSegmentation(seed=0)
+    kernels.load_state_dict(rec["model"].state_dict(), strict=True)
+    perturb_stats(kernels, seed=3)
+    sharpen_output(kernels, [torch.from_numpy(d["audio"])[None].cuda()
+                             for d in data], lin=kernels.inference_model)
+    pt = os.path.join(tmp, "segmentation.pt")
+    torch.save(kernels.state_dict(), pt)
+    plain = SemanticSegmentation(seed=1)
+    plain.load_reference_weights(pt)
+    plain.use_kernels(False)
+
+    counts_reset()
+    t0 = time.perf_counter()
+    written = cli.ex.run(cli.main, dict(
+        device="cuda", model_type="baseline_Multi_Inst", weight_path=pt,
+        input_path=input_path, output_path=os.path.join(tmp, "seg_cli")))
+    cli_s = time.perf_counter() - t0
+    launches = counts()
+    _only_mel("the transcription CLI (baseline_Multi_Inst)", launches)
+    if launches["mel_power"] != len(data):
+        fail(f"the transcription CLI made {launches} for {len(data)} clips")
+    for row in rows:
+        row["launches_transcribe_cli_multi_inst"] = launches[row["name"]]
+    names = [os.path.basename(w) for w, _ in written]
+    if names != ["baseline_Multi_Inst-clip_amid",
+                 "baseline_Multi_Inst-clip_bmid"]:
+        fail(f"the CLI wrote {names}")
+    ref = cli.transcribe2midi(data, plain, "baseline_Multi_Inst",
+                              save_path=os.path.join(tmp, "seg_plain"),
+                              bucket_frames=CLI_BUCKET)
+    cli_read = [same_notes(f"phase 14b transcription CLI {path}", roll,
+                           ref_roll)
+                for (path, roll), (_, ref_roll) in zip(written, ref)]
+
+    env = _corpus_env(tmp)
+    saved_root = os.environ.get("RECONVAT_MAPS_ROOT")
+    os.environ["RECONVAT_MAPS_ROOT"] = env["RECONVAT_MAPS_ROOT"]
+    try:
+        counts_reset()
+        t0 = time.perf_counter()
+        evaluate_cli.ex.run(evaluate_cli.main, dict(
+            model_type="Segmentation",
+            weight_file=ckpt.latest_checkpoint(rec["logdir"]),
+            output_folder=os.path.join(tmp, "evaluated_segmentation")))
+        torch.cuda.synchronize()
+        eval_s = time.perf_counter() - t0
+        launches = counts()
+        _only_mel("the evaluation CLI (Segmentation)", launches)
+        for row in rows:
+            row["launches_evaluate_cli_Segmentation"] = launches[row["name"]]
+        with open(os.path.join(evaluate_cli.ex.current_run.config["logdir"],
+                               "result_dict_infer"), "rb") as f:
+            result = pickle.load(f)
+        if sorted(result) != sorted(RESULT_KEYS):
+            fail(f"evaluation CLI (Segmentation) result_dict keys "
+                 f"{sorted(result)}")
+    finally:
+        if saved_root is None:
+            os.environ.pop("RECONVAT_MAPS_ROOT", None)
+        else:
+            os.environ["RECONVAT_MAPS_ROOT"] = saved_root
+    songs = MAPS(env["RECONVAT_MAPS_ROOT"], groups=["ENSTDkAm", "ENSTDkCl"],
+                 sequence_length=None, verbose=False)
+    runners = {k: evaluate.make_bucketed_runner(m)
+               for k, m in (("kernels", kernels), ("plain", plain))}
+    eval_read = []
+    for song in songs:
+        pk, lk, _ = runners["kernels"](song)
+        pp, lp, _ = runners["plain"](song)
+        eval_read.append(same_notes(
+            "phase 14b evaluation", pk["frame"][0].float().cpu().numpy(),
+            pp["frame"][0].float().cpu().numpy()))
+        for k in lp:
+            if not np.isclose(float(lk[k]), float(lp[k]), rtol=1e-4,
+                              atol=1e-6):
+                fail(f"phase 14b evaluation loss {k}: kernels "
+                     f"{float(lk[k])}, plain {float(lp[k])}")
+    del runners
+    torch.cuda.empty_cache()
+
+    # streaming is exact only where the halo covers the receptive field,
+    # and Segmentation's exceeds any halo: held at the seeded init, as
+    # the JAX package's test holds it (tests/test_streaming_transcribe.py:
+    # 102-119); on the sharpened weights (x 16 at the logits), where the
+    # gap is the model's own, the kernel route's within those bounds +
+    # PROBE_FACTOR x the plain route's gap on the same weights
+    _, audio = synth_song(np.random.RandomState(4), SEG_SONG_SECONDS)
+    song = torch.from_numpy(audio.astype(np.float32) / 32768.0)[None].cuda()
+
+    def stream_gaps(model):
+        """(streamed roll, max |streamed - bucketed| inside and over the
+        last STREAM_TAIL frames, streaming s, its mel launches)."""
+        counts_reset()
+        t0 = time.perf_counter()
+        streamed = model.transcribe_streaming(song, STREAM_W, SEG_HALO)
+        sec, launches = time.perf_counter() - t0, counts()["mel_power"]
+        full = model.transcribe(song, CLI_BUCKET)["frame"].cpu()
+        if streamed["frame"].shape != full.shape:
+            fail(f"Segmentation streamed {tuple(streamed['frame'].shape)} "
+                 f"against bucketed {tuple(full.shape)}")
+        gap = (streamed["frame"] - full).abs()
+        return (streamed, gap[:, :-STREAM_TAIL].max().item(),
+                gap[:, -STREAM_TAIL:].max().item(), sec, launches)
+
+    sharp_gaps = stream_gaps(kernels)[1:3]
+    plain_gaps = stream_gaps(plain)[1:3]
+    del plain
+    for got, own, atol, where in zip(
+            sharp_gaps, plain_gaps, (POST_ATOL, STREAM_TAIL_ATOL),
+            ("inside", f"over the last {STREAM_TAIL} frames")):
+        if got > atol + PROBE_FACTOR * own:
+            fail(f"Segmentation streamed and bucketed posteriograms on the "
+                 f"sharpened weights differ by {got} {where}, the plain "
+                 f"route's by {own}")
+    streamed, inner, tail, stream_s, stream_launches = stream_gaps(
+        SemanticSegmentation(seed=0))
+    if inner > POST_ATOL or tail > STREAM_TAIL_ATOL:
+        fail(f"Segmentation streamed and bucketed posteriograms differ by "
+             f"{inner} inside and {tail} over the last {STREAM_TAIL} frames")
+    log(f"phase 14b Segmentation CLIs on the Multi_Inst CLI's weights: "
+        f"the transcription CLI (sharpened) {cli_s * 1e3 / len(data)} "
+        f"ms/clip (Experiment run), kernels vs plain (max abs diff, pitches "
+        f"set aside, notes) {cli_read}; the evaluation CLI on model-1 "
+        f"{eval_s} s (2 songs), note f1 "
+        f"{np.mean(result['metric/note/f1'])}; sharpened, evaluated kernels "
+        f"vs plain {eval_read}; streaming 1 x {SEG_SONG_SECONDS} s "
+        f"(W={STREAM_W}, H={SEG_HALO}) at the seeded init {stream_s} s, "
+        f"{stream_launches} mel launches, against bucketed transcribe max "
+        f"abs diff {inner} inside (tol {POST_ATOL}), {tail} "
+        f"over the last {STREAM_TAIL} frames (tol {STREAM_TAIL_ATOL}), share "
+        f"of bins above 0.5 {(streamed['frame'] > 0.5).float().mean().item()}"
+        f"; on the sharpened weights (inside, tail) kernels {sharp_gaps}, "
+        f"plain {plain_gaps} (kernels within those tolerances + "
+        f"{PROBE_FACTOR} x plain)")
+
+
+def phase_segmentation_clis_of_run(rows, tmp: str) -> None:
+    """Phases 14a and 14b: the Multi_Inst training CLI, then the
+    transcription and evaluation CLIs and streaming on its weights."""
+    phase_segmentation_clis(rows, phase_multi_inst_cli(rows, tmp), tmp)
+
+
+def phase_attention_model_kernels(rows) -> None:
+    """Phase 15: kernels 2, 3 and 4 (fp32) at the attention models' heads
+    (AM_H heads of each Dh in AM_DH, W = 31) at B x 640 frames, with
+    `rel` and with the zero `rel` of `position=False`: against their
+    plain versions (ATTN_TOL, GRAD_TOL over max|ref|) and within
+    TF32X3_TRUTH_FACTOR x the plain version's error against float64. Then
+    each row's time and bound with `rel` (keys `*_h8d6`, `*_h8d96` of the
+    kernels line)."""
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    rng = torch.Generator(device="cuda").manual_seed(15)
+    read = []
+    for d in AM_DH:
+        x32, rel = attention_draw(rng, B, 640, AM_H, d)
+        x64 = tuple(x.double() for x in x32)
+        errs, line = {}, [f"Dh={d}:"]
+        for with_rel in (True, False):
+            r32 = rel if with_rel else torch.zeros_like(rel)
+            for name, fn, plain, labels in (
+                    ("banded_attention_fwd", bak.banded_attention_fwd,
+                     bak.banded_attention, ("out", "probs")),
+                    ("banded_attention_bwd", bak.banded_attention_bwd,
+                     bak.banded_attention_bwd_plain,
+                     ("dq", "dk", "dv", "drel")),
+                    ("banded_attention_bwd_partials",
+                     bak.banded_attention_bwd_partials,
+                     bak.banded_attention_bwd_partials_plain,
+                     ("dq", "dk_part", "dv_part", "drel_part"))):
+                def call(f, x):
+                    r = r32.double() if x[0].dtype == torch.float64 else r32
+                    return (f(*x[:3], r, W) if name == "banded_attention_fwd"
+                            else f(*x[:3], r, x[3], W))
+
+                k32, p32 = call(fn, x32), call(plain, x32)
+                torch.cuda.synchronize()
+                what = f"{name} at {B} x 640, H={AM_H}, Dh={d}, rel " \
+                       f"{'drawn' if with_rel else 'zero'}"
+                if name == "banded_attention_fwd":
+                    err = max(check_close(f"{what} {label}", a, b, ATTN_TOL)
+                              for label, a, b in zip(labels, k32, p32))
+                else:
+                    err = check_grads(what, k32, p32, labels)
+                truth = nearer_float64(what, k32, p32, call(plain, x64),
+                                       labels)
+                errs[name] = max(errs.get(name, 0.0), err)
+                line.append(f"{name} (rel {'drawn' if with_rel else 'zero'})"
+                            f" err {err}, against float64 {truth}")
+        time_rows_at(rows, x32, rel, errs, suffix=f"_h8d{d}",
+                     dtypes=(torch.float32,))
+        read.append(" ".join(line))
+        del x32, x64
+    timing = {row["name"]: {k: row[k] for k in row
+                            if k.endswith(("_h8d6", "_h8d96"))}
+              for row in rows if "ms_h8d6" in row}
+    log(f"phase 15 attention kernels at the attention models' heads (H="
+        f"{AM_H}, W={W}, {B} x 640) against their plain versions (fp32 "
+        f"{ATTN_TOL}, {GRAD_TOL} over max|ref|, against float64 at most "
+        f"{TF32X3_TRUTH_FACTOR} x the plain version's error): "
+        f"{'; '.join(read)}; times: {timing}")
+
+
+# phase 15a: (registry name, constructor keys, the VAT step or the
+# supervised one); `StandaloneSelfAttention2D`'s 2-D attention is plain
+# PyTorch, so its path launches the mel kernel alone
+ATTENTION_MODELS = (
+    ("VATSelfAttention1D", {}, True),
+    ("VATCNNAttention1D", {"version": "a"}, True),
+    ("VATCNNAttention1D", {"version": "b"}, True),
+    ("VATCNNAttentionOnsetFrame", {}, True),
+    ("OnsetsAndFramesSelfAttention", {}, False),
+    ("SimpleOnsetFrame", {}, False),
+    ("StandaloneSelfAttention1D", {}, False),
+    ("StandaloneSelfAttention2D", {}, False),
+    ("Reconstructor", {}, False))
+
+
+def phase_attention_model_steps(rows) -> None:
+    """Phase 15a: a train step of each attention model (fp32) at B x 640
+    frames, the VAT models on B + B clips (their xi 1e-5, eps 1e-2), the
+    others supervised on B: two steps with the counts reset just before and read
+    just after (failing where a kernel of the path launched no time, or a
+    kernel off it did), then one step through the kernels against the
+    plain versions (phase 8's rule; the VAT models' losses also with VAT
+    at xi 1e-2)."""
+    from reconvat_tpu_torch.models import get_model
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    fp32_kernels = {"mel_power", "banded_attention_fwd",
+                    "banded_attention_bwd", "banded_attention_bwd_partials"}
+    batches = [onset_batches(seed) for seed in range(2)]
+    read = []
+    for name, kw, vat in ATTENTION_MODELS:
+        model = get_model(name, seed=0, **kw)
+        state = create_train_state(model)
+        step = make_train_step(model, 1.0, vat=vat, use_unlabeled=vat)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        step(state, *batches[0], gen)                    # warm-up
+        n = 2
+        ms, peak_gb, launches, losses = counted_steps(
+            step, state, batches, gen, n, "fp32",
+            path_kernels=({"mel_power"} if name == "StandaloneSelfAttention2D"
+                          else fp32_kernels))
+        key = name + kw.get("version", "")
+        for row in rows:
+            row[f"launches_{key}_step"] = launches[row["name"]] / n
+        read.append(
+            f"{key} ({'VAT, 8 + 8' if vat else 'supervised, 8'} x 640): {ms} "
+            f"ms/step, peak {peak_gb} GB, launches per step "
+            f"{ {k: v / n for k, v in launches.items() if v} }, last "
+            f"losses { {k: v.item() for k, v in losses[-1].items()} }; "
+            f"kernels vs plain: {compare_routes(model, *batches[0])}")
+        del model, state, step
+        torch.cuda.empty_cache()
+    log(f"phase 15a the attention models' train steps (fp32): "
         f"{'; '.join(read)}")
 
 
@@ -3267,9 +3744,16 @@ def main() -> int:
                 ("13", phase_onsets_frames_steps, (rows, fe)),
                 ("13a", phase_onsets_frames_cli, (rows, tmp)),
                 ("13b", phase_baseline_clis, (rows, tmp)),
-                ("13c", phase_families_bf16, (rows,))):
+                ("13c", phase_families_bf16, (rows,)),
+                ("14", phase_segmentation_step, (rows,)),
+                ("14a-14b", phase_segmentation_clis_of_run, (rows, tmp)),
+                ("14c", phase_families_bf16, (rows, ("Segmentation",),
+                                              "14c")),
+                ("15", phase_attention_model_kernels, (rows,)),
+                ("15a", phase_attention_model_steps, (rows,))):
             t0 = time.perf_counter()
             phase(*args)
+            torch.cuda.empty_cache()
             took.append(f"{label} {time.perf_counter() - t0} s")
         log(f"phase times: {', '.join(took)}")
     finally:

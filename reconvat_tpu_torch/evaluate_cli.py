@@ -5,16 +5,18 @@ library it drives is `reconvat_tpu_torch/evaluate.py`):
     python -m reconvat_tpu_torch.evaluate_cli with model_type=UNet_Onset \
         weight_file=runs/.../model-200
 
-`model_type` is a ported model: the root CLI's `ReconVAT`, `UNet_Onset`,
-`OnsetsAndFrames`, `Thickstun` and `Prestack` (and `FrameStack`,
-`OnsetStack`); `Segmentation` and the JAX package's other models raise. `weight_file` is a torch `.pt` of the reference's
+`model_type` is a name of the model registry: the root CLI's `ReconVAT`,
+`UNet_Onset`, `OnsetsAndFrames`, `Thickstun`, `Segmentation` and
+`Prestack`, or another transcriber of the JAX package's registry;
+`Reconstructor`, which maps rolls to spectrograms, raises. `weight_file`
+is a torch `.pt` of the reference's
 state_dict names, a `model-N` checkpoint directory of the port's training
 CLIs, or None (random weights, with a warning); an orbax checkpoint of the
 JAX package raises. The songs of MAPS `ENSTDkAm` and `ENSTDkCl` (under
 `RECONVAT_MAPS_ROOT`) go through the bucketed full-song runner; the table
 of metrics is printed and `result_dict_{infer|no_infer}` written under
 `logdir`. Runs on CUDA unless `device=cpu`; without a card, or for a model
-not ported, it raises before any work.
+it cannot evaluate, it raises before any work.
 """
 import os
 import pickle
@@ -29,9 +31,12 @@ log = True
 
 
 def check_settings(cfg):
-    """Raise for a model or frontend the port does not have, and for CUDA
-    without a card, before a dataset or a model is built."""
+    """Raise for a model it cannot evaluate, a frontend the port does not
+    have, and CUDA without a card, before a dataset or a model is built."""
     check_model_name(cfg["model_type"])
+    if cfg["model_type"] == "Reconstructor":
+        raise ValueError("model_type='Reconstructor' maps frame rolls to "
+                         "spectrograms: it transcribes nothing to evaluate")
     if cfg["spec"] != "Mel":
         raise NotImplementedError(
             f"spec={cfg['spec']!r}: only the Mel frontend is ported "

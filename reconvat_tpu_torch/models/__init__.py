@@ -6,11 +6,17 @@ imported lazily by name:
     from reconvat_tpu_torch.models.onsets_frames import (OnsetsAndFrames,
         FrameStackVAT, OnsetStackVAT)
     from reconvat_tpu_torch.models.thickstun import Thickstun
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
     from reconvat_tpu_torch.models.prestack import Prestack
+    from reconvat_tpu_torch.models.attention_models import (
+        VATSelfAttention1D, VATCNNAttention1D, VATCNNAttentionOnsetFrame,
+        OnsetsAndFramesSelfAttention, SimpleOnsetFrame,
+        StandaloneSelfAttention1D, StandaloneSelfAttention2D, Reconstructor)
 
-`MODEL_REGISTRY` holds the ported ones; the JAX package's other names raise
-`NotImplementedError` in `get_model`.
+`MODEL_REGISTRY` holds every name of the JAX package's registry.
 """
+
+_ATTN = "reconvat_tpu_torch.models.attention_models"
 
 MODEL_REGISTRY = {
     "ReconVAT": ("reconvat_tpu_torch.models.reconvat", "ReconVAT"),
@@ -22,28 +28,25 @@ MODEL_REGISTRY = {
     "OnsetStack": ("reconvat_tpu_torch.models.onsets_frames",
                    "OnsetStackVAT"),
     "Thickstun": ("reconvat_tpu_torch.models.thickstun", "Thickstun"),
+    "Segmentation": ("reconvat_tpu_torch.models.segmentation",
+                     "SemanticSegmentation"),
     "Prestack": ("reconvat_tpu_torch.models.prestack", "Prestack"),
+    **{name: (_ATTN, name) for name in (
+        "VATSelfAttention1D", "VATCNNAttention1D",
+        "VATCNNAttentionOnsetFrame", "OnsetsAndFramesSelfAttention",
+        "SimpleOnsetFrame", "StandaloneSelfAttention1D",
+        "StandaloneSelfAttention2D", "Reconstructor")},
 }
 
-# the JAX package's registry names that have no port yet
-NOT_PORTED = (
-    "Segmentation", "VATSelfAttention1D", "VATCNNAttention1D",
-    "VATCNNAttentionOnsetFrame", "OnsetsAndFramesSelfAttention",
-    "SimpleOnsetFrame", "StandaloneSelfAttention1D",
-    "StandaloneSelfAttention2D", "Reconstructor")
+# the JAX package's registry names that have no port yet: none
+NOT_PORTED = ()
 
 
 def check_model_name(name: str) -> None:
-    """Raise unless `name` is a ported model: NotImplementedError for a
-    model of the JAX package not ported yet, KeyError for any other."""
-    if name in MODEL_REGISTRY:
-        return
-    if name in NOT_PORTED:
-        raise NotImplementedError(
-            f"model {name!r} is not ported yet (ROADMAP §1 item 10, the "
-            f"other families); ported: {sorted(MODEL_REGISTRY)}")
-    raise KeyError(f"unknown model {name!r}; available: "
-                   f"{sorted(MODEL_REGISTRY)}")
+    """Raise KeyError unless `name` is in the registry."""
+    if name not in MODEL_REGISTRY:
+        raise KeyError(f"unknown model {name!r}; available: "
+                       f"{sorted(MODEL_REGISTRY)}")
 
 
 def get_model(name: str, **kwargs):

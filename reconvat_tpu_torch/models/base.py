@@ -14,10 +14,11 @@ import torch
 from torch import nn
 
 from ..nn.attention import MultiHeadAttention1D
+from ..nn.layers import new_dropout_masks
 from ..nn.unet import frozen_batch_stats, use_running_stats
 from ..ops.normalize import Normalization
 from ..vat import VATConfig
-from .common import make_log_norm_spec, transcribe_spec
+from .common import frame_mask, make_log_norm_spec, transcribe_spec
 
 
 def resolve_device(device=None) -> torch.device:
@@ -52,19 +53,33 @@ def fp32_math():
 def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init mirroring the JAX package's initializers: conv and linear
     weights Uniform(+-1/sqrt(fan_in)) (torch's default), biases zero,
-    attention projections N(0, 2/fan_out), `rel` N(0, 1), BatchNorm at
+    attention projections (1-D and 2-D) N(0, 2/fan_out) with zero biases,
+    `rel`, `rel_t` and `rel_f` N(0, 1), BatchNorm and LayerNorm at
     identity, every LSTM weight and bias Uniform(+-1/sqrt(hidden)) (torch's
     default; the sum b_ih + b_hh is the JAX package's fused bias). Draws
     in `modules()` order from `generator`."""
+    from .segmentation import MultiHeadAttention2D
+
     attn_linears = set()
     for m in module.modules():
         if isinstance(m, MultiHeadAttention1D):
             for lin in (m.W_k, m.W_q, m.W_v):
                 lin.weight.normal_(0.0, float(np.sqrt(2.0 / lin.out_features)),
                                    generator=generator)
+                if lin.bias is not None:
+                    lin.bias.zero_()
                 attn_linears.add(lin)
-            m.rel.normal_(0.0, 1.0, generator=generator)
-        elif isinstance(m, nn.BatchNorm2d):
+            if m.rel is not None:
+                m.rel.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, MultiHeadAttention2D):
+            for conv in (m.query_conv, m.key_conv, m.value_conv):
+                conv.weight.normal_(
+                    0.0, float(np.sqrt(2.0 / conv.out_channels)),
+                    generator=generator)
+                attn_linears.add(conv)
+            m.rel_t.normal_(0.0, 1.0, generator=generator)
+            m.rel_f.normal_(0.0, 1.0, generator=generator)
+        elif isinstance(m, (nn.BatchNorm2d, nn.LayerNorm)):
             m.reset_parameters()
         elif isinstance(m, nn.LSTM):
             bound = 1.0 / np.sqrt(m.hidden_size)
@@ -79,6 +94,16 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                               generator=generator)
             if m.bias is not None:
                 m.bias.zero_()
+
+
+def read_state_dict(source):
+    """(state_dict, a name for messages) of a torch `.pt` path (holding a
+    state_dict or a module) or of a state_dict itself."""
+    if isinstance(source, (str, os.PathLike)):
+        obj = torch.load(source, map_location="cpu", weights_only=False)
+    else:
+        obj, source = source, "the state_dict"
+    return (obj.state_dict() if hasattr(obj, "state_dict") else obj), source
 
 
 class TranscriptionModel:
@@ -109,6 +134,18 @@ class TranscriptionModel:
     @property
     def device(self) -> torch.device:
         return self.frontend.mel_basis.device
+
+    def _start(self, train: bool, generator, t_true, n_frames):
+        """Start a `run_on_batch`: set the mode and, in training, new
+        dropout masks from the step's generator (`nn/layers.SharedDropout`);
+        returns (loss prefix, frame mask, a zero)."""
+        self.train(train)
+        if train:
+            new_dropout_masks(self, generator)
+        mask = (None if t_true is None
+                else frame_mask(t_true, n_frames, self.device))
+        return ("train" if train else "test", mask,
+                torch.zeros((), device=self.device))
 
     def use_kernels(self, flag: bool) -> None:
         """Route the mel frontend and the attention cores through the CUDA
@@ -153,12 +190,7 @@ class TranscriptionModel:
         state_dict or a module. Entries under `REFERENCE_ONLY` have no
         counterpart and are skipped; any other missing or unexpected key
         raises before a weight is changed."""
-        if isinstance(source, (str, os.PathLike)):
-            obj = torch.load(source, map_location="cpu", weights_only=False)
-        else:
-            obj, source = source, "the state_dict"
-        if hasattr(obj, "state_dict"):
-            obj = obj.state_dict()
+        obj, source = read_state_dict(source)
         own = self.state_dict().keys()
         missing = [k for k in own if k not in obj]
         unexpected = [k for k in obj

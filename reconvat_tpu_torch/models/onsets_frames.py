@@ -25,13 +25,11 @@ import torch
 from torch import nn
 
 from .. import constants as C
-from ..nn.layers import (CombineStack, ConvStack, Linear, OnsetStack,
-                         new_dropout_masks)
+from ..nn.layers import CombineStack, ConvStack, Linear, OnsetStack
 from ..nn.precision import resolve_compute_dtype
 from ..ops.spectrogram import make_frontend
 from ..vat import VATConfig, vat_loss
 from .base import FrameSpecModel, resolve_device
-from .common import frame_mask
 from .losses import _masked_mean, binary_cross_entropy, mse_loss
 
 
@@ -112,17 +110,6 @@ class _Family(FrameSpecModel):
         super(_Family, self).__init__(n_bins, model_complexity,
                                       compute_dtype)
         self._init_chain(frontend, n_bins, log, mode, vat_cfg, seed, device)
-
-    def _start(self, train: bool, generator, t_true, n_frames):
-        """Set the mode and, in training, new dropout masks from the step's
-        generator; returns (loss prefix, frame mask, a zero)."""
-        self.train(train)
-        if train:
-            new_dropout_masks(self, generator)
-        mask = (None if t_true is None
-                else frame_mask(t_true, n_frames, self.device))
-        return ("train" if train else "test", mask,
-                torch.zeros((), device=self.device))
 
     def _vat(self, spec, generator, train, y_ref=None):
         """(loss, r_adv, mean |d|) of one VAT chain on `spec`."""

@@ -10,6 +10,12 @@ returned beside the output.
 With `compute_dtype=torch.bfloat16` the projections run in bf16 (the JAX
 package's `Dense(dtype=bfloat16)`), so q, k, v and the output are bf16;
 `rel`, the softmax and the probabilities stay fp32.
+
+The attention models' options (`reconvat_tpu/nn/attention.py:215-282`):
+`position=False` has no `rel` (the kernel route is given a zero one, as
+the JAX package's Pallas route is, and its gradient is dropped);
+`use_bias` gives the three projections biases; `return_probs=False`
+returns None in place of the probabilities.
 """
 from __future__ import annotations
 
@@ -34,17 +40,20 @@ class MultiHeadAttention1D(nn.Module):
 
     def __init__(self, in_features: int, out_features: int,
                  kernel_size: int = 31, groups: int = 1,
-                 compute_dtype=None):
+                 compute_dtype=None, position: bool = True,
+                 use_bias: bool = False, return_probs: bool = True):
         super().__init__()
         assert out_features % groups == 0
         assert (kernel_size - 1) % 2 == 0, "kernel size must be odd"
         self.out_features = out_features
         self.kernel_size = kernel_size
         self.groups = groups
-        self.W_k = nn.Linear(in_features, out_features, bias=False)
-        self.W_q = nn.Linear(in_features, out_features, bias=False)
-        self.W_v = nn.Linear(in_features, out_features, bias=False)
-        self.rel = nn.Parameter(torch.empty(1, out_features, kernel_size))
+        self.return_probs = return_probs
+        self.W_k = nn.Linear(in_features, out_features, bias=use_bias)
+        self.W_q = nn.Linear(in_features, out_features, bias=use_bias)
+        self.W_v = nn.Linear(in_features, out_features, bias=use_bias)
+        self.rel = (nn.Parameter(torch.empty(1, out_features, kernel_size))
+                    if position else None)
         self.use_kernel = True
         self.compute_dtype = compute_dtype
 
@@ -56,14 +65,23 @@ class MultiHeadAttention1D(nn.Module):
         hw = (W - 1) // 2
         # K/V from the zero-padded sequence (reference pads x before the
         # bias-free projections, `model/self_attention.py:44-47`)
-        x, wq, wk, wv = cast(self.compute_dtype, x, self.W_q.weight,
-                             self.W_k.weight, self.W_v.weight)
+        x, wq, wk, wv, bq, bk, bv = cast(
+            self.compute_dtype, x, self.W_q.weight, self.W_k.weight,
+            self.W_v.weight, self.W_q.bias, self.W_k.bias, self.W_v.bias)
         xpad = F.pad(x, (0, 0, hw, hw))
-        q = F.linear(x, wq).reshape(B, L, H, Dh)
-        k = F.linear(xpad, wk).reshape(B, L + 2 * hw, H, Dh)
-        v = F.linear(xpad, wv).reshape(B, L + 2 * hw, H, Dh)
-        rel = self.rel[0].reshape(H, Dh, W)
+        q = F.linear(x, wq, bq).reshape(B, L, H, Dh)
+        k = F.linear(xpad, wk, bk).reshape(B, L + 2 * hw, H, Dh)
+        v = F.linear(xpad, wv, bv).reshape(B, L + 2 * hw, H, Dh)
+        if self.rel is not None:
+            rel = self.rel[0].reshape(H, Dh, W)
+        elif self.use_kernel:
+            rel = torch.zeros((H, Dh, W), device=x.device,
+                              dtype=torch.promote_types(x.dtype,
+                                                        torch.float32))
+        else:
+            rel = None
         fn = BandedAttention.apply if self.use_kernel else banded_attention
         out, probs = fn(q, k, v, rel, W)
-        return out.reshape(B, L, self.out_features), probs
+        return (out.reshape(B, L, self.out_features),
+                probs if self.return_probs else None)
 

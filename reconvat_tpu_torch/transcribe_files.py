@@ -7,7 +7,8 @@
 
 Reads the .flac and .wav files (16 kHz) of `input_path`, loads a torch
 `.pt` of the reference's state_dict names (or a `model-N` checkpoint of
-`reconvat_tpu_torch.train_UNet_VAT`) into the port's ReconVAT,
+the port's training CLIs) into the port's ReconVAT (`model_type=ReconVAT`)
+or SemanticSegmentation (`model_type=baseline_Multi_Inst`),
 transcribes each song in fp32 (bucketed to `bucket_frames`, exact with 0,
 or in haloed windows with `streaming=True` for hour-long recordings),
 decodes notes with the native decoder and writes one MIDI file per song to
@@ -91,23 +92,24 @@ def config():
 @ex.automain
 def main(device, model_type, weight_path, bucket_frames, streaming,
          streaming_windows, streaming_depth, input_path, output_path):
+    # the model first: without a card this raises before any work
     if model_type == "ReconVAT":
         from .models.reconvat import ReconVAT
 
+        model = ReconVAT(log=log, reconstruction=True, mode=mode, seed=42,
+                         device=device)
         default_weight = ("Weight/String_MusicNet/"
                           "Unet_R_VAT-XI=1e-06-eps=1.3-String_MusicNet-"
                           "lr=0.001/weight.pt")
     elif model_type == "baseline_Multi_Inst":
-        raise NotImplementedError(
-            "model_type=baseline_Multi_Inst (Segmentation) is not ported: "
-            "ROADMAP §1 item 10")
+        from .models.segmentation import SemanticSegmentation
+
+        model = SemanticSegmentation(seed=42, device=device)
+        default_weight = "Weight/String_MusicNet/baseline_Multi_Inst/weight.pt"
     else:
         raise ValueError(f"unknown model_type {model_type}")
     wpath = weight_path or default_weight
 
-    # the device first: without a card this raises before any work
-    model = ReconVAT(log=log, reconstruction=True, mode=mode, seed=42,
-                     device=device)
     application_dataset = ApplicationDataset(input_path)
     if os.path.exists(wpath):
         print("Loading model weight")

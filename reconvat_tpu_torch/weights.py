@@ -9,7 +9,9 @@ name with a layout change per leaf:
   Dense kernel (I, O)                   -> weight (O, I)
   BatchNorm scale / bias                -> weight / bias
   batch_stats mean / var                -> running_mean / running_var
-  rel                                   -> rel (as is)
+  rel, rel_t, rel_f                     -> the same (as is; Segmentation's
+                                           2-D attention keeps the
+                                           reference's 5-D shapes)
 
 Both 4-D cases are the same axis permutation (3, 2, 0, 1), but for
 Thickstun's `CNN_freq` and `CNN_time`: the reference's weights are
@@ -17,15 +19,21 @@ Thickstun's `CNN_freq` and `CNN_time`: the reference's weights are
 (`reconvat_tpu/models/thickstun.py:126-137`).
 
 The families whose JAX modules are named otherwise than the reference's
-get the reference's names back (`_torch_path`), the inverse of the JAX
-package's loaders:
-  - a BiLSTM's `{fwd,bwd}_w_ih`, `_w_hh` (F or H, 4H) and `_bias` (4H) ->
+get the reference's names back, the inverse of the JAX package's loaders.
+A BiLSTM's leaves are renamed wherever they sit:
+  - `{fwd,bwd}_w_ih`, `_w_hh` (F or H, 4H) and `_bias` (4H) ->
     `weight_ih_l0[_reverse]`, `weight_hh_l0[_reverse]` (transposed; the
     gate order i, f, g, o is torch's), `bias_ih_l0[_reverse]` = the fused
-    bias and `bias_hh_l0[_reverse]` = 0;
-  - the O&F conv trunk's `conv0/bn0/conv1/bn1/conv2/bn2/fc` -> `cnn.0/1/3/4/
-    8/9`, `fc.0`; `frame_conv` / `frame_linear` -> `frame_stack.0` / `.1`
-    (`reconvat_tpu/models/onsets_frames.py:205-219`);
+    bias and `bias_hh_l0[_reverse]` = 0.
+Module names are renamed only where `target` (the port module the result
+is for, or its state_dict keys) holds leaves under the new path and none
+under the JAX one (`_torch_path`); without `target` no module is renamed:
+  - the O&F conv trunk's `conv0/bn0/conv1/bn1/conv2/bn2/fc` -> `cnn.0/1/3/
+    4/8/9`, `fc.0` (the O&F family's stacks, the attention models'
+    ConvStack `cnn`, `onset_conv`, `frame_conv`; a Timbral CNN keeps the
+    JAX names);
+  - the O&F family's `frame_conv` / `frame_linear` -> `frame_stack.0` /
+    `.1` (`reconvat_tpu/models/onsets_frames.py:205-219`);
   - Prestack's `Unet1_*` -> `prestack_model.0.Unet1_*`, `resnet` ->
     `prestack_model.1`, and Flax's list names `layer1_0`, `downsample_0`
     -> `layer1.0`, `downsample.0` (`reconvat_tpu/models/prestack.py:
@@ -33,6 +41,7 @@ package's loaders:
 """
 from __future__ import annotations
 
+import itertools
 import re
 from collections import OrderedDict
 
@@ -54,42 +63,57 @@ _FREQ_MAJOR = {("CNN_freq",), ("CNN_time",)}      # Thickstun's convolutions
 _LSTM_LEAF = re.compile(r"(fwd|bwd)_(w_ih|w_hh|bias)$")
 
 
-def _torch_path(path):
-    """The reference's module path of a JAX module path. A U-Net at the
-    root of the tree is Prestack's (the flagship's sits under
-    `transcriber`)."""
+def _renames(seg):
+    """The reference's names that a JAX module name may stand for."""
     out = []
-    for i, seg in enumerate(path):
-        if i and path[i - 1] in ("convstack", "frame_conv") \
-                and seg in _CONVSTACK:
-            seg = _CONVSTACK[seg]
-        elif seg == "frame_conv":
-            seg = "frame_stack.0"
-        elif seg == "frame_linear":
-            seg = "frame_stack.1"
-        elif i == 0 and seg.startswith("Unet1_"):
-            seg = "prestack_model.0." + seg
-        elif i == 0 and seg == "resnet":
-            seg = "prestack_model.1"
-        elif path[0] == "resnet":
-            seg = re.sub(r"^(\w+)_(\d+)$", r"\1.\2", seg)
-        out.append(seg)
-    return tuple(out)
+    if seg in _CONVSTACK:
+        out.append(_CONVSTACK[seg])
+    if seg in ("frame_conv", "frame_linear"):
+        out.append("frame_stack." + ("0" if seg == "frame_conv" else "1"))
+    if seg.startswith("Unet1_"):
+        out.append("prestack_model.0." + seg)
+    if seg == "resnet":
+        out.append("prestack_model.1")
+    out.append(re.sub(r"^(\w+)_(\d+)$", r"\1.\2", seg))
+    return out
 
 
-def _key(path, name):
-    return ".".join((*_torch_path(path), name))
+def _module_paths(target):
+    """The module paths (dotted) that hold the leaves of `target`, a module
+    or an iterable of state_dict keys."""
+    keys = target.state_dict() if hasattr(target, "state_dict") else target
+    return {key.rpartition(".")[0] for key in keys}
+
+
+def _torch_path(path, modules) -> str:
+    """The reference's module path (dotted) of a JAX module path: its JAX
+    names, unless `modules` (`_module_paths` of the target, or None) lacks
+    that path and has one with some segments replaced by their
+    `_renames`."""
+    options = [dict.fromkeys((seg, *_renames(seg))) for seg in path]
+    names = [".".join(c) for c in itertools.product(*options)]
+    return next((n for n in names if modules is not None and n in modules),
+                names[0])
 
 
 def _tensor(w):
     return torch.tensor(np.asarray(w, dtype=np.float32))
 
 
-def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
+def flax_to_torch(variables,
+                  target=None) -> "OrderedDict[str, torch.Tensor]":
     """{"params": ..., "batch_stats": ...} (nested dicts of arrays) ->
-    a state_dict that the port's modules load with strict=True."""
+    a state_dict that `target` (the port module, or its state_dict keys)
+    loads with strict=True; without `target`, no module is renamed."""
+    params = variables["params"]
+    modules = None if target is None else _module_paths(target)
+
+    def _key(path, name):
+        mod = _torch_path(path, modules)
+        return f"{mod}.{name}" if mod else name
+
     sd = OrderedDict()
-    for path, w in _walk(variables["params"]):
+    for path, w in _walk(params):
         mod, leaf = path[:-1], path[-1]
         lstm = _LSTM_LEAF.match(leaf)
         if lstm:
@@ -112,7 +136,7 @@ def flax_to_torch(variables) -> "OrderedDict[str, torch.Tensor]":
             name = "weight"
         elif leaf == "scale":
             name = "weight"
-        elif leaf in ("bias", "rel"):
+        elif leaf in ("bias", "rel", "rel_t", "rel_f"):
             name = leaf
         else:
             raise ValueError(f"unknown parameter {'.'.join(path)}")

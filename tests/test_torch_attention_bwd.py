@@ -26,6 +26,8 @@ from reconvat_tpu_torch.nn.attention import MultiHeadAttention1D
 from reconvat_tpu_torch.ops import banded_attention_kernel as bak
 from reconvat_tpu_torch.weights import flax_to_torch
 
+from .torch_threads import torch_one_thread  # noqa: F401
+
 ATOL, RTOL = 3e-6, 1e-4
 NAMES = ("dq", "dk", "dv", "drel")
 GAP_FACTOR = 2.0

@@ -1,6 +1,7 @@
 """The port's baseline training CLIs (`reconvat_tpu_torch.
 train_baseline_onset_frame_VAT`, `train_baseline_Thickstun`,
-`train_baseline_Prestack`) end to end on the CPU, at full width, on a tiny
+`train_baseline_Prestack`, `train_baseline_Multi_Inst`) end to end on the
+CPU, at full width, on a tiny
 synthetic MAPS and MAESTRO corpus: 2 labeled songs of 1.2 s, one test
 song of 0.6 s in each test group, 1 unlabeled song; Prestack, which runs
 its U-Net and ResNet-18 once per frame, on 1 labeled song of 0.6 s and
@@ -18,7 +19,10 @@ evaluation's buckets are cut to 32 frames, Prestack's to 16
 (`make_bucketed_runner`'s ladder), as the test songs are. The evaluation
 CLI (`evaluate_cli`, the root CLI's `model_type=OnsetsAndFrames`) scores
 the onset_frame run's `model-1`, equal (1e-12) to the port's evaluation
-of those weights.
+of those weights. `train_baseline_Multi_Inst` (Segmentation) runs one VAT
+step; its resolved config is the JAX CLI's (its model is held against the
+JAX package's in tests/test_torch_segmentation.py, in float64: its
+train-mode step is too ill-conditioned at random init for an fp32 bound).
 """
 import os
 import pickle
@@ -31,10 +35,12 @@ import flax.linen
 import jax
 
 import reconvat_tpu.models.onsets_frames as jof
+import train_baseline_Multi_Inst as jax_multi_cli
 from reconvat_tpu.data import audio_io as jaudio_io
 from reconvat_tpu.models.prestack import Prestack as JaxPrestack
 from reconvat_tpu.models.thickstun import Thickstun as JaxThickstun
 from reconvat_tpu_torch import evaluate, evaluate_cli
+from reconvat_tpu_torch import train_baseline_Multi_Inst as multi_cli
 from reconvat_tpu_torch import train_baseline_onset_frame_VAT as of_cli
 from reconvat_tpu_torch import train_baseline_Prestack as prestack_cli
 from reconvat_tpu_torch import train_baseline_Thickstun as thickstun_cli
@@ -205,6 +211,59 @@ def _evaluate_cli(logdir, tmp_path, monkeypatch):
                                    err_msg=k)
 
 
+def test_multi_inst_cli_runs(corpora, monkeypatch):
+    """`train_baseline_Multi_Inst` with VAT (2 labeled + 1 unlabeled clips
+    of 16 frames, one step): the JAX CLI's resolved config and run
+    directory name, every artifact, the JAX package's loss keys with both
+    LDS losses positive, finite metrics."""
+    overrides = dict(ARGS, root=str(corpora["standard"] / "runs" / "multi"),
+                     sequence_length=16 * 512, batch_size=1,
+                     train_batch_size=2, iteration=1, VAT=True)
+    got, ref = (c.ex._resolve({k: v for k, v in overrides.items()
+                               if k != "device"})
+                for c in (multi_cli, jax_multi_cli))
+    assert (got.pop("device"), ref.pop("device")) == ("cuda", "tpu")
+    assert got.pop("logdir")[:-13] == ref.pop("logdir")[:-13]
+    assert got == ref
+    monkeypatch.setenv("RECONVAT_MAPS_ROOT",
+                       str(corpora["standard"] / "MAPS"))
+    monkeypatch.setenv("RECONVAT_MAESTRO_ROOT",
+                       str(corpora["standard"] / "MAESTRO"))
+    real = evaluate.make_bucketed_runner
+    monkeypatch.setattr(driver, "make_bucketed_runner",
+                        lambda m: real(m, (32,)))
+    steps = []
+    make = driver.make_train_step
+
+    def make_train_step(*args, **kw):
+        step = make(*args, **kw)
+
+        def run(*a):
+            steps.append(step(*a))
+            return steps[-1]
+        return run
+
+    monkeypatch.setattr(driver, "make_train_step", make_train_step)
+    model, state, _ = multi_cli.ex.run(multi_cli.train, overrides)
+    logdir = multi_cli.ex.current_run.config["logdir"]
+    assert os.path.basename(logdir).startswith(
+        "VAT_Segmentation=False-KL=False-XI=1e-06-eps=0.01-alpha=1-"
+        "train_on=small_True_MAPS-w_size=31-n_heads=1-lr=0.001-")
+    assert type(model).__name__ == "SemanticSegmentation"
+    assert {"config.json", "run.json", "model-1", "MIDI_results",
+            "result_dict"} <= set(os.listdir(logdir))
+    assert len(steps) == state.step == 1
+    assert set(steps[0]) == {
+        "loss/train_frame", "loss/train_LDS_l", "loss/train_LDS_ul",
+        "loss/train_r_norm_l", "loss/train_r_norm_ul", "loss/total"}
+    assert steps[0]["loss/train_LDS_l"] > 0 < steps[0]["loss/train_LDS_ul"]
+    with open(os.path.join(logdir, "result_dict"), "rb") as f:
+        result = pickle.load(f)
+    assert {k for k in result if k.startswith("loss/")} == {
+        "loss/test_frame", "loss/test_LDS_l", "loss/test_r_norm_l"}
+    assert all(np.isfinite(v).all() for v in result.values())
+
+
 def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     """model_name other than the three raises before the run directory is
     written (as a mesh, another frontend and CUDA without a card do); the
@@ -219,6 +278,10 @@ def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="Mel frontend"):
         prestack_cli.ex.run(prestack_cli.train, {
             "root": str(tmp_path), "device": "cpu", "spec": "CQT"})
+    with pytest.raises(NotImplementedError, match="TPU"):
+        multi_cli.ex.run(multi_cli.train, {
+            "root": str(tmp_path), "device": "cpu",
+            "conv_layout": "folded"})
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         prestack_cli.ex.run(prestack_cli.train, {"root": str(tmp_path)})

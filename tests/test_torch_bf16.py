@@ -42,6 +42,7 @@ from reconvat_tpu_torch.weights import flax_to_torch
 
 from .test_torch_attention import _inputs
 from .test_torch_reconvat import _audio, _perturb
+from .torch_threads import torch_one_thread  # noqa: F401
 
 BF16 = "bfloat16"
 GAP_FACTOR = 2.0

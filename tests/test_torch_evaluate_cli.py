@@ -37,6 +37,7 @@ from reconvat_tpu_torch import evaluate, evaluate_cli
 from reconvat_tpu_torch import train_UNet_Onset_VAT as cli
 from reconvat_tpu_torch.data.datasets import MAPS
 from reconvat_tpu_torch.models.reconvat import ReconVAT
+from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
 
 from . import synth_data
 from .torch_threads import torch_one_thread  # noqa: F401
@@ -218,16 +219,46 @@ def test_evaluate_cli_reconvat_from_pt(corpus, tmp_path):
         np.testing.assert_allclose(result[k], mine[k], rtol=0, atol=1e-12)
 
 
+def test_evaluate_cli_segmentation_from_pt(corpus, tmp_path):
+    """model_type=Segmentation (the root CLI's name) from a `.pt` of the
+    reference's names: result_dict_infer holds the JAX package's keys and
+    the port's evaluation of those weights (two songs in one forward in
+    the CLI, one by one here)."""
+    model = SemanticSegmentation(device="cpu", seed=3)
+    path = str(tmp_path / "weight.pt")
+    torch.save(model.state_dict(), path)
+    evaluate_cli.ex.run(evaluate_cli.main, dict(
+        device="cpu", model_type="Segmentation", weight_file=path,
+        output_folder=str(tmp_path / "out"), batch_songs=2))
+    result_dir = evaluate_cli.ex.current_run.config["logdir"]
+    with open(os.path.join(result_dir, "result_dict_infer"), "rb") as f:
+        result = pickle.load(f)
+    mine = evaluate.evaluate_wo_velocity(
+        _songs(MAPS, corpus), evaluate.make_bucketed_runner(model),
+        reconstruction=False)
+    assert {k for k in result if k.startswith("loss/")} == {
+        "loss/test_frame", "loss/test_LDS_l", "loss/test_r_norm_l"}
+    assert list(result) == list(mine)
+    for k in mine:
+        np.testing.assert_allclose(result[k], mine[k], rtol=0, atol=1e-12,
+                                   err_msg=k)
+
+
 @pytest.mark.parametrize("override,error,match", [
-    ({"model_type": "Segmentation"}, NotImplementedError, "item 10"),
-    ({"model_type": "VATSelfAttention1D"}, NotImplementedError, "item 10"),
+    ({"model_type": "Segmentation", "spec": "CQT"}, NotImplementedError,
+     "item 10"),
+    ({"model_type": "VATSelfAttention1D", "spec": "CFP"},
+     NotImplementedError, "item 10"),
     ({"spec": "CQT"}, NotImplementedError, "Mel frontend"),
     ({"weight_file": "orbax"}, ValueError, "orbax"),
     ({}, RuntimeError, "no CUDA device"),
+    ({"model_type": "NoSuchModel"}, KeyError, "unknown model"),
+    ({"model_type": "Reconstructor"}, ValueError, "transcribes nothing"),
 ])
 def test_evaluate_cli_refuses_before_any_work(monkeypatch, tmp_path,
                                               override, error, match):
-    """Models and frontends not ported, an orbax directory, and CUDA
+    """Frontends not ported (for any model), a name not in the registry,
+    the Reconstructor (nothing to evaluate), an orbax directory, and CUDA
     without a card raise before a dataset is read or a file written."""
     monkeypatch.setenv("RECONVAT_MAPS_ROOT", str(tmp_path / "nowhere"))
     out = tmp_path / "out"

@@ -957,3 +957,74 @@ def test_mel_kernel_refuses_audio_that_needs_grad(cuda_device):
         fe(x)
     with torch.no_grad():
         fe(x)
+
+
+# The attention models' heads (`models/attention_models.py`): 8 heads of
+# Dh = 6 (model_complexity 48) and 8 of Dh = 96 (OnsetsAndFramesSelf-
+# Attention's 768 features), W = 31, with `rel` and with the zero `rel`
+# that `position=False` passes. At Dh = 6 a head fills less than one
+# k-step of the tensor-core tiles (D8 = 8): the zero fill past Dh must
+# hold. (H, Dh, with_rel)
+ATTN_MODEL_HEADS = [(8, 6, True), (8, 6, False), (8, 96, True),
+                    (8, 96, False)]
+
+
+def _model_head_args(H, Dh, with_rel, B=2, L=70, device="cpu"):
+    q, kpad, vpad, rel = (t.to(device) for t in
+                          _attn_inputs(L, 31, Dh, B=B, H=H, seed=11))
+    if not with_rel:
+        rel = torch.zeros_like(rel)
+    return q, kpad, vpad, rel, _d_out(q, 12), 31
+
+
+@pytest.mark.parametrize("H,Dh,with_rel", ATTN_MODEL_HEADS)
+def test_tile_models_at_attention_model_heads(H, Dh, with_rel):
+    """The CPU models of the fp32 tensor-core forward and first pass at the
+    attention models' heads against the plain versions (ATTN_TOL,
+    GRAD_TOL) and no further from float64 than TF32X3_TRUTH_FACTOR x the
+    plain versions."""
+    args = _model_head_args(H, Dh, with_rel)
+    args64 = (*(t.double() for t in args[:5]), 31)
+    got = bak.banded_attention_fwd_tf32x3_plain(*args[:4], 31)
+    ref = bak.banded_attention(*args[:4], 31)
+    for a, b in zip(got, ref):
+        torch.testing.assert_close(a, b, **ATTN_TOL)
+    _assert_nearer_float64(got, ref, bak.banded_attention(*args64[:4], 31),
+                           ("out", "probs"))
+    got = bak.banded_attention_bwd_partials_tf32x3_plain(*args)
+    ref = bak.banded_attention_bwd_partials_plain(*args)
+    _assert_grads_close(got, ref, BF16_PART_NAMES)
+    _assert_nearer_float64(got, ref,
+                           bak.banded_attention_bwd_partials_plain(*args64),
+                           BF16_PART_NAMES)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("H,Dh,with_rel", ATTN_MODEL_HEADS)
+def test_attention_kernels_at_attention_model_heads(cuda_device, H, Dh,
+                                                    with_rel):
+    """Kernels 2, 3 and 4 (fp32) at the attention models' heads on a
+    ragged 2 x 70 clip: each launched once, against its plain version
+    (ATTN_TOL, GRAD_TOL) and no further from float64 than
+    TF32X3_TRUTH_FACTOR x the plain version."""
+    args = _model_head_args(H, Dh, with_rel, device=cuda_device)
+    args64 = (*(t.double() for t in args[:5]), 31)
+    rows = ((bak.banded_attention_fwd, bak.banded_attention, 4,
+             ("out", "probs")),
+            (bak.banded_attention_bwd, bak.banded_attention_bwd_plain, 5,
+             ("dq", "dk", "dv", "drel")),
+            (bak.banded_attention_bwd_partials,
+             bak.banded_attention_bwd_partials_plain, 5, BF16_PART_NAMES))
+    for wrapper, plain, n_args, names in rows:
+        call = (lambda f, a, n=n_args: f(*a[:n], 31))
+        before = wrapper.launches
+        got = call(wrapper, args)
+        torch.cuda.synchronize()
+        assert wrapper.launches == before + 1
+        ref = call(plain, args)
+        if wrapper is bak.banded_attention_fwd:
+            for a, b in zip(got, ref):
+                torch.testing.assert_close(a, b, **ATTN_TOL)
+        else:
+            _assert_grads_close(got, ref, names)
+        _assert_nearer_float64(got, ref, call(plain, args64), names)

@@ -97,7 +97,7 @@ def _pair(trees, name, **kw):
     """(JAX model, its variables, port model with the same weights)."""
     cls, jcls, _ = MODELS[name]
     port = _no_dropout(cls(device="cpu", **kw))
-    port.load_state_dict(flax_to_torch(trees[name]), strict=True)
+    port.load_state_dict(flax_to_torch(trees[name], port), strict=True)
     return jcls(**kw), trees[name], port
 
 
@@ -145,8 +145,10 @@ def test_convstack_and_bilstm_match_jax(flax_no_dropout):
     v = _perturb(jax.jit(jconv.init)(jax.random.PRNGKey(1), jnp.asarray(x)),
                  1)
     conv = _no_dropout(ConvStack(229, 768))
+    wrapped = ["convstack." + k for k in conv.state_dict()]
     conv.load_state_dict({k.split(".", 1)[1]: w for k, w in flax_to_torch(
-        {c: {"convstack": t} for c, t in v.items()}).items()}, strict=True)
+        {c: {"convstack": t} for c, t in v.items()}, wrapped).items()},
+        strict=True)
     conv.eval()
     with torch.no_grad():
         _close("convstack eval", conv(torch.from_numpy(x)),
@@ -157,7 +159,8 @@ def test_convstack_and_bilstm_match_jax(flax_no_dropout):
     with torch.no_grad():
         _close("convstack train", conv(torch.from_numpy(x)), ref)
     stats = {k.split(".", 1)[1]: w for k, w in flax_to_torch(
-        {"params": {}, "batch_stats": {"convstack": upd["batch_stats"]}})
+        {"params": {}, "batch_stats": {"convstack": upd["batch_stats"]}},
+        wrapped)
         .items() if "running" in k}
     for k, w in stats.items():
         _close(k, conv.state_dict()[k], w.numpy(), atol=1e-5)
@@ -269,7 +272,7 @@ def test_train_losses_and_running_stats_match_jax(trees, name,
     for k, val in losses.items():
         _close(k, got[k], val, atol=1e-7)
     ref = {k: w for k, w in flax_to_torch(
-        {"params": {}, "batch_stats": stats}).items() if "running" in k}
+        {"params": {}, "batch_stats": stats}, port).items() if "running" in k}
     sd = port.state_dict()
     assert set(ref) == {k for k in sd if "running" in k}
     for k, w in ref.items():
@@ -312,8 +315,8 @@ def test_vat_losses_match_jax(trees, name, flax_no_dropout):
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(weights, "_tensor",
                    lambda w: torch.tensor(np.asarray(w, np.float64)))
-        sd = weights.flax_to_torch(variables)
-    port = _no_dropout(cls(device="cpu", xi=XI)).double()
+        port = _no_dropout(cls(device="cpu", xi=XI)).double()
+        sd = weights.flax_to_torch(variables, port)
     port.load_state_dict(sd, strict=True)
     gen = torch.Generator().manual_seed(SEED)
     _, got, _ = port.run_on_batch(_torch(batch_l), _torch(batch_ul), gen,
@@ -419,7 +422,7 @@ def test_weights_round_trip(trees, name, tmp_path):
     cls, jcls, _ = MODELS[name]
     variables = trees[name]
     port = cls(device="cpu", seed=1)
-    port.load_reference_weights(flax_to_torch(variables))
+    port.load_reference_weights(flax_to_torch(variables, port))
     path = str(tmp_path / "weight.pt")
     torch.save(port.state_dict(), path)
     jmodel = jcls()

@@ -35,6 +35,8 @@ from reconvat_tpu_torch.models.reconvat import ReconVAT, resolve_device
 from reconvat_tpu_torch.nn.unet import Decoder, Encoder
 from reconvat_tpu_torch.weights import flax_to_torch
 
+from .torch_threads import torch_one_thread  # noqa: F401
+
 ATOL, RTOL = 1e-4, 1e-4
 
 
@@ -244,6 +246,9 @@ PORT_MODULES = [
     "reconvat_tpu_torch.train_baseline_onset_frame_VAT",
     "reconvat_tpu_torch.train_baseline_Thickstun",
     "reconvat_tpu_torch.train_baseline_Prestack",
+    "reconvat_tpu_torch.models.segmentation",
+    "reconvat_tpu_torch.models.attention_models",
+    "reconvat_tpu_torch.train_baseline_Multi_Inst",
     "chip_smoke",
 ]
 

@@ -17,6 +17,8 @@ import chip_smoke
 from reconvat_tpu_torch.models.reconvat import ReconVAT
 from reconvat_tpu_torch.nn.unet import Conv2d, ConvTranspose2d
 
+from .torch_threads import torch_one_thread  # noqa: F401
+
 
 @pytest.fixture(scope="module")
 def preds():

@@ -29,6 +29,7 @@ from reconvat_tpu_torch.models.reconvat import ReconVAT
 from reconvat_tpu_torch.weights import flax_to_torch
 
 from .test_torch_bf16 import _jax_variables
+from .torch_threads import torch_one_thread  # noqa: F401
 
 ATOL = 1e-4
 

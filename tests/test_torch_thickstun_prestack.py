@@ -74,7 +74,7 @@ def trees(tmp_path_factory):
 def _pair(trees, name, **kw):
     cls, jcls, _ = MODELS[name]
     port = cls(device="cpu", **kw)
-    port.load_state_dict(flax_to_torch(trees[name]), strict=True)
+    port.load_state_dict(flax_to_torch(trees[name], port), strict=True)
     return jcls(**kw), trees[name], port
 
 
@@ -173,7 +173,8 @@ def test_train_losses_and_running_stats_match_jax(trees, name):
         assert not running
         return
     ref = {k: w for k, w in flax_to_torch(
-        {"params": {}, "batch_stats": stats}).items() if "running" in k}
+        {"params": {}, "batch_stats": stats}, port).items()
+        if "running" in k}
     assert set(ref) == running
     for k, w in ref.items():
         _close(k, sd[k], w.double().numpy(), atol=1e-5)
@@ -207,7 +208,7 @@ def test_weights_round_trip(trees, name, tmp_path):
     cls, jcls, frames = MODELS[name]
     variables = trees[name]
     port = cls(device="cpu", seed=1)
-    port.load_reference_weights(flax_to_torch(variables))
+    port.load_reference_weights(flax_to_torch(variables, port))
     path = str(tmp_path / "weight.pt")
     torch.save(port.state_dict(), path)
     jmodel = jcls()

@@ -61,6 +61,8 @@ from reconvat_tpu_torch.train.state import (create_train_state,
                                             total_loss_from_dict)
 from reconvat_tpu_torch import weights
 
+from .torch_threads import torch_one_thread  # noqa: F401
+
 B, FRAMES, XI, SEED = 2, 32, 1e-2, 11
 F64_TOL = dict(rtol=1e-7, atol=1e-12)
 STATS_TOL = dict(rtol=1e-7, atol=1e-8)

@@ -31,14 +31,18 @@ from reconvat_tpu.data import audio_io as jaudio
 from reconvat_tpu.data import datasets as jdatasets
 from reconvat_tpu.data import midi_io as jmidi
 from reconvat_tpu.models.reconvat import ReconVAT as JaxReconVAT
+from reconvat_tpu.models.segmentation import (
+    SemanticSegmentation as JaxSegmentation)
 from reconvat_tpu_torch import config, decode
 from reconvat_tpu_torch import transcribe_files as cli
 from reconvat_tpu_torch.data import audio_io, datasets, midi_io
 from reconvat_tpu_torch.models.reconvat import ReconVAT
+from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
 from reconvat_tpu_torch.weights import flax_to_torch
 
 from . import flac_encoder
 from .test_torch_bf16 import _jax_variables
+from .torch_threads import torch_one_thread  # noqa: F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 INPUT = os.path.join(ROOT, "Application", "Input")
@@ -132,6 +136,53 @@ def test_transcribe2midi_matches_jax(weights, jax_runs, mode, tmp_path):
     assert notes > 0 and set_aside <= 176 // 4
 
 
+def test_segmentation_cli_matches_jax(tmp_path):
+    """`model_type=baseline_Multi_Inst`: the port's CLI and the JAX CLI's
+    `transcribe2midi` (its `transcribe` jitted) from one `.pt` of
+    Segmentation's weights (the port's seeded init, perturbed, the output
+    bias shifted so that ~3 % of bins are active) write the same files, at
+    the CLI's default bucket."""
+    jmodel = JaxSegmentation()
+    port = SemanticSegmentation(device="cpu")
+    template = _jax_variables(port, lambda: jmodel.init(
+        jax.random.PRNGKey(0), seq_frames=64), 0)
+    port.load_state_dict(flax_to_torch(template), strict=True)
+    audio = datasets.ApplicationDataset(INPUT)[0]["audio"]
+    probs = port.transcribe(torch.from_numpy(audio)[None], 512)["frame"]
+    q = float(np.quantile(probs.numpy(), 0.97))
+    params = dict(template["params"])
+    params["inference_model"] = dict(
+        params["inference_model"], bias=params["inference_model"]["bias"]
+        - np.float32(np.log(q / (1 - q))))
+    pt = str(tmp_path / "weight.pt")
+    torch.save(flax_to_torch({**template, "params": params}), pt)
+
+    variables = jmodel.load_reference_weights(pt, template)
+    jitted = jax.jit(jmodel.transcribe, static_argnames="bucket_frames")
+    jmodel.transcribe = (lambda v, a, bucket_frames=0:
+                         jitted(v, a, bucket_frames=bucket_frames))
+    data = jdatasets.ApplicationDataset(INPUT)
+    ref = jax_cli.transcribe2midi(data, jmodel, variables,
+                                  "baseline_Multi_Inst",
+                                  save_path=str(tmp_path / "jax"),
+                                  bucket_frames=512)
+    rolls = [np.asarray(jitted(variables, jnp.asarray(item["audio"])[None],
+                               bucket_frames=512)["frame"])[0]
+             for item in data]
+    written = cli.ex.run(cli.main, {
+        "model_type": "baseline_Multi_Inst", "device": "cpu",
+        "weight_path": pt, "input_path": INPUT,
+        "output_path": str(tmp_path / "port")})
+    assert [os.path.basename(p) for p, _ in written] == [
+        "baseline_Multi_Inst-clip_amid", "baseline_Multi_Inst-clip_bmid"]
+    notes = 0
+    for jpath, jroll, (ppath, proll) in zip(ref, rolls, written):
+        np.testing.assert_allclose(proll, jroll, atol=ATOL)
+        assert len(_same_midi(jpath, ppath, jroll)) <= 176 // 4
+        notes += len(jmidi.parse_midi(ppath))
+    assert notes > 0
+
+
 def test_cli_subprocess_on_cpu(weights, jax_runs, tmp_path):
     """`python -m reconvat_tpu_torch.transcribe_files with device=cpu ...`
     writes the JAX CLI's files at its default bucket."""
@@ -150,8 +201,8 @@ def test_cli_subprocess_on_cpu(weights, jax_runs, tmp_path):
 
 def test_cli_config_and_limits(tmp_path, capsys):
     """The `with key=value` parse and the resolved config equal the JAX
-    CLI's (device defaults to cuda in the port); what the port does not
-    run raises with its ROADMAP item."""
+    CLI's (device defaults to cuda in the port); a model_type the JAX CLI
+    does not take, and an orbax directory, raise."""
     argv = ["print_config", "with", "bucket_frames=0", "streaming=True",
             "input_path=some/dir", "weight_path=w.pt", "note=a b"]
     assert config.parse_cli(argv) == jconfig.parse_cli(argv)
@@ -162,9 +213,8 @@ def test_cli_config_and_limits(tmp_path, capsys):
     assert got == ref
     assert cli.ex.run(cli.main, overrides, ["print_config"]) is None
     assert "bucket_frames = 0" in capsys.readouterr().out
-    with pytest.raises(NotImplementedError, match="item 10"):
-        cli.ex.run(cli.main, {"model_type": "baseline_Multi_Inst",
-                              "device": "cpu"})
+    with pytest.raises(ValueError, match="unknown model_type"):
+        cli.ex.run(cli.main, {"model_type": "UNet_Onset", "device": "cpu"})
     # a directory that is not a checkpoint of the port (an orbax one of
     # the JAX package holds no state.pt) raises naming the reason
     with pytest.raises(ValueError, match="orbax"):

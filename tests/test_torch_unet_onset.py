@@ -322,16 +322,17 @@ def test_streaming_matches_bucketed_for_both_rolls(weights_tree):
 
 
 def test_model_registry_and_refusals(monkeypatch, tmp_path):
-    """get_model builds the ported models and raises naming ROADMAP §1
-    item 10 for the JAX package's others; without a card the model and
-    the training CLI raise, and the CLI writes nothing."""
+    """get_model builds the ported models, every name of the JAX
+    package's registry, and raises KeyError for any other name; without a
+    card the model and the training CLI raise, and the CLI writes
+    nothing."""
     from reconvat_tpu_torch import train_UNet_Onset_VAT as cli
 
     model = get_model("UNet_Onset", device="cpu", reconstruction=False)
     assert isinstance(model, UNetOnset)
     assert type(get_model("ReconVAT", device="cpu")).__name__ == "ReconVAT"
-    with pytest.raises(NotImplementedError, match="item 10"):
-        get_model("Segmentation", device="cpu")
+    assert type(get_model("Segmentation", device="cpu")).__name__ == \
+        "SemanticSegmentation"
     with pytest.raises(KeyError):
         get_model("NoSuchModel")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
