@@ -54,13 +54,25 @@ its bucketed transcription (14a-14b); a bf16 forward (14c). Last, the
 attention models: the fp32 attention kernels at their heads (8 of Dh = 6
 and 8 of Dh = 96, with drawn and zero `rel`) against their plain versions
 and float64, timed (phase 15), and a train step of each of the nine
-models through the kernels against the plain versions (15a).
+models through the kernels against the plain versions (15a). Last, the
+CQT and CFP frontends (phase 16): both at 8 x 20.48 s against float64 on
+the CPU and a second PyTorch route, timed (16a); the attention rows at
+their heads, Dh 176 (all six) and 386 (the forward's two), against their
+plain versions and float64, timed (16b); a CQT VAT train step of the
+flagship, kernels against plain versions (16c); the flagship serving on
+CFP in fp32 and bf16 through `serve.submit`, kernels against plain
+versions, notes equal away from 0.5 (16d); and the transcription CLI with
+each frontend (16e).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
 `{"ok": true, "device": {...}}`. Exits non-zero, printing no result, when
 there is no CUDA device, when the port's package is not beside this file,
 or when any check fails. Imports nothing of JAX or of `reconvat_tpu`.
+
+`python3 chip_smoke.py --bf16-step-rule [n_states]` runs no phase: it reads
+phase 8b's gradient rule over n_states weight states (8 by default) beside
+the plain bf16 route's own spread (`bf16_step_rule`).
 """
 from __future__ import annotations
 
@@ -1534,29 +1546,38 @@ def probe_batches(batch_l, batch_ul, n: int, seed: int):
 
 
 def held_draws(what, test16, ref16, test32, ref32, draws,
-               floor: float = 0.0, gate: bool = True):
+               floor: float = 0.0, gate: bool = True, spread=None):
     """bf16_held for each key of the dicts (losses, or gradients by
     leaf), with the reference route's bf16-vs-fp32 gap the largest over
     (ref16, ref32) and the (bf16, fp32) pairs of `draws` (BF16_DRAWS),
     and `floor` added to each limit; returns the largest share of its
-    limit that a key used, and the key. With gate False it only reads."""
+    limit that a key used, and the key. With `spread` (by key) a key
+    above that limit is held by a second reading, the limit + PROBE_FACTOR
+    x the reference route's own spread; the return then also names the
+    keys the second reading held. With gate False it only reads."""
     def gap(a, b):
         if isinstance(a, torch.Tensor):
             return (a.float() - b.float()).abs().max().item()
         return abs(a - b)
 
-    worst = (0.0, "")
+    worst, second = (0.0, ""), []
     for k in ref16:
         diff = gap(test16[k], ref16[k])
         ref_gap = max(gap(a[k], b[k]) for a, b in [(ref16, ref32), *draws])
         tol = BF16_FACTOR * ref_gap + gap(test32[k], ref32[k]) + floor
+        if spread is not None and diff > tol:
+            second.append((k, diff, tol, spread[k]))
+            tol += PROBE_FACTOR * spread[k]
         if gate and not diff <= tol:
             fail(f"bf16 {what}, {k}: differ by {diff} (tol {tol}: "
                  f"{BF16_FACTOR} x the reference's bf16-vs-fp32 gap "
                  f"{ref_gap}, largest of {len(draws) + 1} draws, + the fp32 "
-                 f"routes' gap + {floor})")
+                 f"routes' gap + {floor}"
+                 + ("" if spread is None else
+                    f" + {PROBE_FACTOR} x the reference's spread "
+                    f"{spread[k]}") + ")")
         worst = max(worst, (diff / tol if tol > 0 else 0.0, k))
-    return worst
+    return worst if spread is None else (worst, second)
 
 
 def median_rule(card16, cpu16, card32, cpu32):
@@ -1623,7 +1644,12 @@ def compare_routes_bf16(model16, model, batch_l, batch_ul) -> str:
     """Phase 8b: one bf16 step through the kernels against the same step
     through the plain versions, from the fp32 model's state, within the
     limit of `held_draws`: without VAT losses and every gradient, with VAT
-    (xi BF16_VAT_XI) losses."""
+    (xi BF16_VAT_XI) losses. A gradient leaf above its limit is held by
+    the second reading, its limit + PROBE_FACTOR x the plain bf16 route's
+    own spread under R_NORM_PROBES audio probes of PROBE: in 12 weight
+    states each of two readings by `python3 chip_smoke.py --bf16-step-rule
+    12` one leaf went to 1.22 of the first limit, and none past 0.71 of
+    the second (PERF.md §6)."""
     import copy
     import dataclasses
 
@@ -1670,14 +1696,94 @@ def compare_routes_bf16(model16, model, batch_l, batch_ul) -> str:
             if g.abs().max().item() == 0 and gp16[name].abs().max().item() > 0:
                 fail(f"bf16 kernel route lost the gradient of {name}")
         top = max(g.abs().max().item() for g in gp16.values())
-        worst_g = held_draws("gradients, kernels vs plain", g16, gp16, g32,
-                             gp32, [(a[1], b[1]) for a, b in drawn],
-                             floor=GRAD_FLOOR * top)
+        probes = [run("plain16", probed(batch_l, 20 + 2 * j), None, False)[1]
+                  for j in range(R_NORM_PROBES)]
+        spread = {k: max((p[k] - g).abs().max().item() for p in probes)
+                  for k, g in gp16.items()}
+        worst_g, second = held_draws(
+            "gradients, kernels vs plain", g16, gp16, g32, gp32,
+            [(a[1], b[1]) for a, b in drawn], floor=GRAD_FLOOR * top,
+            spread=spread)
         notes.append(f"every gradient leaf held (floor {GRAD_FLOOR} x "
-                     f"{top}), largest share of a limit {worst_g}")
+                     f"{top}), largest share of a limit {worst_g}; held by "
+                     f"the second reading (leaf, gap, first limit, the "
+                     f"plain route's spread): {second}")
     model.load_state_dict(start)
     model16.load_state_dict(start)
     return "; ".join(notes)
+
+
+def bf16_step_rule(n_states: int) -> None:
+    """Phase 8b's gradient rule over several weight states, beside the
+    plain bf16 route's own spread. Trains the fp32 ReconVAT at phase 6's
+    shape (`train_batches`, VAT) for 4 steps at a time. After each 4 it
+    takes phase 8b's bf16 step without VAT from the fp32 state, through
+    the kernels and through the plain versions, and reads for every
+    gradient leaf: the gap between the two routes; phase 8b's first limit
+    (`held_draws`: BF16_FACTOR x the plain route's bf16-vs-fp32 gap, the
+    largest over the batch and BF16_DRAWS audio copies, + the fp32 routes'
+    gap + GRAD_FLOOR of the largest gradient); and the plain bf16 route's
+    own spread, its largest move under R_NORM_PROBES audio probes of PROBE
+    (`probed`), which flip bf16 roundings as another summation order
+    does. Prints, per state, the largest share of the first limit, each
+    leaf above it with its gap and spread, and the largest share of the
+    first limit + PROBE_FACTOR x spread (the second reading)."""
+    from reconvat_tpu_torch.kernels import _build
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    _build.build_all()
+    model = ReconVAT(seed=0)
+    state = create_train_state(model)
+    step = make_train_step(model, alpha=1.0, vat=True, use_unlabeled=True)
+    batches = [train_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch_l = batches[0][0]
+    routes = {"kernels16": ReconVAT(seed=0, compute_dtype="bfloat16"),
+              "plain16": ReconVAT(seed=0, compute_dtype="bfloat16"),
+              "kernels32": ReconVAT(seed=0), "plain32": ReconVAT(seed=0)}
+    for name, m in routes.items():
+        m.use_kernels(name.startswith("kernels"))
+    draws = probe_batches(batch_l, None, BF16_DRAWS, seed=13)
+    probes = [probed(batch_l, 20 + 2 * j) for j in range(R_NORM_PROBES)]
+    log(nvidia_smi())
+
+    def gap(a, b):
+        return (a.float() - b.float()).abs().max().item()
+
+    for k in range(n_states):
+        for i in range(4):
+            step(state, *batches[i % 2], gen)
+        start = {n: v.clone() for n, v in model.state_dict().items()}
+
+        def grads(name, batch):
+            m = routes[name]
+            m.load_state_dict(start)
+            return step_grads(m, batch, None, seed=5, vat=False)[1]
+
+        g = {name: grads(name, batch_l) for name in routes}
+        drawn = [(grads("plain16", d), grads("plain32", d)) for d, _ in draws]
+        moved = [grads("plain16", p) for p in probes]
+        top = max(v.abs().max().item() for v in g["plain16"].values())
+        worst, worst2, above = (0.0, ""), (0.0, ""), []
+        for leaf, ref in g["plain16"].items():
+            diff = gap(g["kernels16"][leaf], ref)
+            ref_gap = max(gap(a[leaf], b[leaf]) for a, b in
+                          [(g["plain16"], g["plain32"]), *drawn])
+            tol = (BF16_FACTOR * ref_gap
+                   + gap(g["kernels32"][leaf], g["plain32"][leaf])
+                   + GRAD_FLOOR * top)
+            spread = max(gap(p[leaf], ref) for p in moved)
+            worst = max(worst, (diff / tol, leaf))
+            worst2 = max(worst2, (diff / (tol + PROBE_FACTOR * spread),
+                                  leaf))
+            if diff > tol:
+                above.append((leaf, diff, tol, spread))
+        log(f"after {4 * (k + 1)} steps: largest share of the limit "
+            f"{worst}; with {PROBE_FACTOR} x the plain bf16 route's spread "
+            f"added {worst2}; leaves above the limit (gap, limit, spread) "
+            f"{above}")
 
 
 def phase_train_bf16(rows, model, state, step, batches, gen,
@@ -1832,18 +1938,20 @@ def phase_kernels_at_cli_shapes(fe) -> None:
         f"{MEL_TOL}, {ATTN_TOL}): {'; '.join(errs)}")
 
 
-def same_notes(what, got, ref) -> tuple:
-    """Two (T, 88) posteriograms within POST_ATOL, and equal notes on every
-    pitch with no element of `ref` within POST_ATOL of 0.5. Returns (max
-    abs diff, pitches set aside, notes)."""
+def same_notes(what, got, ref, tol: float = POST_ATOL,
+               near_tol: float | None = None) -> tuple:
+    """Two (T, 88) posteriograms within `tol`, and equal notes on every
+    pitch with no element of `ref` within `near_tol` (`tol` if None) of
+    0.5. Returns (max abs diff, pitches set aside, notes)."""
     from reconvat_tpu_torch import decode
 
     if got.shape != ref.shape or not np.isfinite(got).all():
         fail(f"{what}: posteriogram {got.shape} against {ref.shape}")
     diff = float(np.abs(got - ref).max())
-    if diff > POST_ATOL:
+    if diff > tol:
         fail(f"{what}: posteriograms differ by {diff}")
-    near = (np.abs(ref - 0.5) < POST_ATOL).any(axis=0)
+    near = (np.abs(ref - 0.5) < (tol if near_tol is None else near_tol)
+            ).any(axis=0)
     notes = []
     for roll in (got, ref):
         p, i = decode.extract_notes_wo_velocity(roll, roll, rule="rule2")
@@ -2569,6 +2677,12 @@ def phase_bf16_kernels_at_train_cli_shapes() -> None:
         f"outside phases 3d-3f's per-element bound): {'; '.join(read)}")
 
 
+# the attention wrappers, each a row of the kernels line in each operand
+# dtype
+ATTENTION_ROWS = ("banded_attention_fwd", "banded_attention_bwd",
+                  "banded_attention_bwd_partials")
+
+
 def attention_draw(rng, b: int, t: int, h: int, d: int):
     """(q, kpad, vpad, d_out) fp32 and rel at B x T frames, H heads of Dh,
     drawn as phase 3's."""
@@ -2587,11 +2701,12 @@ def attention_draw(rng, b: int, t: int, h: int, d: int):
 
 
 def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
-                 dtypes=(torch.float32, torch.bfloat16)) -> None:
+                 dtypes=(torch.float32, torch.bfloat16),
+                 names=ATTENTION_ROWS) -> None:
     """Each attention row's ms, plain_ms, library_ms and bound at the
     shape of x32 (q, kpad, vpad, d_out; bf16 rows on them rounded), for
-    the operand `dtypes`, into the row under `<key><suffix>`, with its max
-    abs err from `errs`."""
+    the operand `dtypes` and the wrappers `names`, into the row under
+    `<key><suffix>`, with its max abs err from `errs`."""
     import torch.nn.functional as F
 
     from reconvat_tpu_torch.ops import banded_attention_kernel as bak
@@ -2607,9 +2722,11 @@ def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
         peak = PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_FP32_FLOPS
         tag = "_bf16" if dtype == torch.bfloat16 else ""
         out, probs = bak.banded_attention_fwd(q, kpad, vpad, rel, W)
-        grads = bak.banded_attention_bwd(q, kpad, vpad, rel, d_out, W)
-        parts = bak.banded_attention_bwd_partials(q, kpad, vpad, rel, d_out,
-                                                  W)
+        backward = "banded_attention_bwd" in names
+        if backward:
+            grads = bak.banded_attention_bwd(q, kpad, vpad, rel, d_out, W)
+            parts = bak.banded_attention_bwd_partials(q, kpad, vpad, rel,
+                                                      d_out, W)
         qh, kh, vh, mask = (t.to(dtype).detach().requires_grad_(i < 3)
                             for i, t in enumerate(sdpa_inputs(
                                 *(x.float() for x in (q, kpad, vpad)), rel)))
@@ -2633,6 +2750,7 @@ def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
              fwd_in + size * out.numel() + 4 * probs.numel(),
              lambda: bak.banded_attention_fwd(*args[:4], W),
              lambda: bak.banded_attention(*args[:4], W), sdpa_fwd),
+        ) + (() if not backward else (
             ("banded_attention_bwd", bwd_flops,
              bwd_in + size * sum(t.numel() for t in grads[:3])
              + 4 * grads[3].numel(),
@@ -2644,7 +2762,7 @@ def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
              bwd_in + size * parts[0].numel()
              + 4 * sum(t.numel() for t in parts[1:]),
              lambda: bak.banded_attention_bwd_partials(*args),
-             lambda: bak.banded_attention_bwd_partials_plain(*args), None))
+             lambda: bak.banded_attention_bwd_partials_plain(*args), None)))
         for name, flops, nbytes, kernel, plain, library in spec:
             bound_ms, bound_by = bound(flops, nbytes, peak)
             row = by_name[name + tag]
@@ -2659,6 +2777,72 @@ def time_rows_at(rows, x32, rel, errs, suffix: str = "_h6",
         del qh, kh, vh, mask, sdpa_out
 
 
+def hold_attention_at(rng, b: int, t: int, h: int, d: int,
+                      names=ATTENTION_ROWS, fwd16_rule: bool = False):
+    """The attention wrappers `names` at B x T frames, H heads of Dh, on
+    `attention_draw`'s inputs: the fp32 kernels within ATTN_TOL / GRAD_TOL
+    (over max|ref|) of their plain versions and within TF32X3_TRUTH_FACTOR
+    x the fp32 plain version's error against float64; the bf16 kernels
+    against their bf16 plain versions by `bf16_held` (phase 11c's rule);
+    with `fwd16_rule` the bf16 forward also by phase 3d's per-element
+    rule and, on the bf16 operands widened, within TF32X3_TRUTH_FACTOR x
+    its bf16 plain version's error against float64. Returns (x32, rel,
+    the errors by row name, a line to log)."""
+    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
+
+    x32, rel = attention_draw(rng, b, t, h, d)
+    x16 = tuple(x.to(torch.bfloat16) for x in x32)
+    x64 = tuple(x.double() for x in x32)
+    what = f"attention at {b} x {t}, H={h}, Dh={d}"
+    errs, line = {}, [f"{b} x {t}, H={h}, Dh={d}:"]
+    for name, fn, plain, labels in (
+            ("banded_attention_fwd", bak.banded_attention_fwd,
+             bak.banded_attention, ("out", "probs")),
+            ("banded_attention_bwd", bak.banded_attention_bwd,
+             bak.banded_attention_bwd_plain, ("dq", "dk", "dv", "drel")),
+            ("banded_attention_bwd_partials",
+             bak.banded_attention_bwd_partials,
+             bak.banded_attention_bwd_partials_plain,
+             ("dq", "dk_part", "dv_part", "drel_part"))):
+        if name not in names:
+            continue
+
+        def call(f, x):
+            r = rel.double() if x[0].dtype == torch.float64 else rel
+            return (f(*x[:3], r, W) if name == "banded_attention_fwd"
+                    else f(*x[:3], r, x[3], W))
+
+        k32, p32 = call(fn, x32), call(plain, x32)
+        k16, p16 = call(fn, x16), call(plain, x16)
+        torch.cuda.synchronize()
+        if name == "banded_attention_fwd":
+            errs[name] = max(check_close(f"fp32 {what} {label}", a, r,
+                                         ATTN_TOL)
+                             for label, a, r in zip(labels, k32, p32))
+        else:
+            errs[name] = check_grads(f"fp32 {what} {name}", k32, p32,
+                                     labels)
+        truth = nearer_float64(f"fp32 {what} {name}", k32, p32,
+                               call(plain, x64), labels)
+        if k16[0].dtype != torch.bfloat16:
+            fail(f"bf16 {what} {name} returned {k16[0].dtype}")
+        share, errs[name + "_bf16"], outside = held_outputs(
+            f"{what} {name}", labels, k16, p16, k32, p32)
+        extra = ""
+        if name == "banded_attention_fwd" and fwd16_rule:
+            err_out, err_p, moved = check_bf16_fwd(f"bf16 {what}", k16, p16)
+            truth16 = nearer_float64(
+                f"bf16 {what} {name}", k16, p16,
+                call(plain, tuple(x.double() for x in x16)), labels)
+            extra = (f"; bf16 by phase 3d's rule: out err {err_out}, probs "
+                     f"{err_p}, share of out elements moved {moved}; "
+                     f"against float64 {truth16}")
+        line.append(f"{name} fp32 err {errs[name]}, against float64 "
+                    f"{truth}; bf16 share of limit {share}, elements "
+                    f"outside phases 3d-3f's bound {outside}{extra}")
+    return x32, rel, errs, " ".join(line)
+
+
 def phase_attention_unet_onset(rows) -> None:
     """Phase 12: the six attention rows at UNetOnset's Stack shapes (H =
     UO_H heads of Dh = UO_D), B x 640 frames (the training CLI's labeled
@@ -2670,54 +2854,16 @@ def phase_attention_unet_onset(rows) -> None:
     versions by `bf16_held` (phase 11c's rule). Then each row's time and
     bound at B x 640 (keys `*_h6` of the kernels line)."""
     from reconvat_tpu_torch.models.common import frames_in, next_bucket
-    from reconvat_tpu_torch.ops import banded_attention_kernel as bak
 
     bucket = next_bucket(frames_in(int(CORPUS_SECONDS * 16000)) + 2)
     rng = torch.Generator(device="cuda").manual_seed(12)
     read = []
     for b, t in ((B, frames_in(SAMPLES)), (1, bucket)):
-        x32, rel = attention_draw(rng, b, t, UO_H, UO_D)
-        x16 = tuple(x.to(torch.bfloat16) for x in x32)
-        x64 = tuple(x.double() for x in x32)
-        what = f"attention at {b} x {t}, H={UO_H}, Dh={UO_D}"
-        errs, line = {}, [f"{b} x {t}:"]
-        for name, fn, plain, labels in (
-                ("banded_attention_fwd", bak.banded_attention_fwd,
-                 bak.banded_attention, ("out", "probs")),
-                ("banded_attention_bwd", bak.banded_attention_bwd,
-                 bak.banded_attention_bwd_plain, ("dq", "dk", "dv", "drel")),
-                ("banded_attention_bwd_partials",
-                 bak.banded_attention_bwd_partials,
-                 bak.banded_attention_bwd_partials_plain,
-                 ("dq", "dk_part", "dv_part", "drel_part"))):
-            def call(f, x):
-                r = rel.double() if x[0].dtype == torch.float64 else rel
-                return (f(*x[:3], r, W) if name == "banded_attention_fwd"
-                        else f(*x[:3], r, x[3], W))
-
-            k32, p32 = call(fn, x32), call(plain, x32)
-            k16, p16 = call(fn, x16), call(plain, x16)
-            torch.cuda.synchronize()
-            if name == "banded_attention_fwd":
-                errs[name] = max(check_close(f"fp32 {what} {label}", a, r,
-                                             ATTN_TOL)
-                                 for label, a, r in zip(labels, k32, p32))
-            else:
-                errs[name] = check_grads(f"fp32 {what} {name}", k32, p32,
-                                         labels)
-            truth = nearer_float64(f"fp32 {what} {name}", k32, p32,
-                                   call(plain, x64), labels)
-            if k16[0].dtype != torch.bfloat16:
-                fail(f"bf16 {what} {name} returned {k16[0].dtype}")
-            share, errs[name + "_bf16"], outside = held_outputs(
-                f"{what} {name}", labels, k16, p16, k32, p32)
-            line.append(f"{name} fp32 err {errs[name]}, against float64 "
-                        f"{truth}; bf16 share of limit {share}, elements "
-                        f"outside phases 3d-3f's bound {outside}")
+        x32, rel, errs, line = hold_attention_at(rng, b, t, UO_H, UO_D)
         if b == B:
             time_rows_at(rows, x32, rel, errs)
-        read.append(" ".join(line))
-        del x32, x16, x64
+        read.append(line)
+        del x32
     timing = {row["name"]: {k: row[k] for k in (
         "ms_h6", "plain_ms_h6", "library_ms_h6", "bound_ms_h6",
         "bound_by_h6")} for row in rows if "ms_h6" in row}
@@ -3688,7 +3834,319 @@ def phase_attention_model_steps(rows) -> None:
         f"{'; '.join(read)}")
 
 
-def main() -> int:
+# CQT and CFP (phase 16): their bins, the heads of Dh = n_bins that they
+# give the flagship's attention (4), CFP's frames (T - 2 of the chain's
+# T); each frontend on the card (fp32, TF32 off) against itself in float64
+# on the CPU: the largest error over max|truth| at most FRONTEND_RTOL (the
+# CPU tests' bound) and at most 2x the CPU's fp32 error + 1e-6
+CQT_BINS, CFP_BINS = 176, 386
+CFP_FRAMES = (SAMPLES - 1) // 512 - 1
+FRONTEND_RTOL = 1e-4
+
+
+def cfp_full_fft(fe, x):
+    """CFP as the JAX package reads it, every FFT a full complex one (the
+    second route that phase 16a times beside the module's real FFTs)."""
+    import torch.nn.functional as F
+
+    n = fe.N
+    frames = F.pad(x, (n // 2, n // 2)).unfold(-1, n, fe.hop_length)
+    tfr0 = torch.fft.fft(frames * fe.window, dim=-1).abs()[:, 1:-1]
+    spec = (tfr0 / fe.h_norm).clamp_min(0.0) ** fe.g[0]
+    ceps = torch.zeros_like(spec)
+    for gc in range(1, len(fe.g)):
+        if gc % 2 == 1:
+            ceps = fe._nonlinear(torch.fft.fft(spec, dim=-1).real / n ** 0.5,
+                                 fe.g[gc], fe.tc_idx)
+        else:
+            spec = fe._nonlinear(torch.fft.fft(ceps, dim=-1).real / n ** 0.5,
+                                 fe.g[gc], fe.fc_idx)
+    half = round(n / 2)
+    tfr = spec[..., :half][..., :fe.high_freq_idx]
+    cep = ceps[..., :half][..., :fe.high_quef_idx]
+    return (tfr @ fe.freq2logfreq) * (cep @ fe.quef2logfreq)
+
+
+def phase_frontends_cqt_cfp() -> None:
+    """Phase 16a: the CQT and CFP frontends (`make_frontend`) on B clips of
+    20.48 s, on the card against float64 on the CPU (FRONTEND_RTOL), and
+    timed beside a second PyTorch route that must agree with them (CQT:
+    `F.conv1d` against the chunked products; CFP: full complex FFTs
+    against real ones), with their bounds: the bytes of the audio and the
+    spec, and the operations the function needs (CQT: each bin's kernel
+    taps, real and imaginary, per frame; CFP: three real FFTs per frame
+    and the projections' nonzeros)."""
+    import math
+
+    from reconvat_tpu_torch.models.base import fp32_math
+    from reconvat_tpu_torch.ops.spectrogram import make_frontend, reflect_pad
+
+    audio = torch.tensor(np.random.RandomState(16).randn(B, SAMPLES - 1)
+                         * 0.1, dtype=torch.float32)
+    x = audio.cuda()
+    read = []
+    for spec, frames in (("CQT", 640), ("CFP", CFP_FRAMES)):
+        fe, n_bins = make_frontend(spec)
+        truth = fe.double()(audio.double())
+        fe = fe.float()
+        cpu32 = fe(audio)
+        fe = fe.cuda()
+        with fp32_math():
+            got = fe(x)
+            if spec == "CQT":
+                second = lambda: fe.magnitude(fe.conv1d(     # noqa: E731
+                    reflect_pad(x, fe.kernel_width // 2)))
+            else:
+                second = lambda: cfp_full_fft(fe, x)          # noqa: E731
+            other = second()
+            torch.cuda.synchronize()
+            ms = time_ms(lambda: fe(x))
+            second_ms = time_ms(second)
+        if tuple(got.shape) != (B, frames, n_bins) or \
+                not torch.isfinite(got).all():
+            fail(f"{spec} frontend gave {tuple(got.shape)}, not finite "
+                 f"({B}, {frames}, {n_bins})")
+        top = truth.abs().max().item()
+        err = (got.cpu().double() - truth).abs().max().item() / top
+        err_cpu = (cpu32.double() - truth).abs().max().item() / top
+        err_second = (other - got).abs().max().item() / top
+        if not (err <= FRONTEND_RTOL and err <= 2 * err_cpu + 1e-6
+                and err_second <= FRONTEND_RTOL):
+            fail(f"{spec} frontend: error against float64 {err} (the CPU's "
+                 f"fp32 {err_cpu}; at most {FRONTEND_RTOL} and 2x the "
+                 f"CPU's + 1e-6), the second route {err_second} from it")
+        if spec == "CQT":
+            k, hop, n2 = fe.chunks.shape
+            taps = float((fe.sqrt_lengths.double() ** 2).round().sum())
+            flops = 2 * B * frames * 2 * taps
+            dense = 2 * B * frames * k * hop * n2
+            how = (f"{taps * 2:.0f} kernel taps of the {k * hop * n2} the "
+                   f"dense products multiply ({dense / 1e9} GFLOP)")
+        else:
+            nnz = int((fe.freq2logfreq != 0).sum() + (fe.quef2logfreq
+                                                       != 0).sum())
+            fft = 2.5 * fe.N * math.log2(fe.N)
+            flops = B * (frames + 2) * fft + B * frames * (2 * fft + 2 * nnz)
+            how = f"3 real FFTs of {fe.N} per frame, {nnz} projection taps"
+        nbytes = 4 * (x.numel() + got.numel())
+        bound_ms, bound_by = bound(flops, nbytes)
+        read.append(f"{spec} ({n_bins} bins, {frames} frames): error "
+                    f"against float64 {err} of max|truth| (the CPU's fp32 "
+                    f"{err_cpu}), ms {ms}, second route ms {second_ms} "
+                    f"(from the first {err_second}), bound_ms {bound_ms} "
+                    f"({bound_by}; {flops / 1e9} GFLOP: {how}; "
+                    f"{nbytes / 1e6} MB)")
+        del fe, truth
+    log(f"phase 16a the CQT and CFP frontends on {B} x {SAMPLES - 1} "
+        f"samples (fp32, TF32 off; against float64 on the CPU): "
+        f"{'; '.join(read)}")
+
+
+def phase_attention_cqt_cfp(rows) -> None:
+    """Phase 16b: the attention rows at the heads CQT and CFP give the
+    flagship (H heads of Dh = n_bins): all six at CQT's Dh = CQT_BINS on B
+    x 640, the forward's two at CFP's Dh = CFP_BINS on B x CFP_FRAMES (its
+    backward takes Dh <= 256: no path trains at CFP), held by
+    `hold_attention_at` (the bf16 forward also by phase 3d's rule), then
+    timed into the kernels line's `*_cqt` and `*_cfp` keys."""
+    rng = torch.Generator(device="cuda").manual_seed(16)
+    read = []
+    for d, t, names, suffix in (
+            (CQT_BINS, 640, ATTENTION_ROWS, "_cqt"),
+            (CFP_BINS, CFP_FRAMES, ("banded_attention_fwd",), "_cfp")):
+        x32, rel, errs, line = hold_attention_at(rng, B, t, H, d, names,
+                                                 fwd16_rule=True)
+        time_rows_at(rows, x32, rel, errs, suffix=suffix, names=names)
+        read.append(line)
+        del x32
+    timing = {row["name"]: {k: row[k] for k in row
+                            if k.endswith(("_cqt", "_cfp"))
+                            and not k.startswith("launches")}
+              for row in rows}
+    log(f"phase 16b attention kernels at CQT's and CFP's heads (H={H}, W={W}"
+        f") against their plain versions (fp32 {ATTN_TOL}, {GRAD_TOL} over "
+        f"max|ref|, against float64 at most {TF32X3_TRUTH_FACTOR} x the "
+        f"plain version's error; bf16 by bf16_held, the forward also by "
+        f"phase 3d's rule): {'; '.join(read)}; times: {timing}")
+
+
+def phase_reconvat_cqt_step(rows) -> None:
+    """Phase 16c: the flagship on CQT, an fp32 VAT train step with
+    reconstruction at B + B x 640 frames: two steps with the counts reset
+    just before and read just after (the path launches the three fp32
+    attention kernels at Dh = CQT_BINS and no mel kernel), then one step
+    through the kernels against the plain versions (phase 8's rule)."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model = ReconVAT(seed=0, spec="CQT")
+    if model.transcriber.lstm1.W_q.out_features != H * CQT_BINS:
+        fail("the CQT model's attention is not 4 heads of its 176 bins")
+    state = create_train_state(model)
+    step = make_train_step(model, alpha=1.0, vat=True, use_unlabeled=True)
+    batches = [train_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step(state, *batches[0], gen)                        # warm-up
+    n = 2
+    ms, peak_gb, launches, losses = counted_steps(
+        step, state, batches, gen, n, "fp32",
+        path_kernels=set(ATTENTION_ROWS))
+    for row in rows:
+        row["launches_cqt_step"] = launches[row["name"]] / n
+    log(f"phase 16c ReconVAT on CQT ({CQT_BINS} bins; VAT + "
+        f"reconstruction, fp32, {B} + {B} x {SAMPLES} samples): {ms} "
+        f"ms/step, peak {peak_gb} GB, launches per step "
+        f"{ {k: v / n for k, v in launches.items() if v} }, last losses "
+        f"{ {k: v.item() for k, v in losses[-1].items()} }; kernels vs "
+        f"plain: {compare_routes(model, *batches[0])}")
+
+
+def phase_serve_cfp(rows) -> None:
+    """Phase 16d: the flagship on CFP serving through `serve.submit` at B x
+    20.48 s (CFP_FRAMES frames), fp32 and bf16 with the same weights
+    (statistics and biases perturbed, `perturb_stats`, and the output
+    sharpened on two clips, `sharpen_output`, so that notes sit away from
+    0.5): the main path of each with the counts reset just before and read just
+    after (rows 2 or 2b at Dh = CFP_BINS and nothing else), kernels
+    against plain versions (fp32: posteriograms within POST_ATOL; bf16 by
+    `bf16_held`) and equal notes on every pitch away from 0.5 (no element
+    within the larger of POST_ATOL and the routes' largest gap of it: no
+    other element can fall on the other side), and ms/batch in turns
+    (fp32, bf16, bf16, fp32)."""
+    from reconvat_tpu_torch import serve
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+
+    rng = np.random.RandomState(160)
+    batches = [(rng.randn(B, SAMPLES) * 3276.8).astype(np.int16)
+               for _ in range(4)]
+    audio = torch.tensor(batches[0], device="cuda").float() / 32768.0
+    model = ReconVAT(seed=0, spec="CFP")
+    perturb_stats(model, seed=16)
+    sharpen_output(model, [audio[i:i + 1] for i in range(2)])
+    model16 = ReconVAT(seed=0, spec="CFP", compute_dtype="bfloat16")
+    model16.load_state_dict(model.state_dict(), strict=True)
+    counters = kernel_counters()
+    runs, launches = {}, {}
+    for label, m in (("fp32", model), ("bf16", model16), ("bf16 again",
+                                                          model16),
+                     ("fp32 again", model)):
+        serve_loop(serve, m, batches[:1])                  # warm-up
+        torch.cuda.synchronize()
+        for f, c in counters.values():
+            setattr(f, c, 0)
+        runs[label] = serve_loop(serve, m, batches)
+        if label in ("fp32", "bf16"):
+            launches[label] = {k: getattr(f, c)
+                               for k, (f, c) in counters.items()
+                               if getattr(f, c)}
+    expect = {"fp32": {"banded_attention_fwd"},
+              "bf16": {"banded_attention_fwd_bf16"}}
+    for label, got in launches.items():
+        if set(got) != expect[label]:
+            fail(f"CFP {label} serving launched {got}, not only "
+                 f"{expect[label]}")
+    for row in rows:
+        row["launches_cfp_serve"] = sum(
+            got.get(row["name"], 0) for got in launches.values()) / len(
+            batches)
+
+    rolls = {}
+    for kernels in (True, False):
+        for m, dt in ((model, "fp32"), (model16, "bf16")):
+            m.use_kernels(kernels)
+            rolls[dt, kernels] = m.transcribe(audio)["frame"]
+            m.use_kernels(True)
+    roll = rolls["fp32", True]
+    if tuple(roll.shape) != (B, CFP_FRAMES, 88) or \
+            not torch.isfinite(roll).all():
+        fail(f"CFP posteriogram {tuple(roll.shape)}, not finite ({B}, "
+             f"{CFP_FRAMES}, 88)")
+    diff16, tol16 = bf16_held("CFP serving, kernels vs plain posteriograms",
+                              rolls["bf16", True], rolls["bf16", False],
+                              roll, rolls["fp32", False])
+    read = []
+    for dt, tol in (("fp32", POST_ATOL), ("bf16", tol16)):
+        diffs, aside, notes = [], 0, 0
+        near = max(POST_ATOL, (rolls[dt, True] - rolls[dt, False]).abs()
+                   .max().item())
+        for i in range(B):
+            d, s, k = same_notes(f"CFP {dt} serving clip {i}",
+                                 rolls[dt, True][i].cpu().numpy(),
+                                 rolls[dt, False][i].cpu().numpy(), tol,
+                                 near)
+            diffs.append(d)
+            aside += s
+            notes += k
+        density = (rolls[dt, True] > 0.5).float().mean().item()
+        if notes == 0:
+            fail(f"CFP {dt} serving: no note to compare away from 0.5 "
+                 f"({aside} pitches set aside)")
+        read.append(f"{dt}: posteriograms kernels vs plain {max(diffs)} "
+                    f"(tol {tol}), {notes} notes equal, {aside} pitches "
+                    f"set aside (within {near} of 0.5), density {density}")
+    log(f"phase 16d ReconVAT on CFP serving ({B} x {SAMPLES} int16, "
+        f"{len(batches)} batches, depth 2; {CFP_BINS} bins, 4 heads of "
+        f"{CFP_BINS}, {CFP_FRAMES} frames): launches {launches}; "
+        f"{'; '.join(read)}; bf16 kernels vs plain {diff16} (tol {tol16}); "
+        f"in turns: " + "; ".join(f"{k} {per_batch(r)}"
+                                  for k, r in runs.items()))
+
+
+def phase_cli_cqt_cfp(rows) -> None:
+    """Phase 16e: the transcription CLI with spec=CQT and spec=CFP on
+    `Application/Input` (random weights from its seed, the default bucket):
+    one MIDI file per clip, a posteriogram of the clip's frames, one
+    launch of row 2 per clip and no mel launch."""
+    import shutil
+    import tempfile
+
+    from reconvat_tpu_torch import transcribe_files as cli
+    from reconvat_tpu_torch.data.datasets import ApplicationDataset
+
+    input_path = os.path.join(HERE, "Application", "Input")
+    data = ApplicationDataset(input_path)
+    frames = [(len(d["audio"]) - 1) // 512 + 1 for d in data.data]
+    counters = kernel_counters()
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    read = []
+    try:
+        for spec in ("CQT", "CFP"):
+            torch.cuda.synchronize()
+            for f, c in counters.values():
+                setattr(f, c, 0)
+            t0 = time.perf_counter()
+            written = cli.ex.run(cli.main, dict(
+                device="cuda", spec=spec, input_path=input_path,
+                weight_path=os.path.join(tmp, "none.pt"),
+                output_path=os.path.join(tmp, spec)))
+            cli_s = time.perf_counter() - t0
+            launches = {k: getattr(f, c) for k, (f, c) in counters.items()
+                        if getattr(f, c)}
+            if launches != {"banded_attention_fwd": len(data)}:
+                fail(f"the CLI with spec={spec} launched {launches} for "
+                     f"{len(data)} clips")
+            names = sorted(os.listdir(os.path.join(tmp, spec)))
+            if names != ["ReconVAT-clip_amid", "ReconVAT-clip_bmid"]:
+                fail(f"the CLI with spec={spec} wrote {names}")
+            shapes = [roll.shape for _, roll in written]
+            if shapes != [(t, 88) for t in frames] or not all(
+                    np.isfinite(r).all() for _, r in written):
+                fail(f"the CLI with spec={spec} gave posteriograms "
+                     f"{shapes} for clips of {frames} frames")
+            for row in rows:
+                row[f"launches_cli_{spec.lower()}"] = launches.get(
+                    row["name"], 0) / len(data)
+            read.append(f"{spec}: {cli_s * 1e3 / len(data)} ms/clip "
+                        f"(Experiment run, model and audio included), "
+                        f"launches {launches}")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"phase 16e the transcription CLI on {len(data)} clips of "
+        f"{frames} frames: {'; '.join(read)}")
+
+
+def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
         return 1
@@ -3702,6 +4160,9 @@ def main() -> int:
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    if argv[:1] == ["--bf16-step-rule"]:
+        bf16_step_rule(int(argv[1]) if len(argv) > 1 else 8)
+        return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
         f"cuda.matmul.allow_tf32={torch.backends.cuda.matmul.allow_tf32}")
@@ -3750,7 +4211,12 @@ def main() -> int:
                 ("14c", phase_families_bf16, (rows, ("Segmentation",),
                                               "14c")),
                 ("15", phase_attention_model_kernels, (rows,)),
-                ("15a", phase_attention_model_steps, (rows,))):
+                ("15a", phase_attention_model_steps, (rows,)),
+                ("16a", phase_frontends_cqt_cfp, ()),
+                ("16b", phase_attention_cqt_cfp, (rows,)),
+                ("16c", phase_reconvat_cqt_step, (rows,)),
+                ("16d", phase_serve_cfp, (rows,)),
+                ("16e", phase_cli_cqt_cfp, (rows,))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()
@@ -3770,4 +4236,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

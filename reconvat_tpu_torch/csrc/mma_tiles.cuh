@@ -41,7 +41,7 @@ namespace {
 constexpr int TQ = 32;         // query rows per tile
 constexpr int NT = 512;        // threads per block (16 warps)
 constexpr int NWARPS = NT / 32;
-constexpr int MAX_DCHUNK = 8;  // head width <= 32 * 8 = 256
+constexpr int MAX_DCHUNK = 8;  // head columns staged per row: 32 * 8 = 256
 constexpr int KC = 64;         // context rows, TQ + W - 1 <= 63
 constexpr int WP = 32;         // window columns
 constexpr int LDP = 24;        // fp32 row pitch of a warp's store patch
@@ -163,6 +163,23 @@ __device__ __forceinline__ void store_smem(const float (&acc)[2][4], float* c,
     float* p = c + g * ldc + n * 8 + 2 * t;
     *reinterpret_cast<float2*>(p) = make_float2(acc[n][0], acc[n][1]);
     *reinterpret_cast<float2*>(p + 8 * ldc) = make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// The warp's 16 x 16 tile back from fp32 shared memory (pitch ldc), as
+// `store_smem` stored it: a product continued over more depth
+__device__ __forceinline__ void load_smem(float (&acc)[2][4], const float* c,
+                                          int ldc, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const float* p = c + g * ldc + n * 8 + 2 * t;
+    const float2 lo = *reinterpret_cast<const float2*>(p);
+    const float2 hi = *reinterpret_cast<const float2*>(p + 8 * ldc);
+    acc[n][0] = lo.x;
+    acc[n][1] = lo.y;
+    acc[n][2] = hi.x;
+    acc[n][3] = hi.y;
   }
 }
 
@@ -397,6 +414,25 @@ __device__ __forceinline__ void store_sw(const float (&acc)[2][4], float* c,
         make_float2(acc[n][0], acc[n][1]);
     *reinterpret_cast<float2*>(c + sw(m0 + g + 8, col, ldc)) =
         make_float2(acc[n][2], acc[n][3]);
+  }
+}
+
+// The warp's 16 x 16 tile back from a swizzled fp32 tile at (m0, n0), as
+// `store_sw` stored it
+__device__ __forceinline__ void load_sw(float (&acc)[2][4], const float* c,
+                                        int ldc, int m0, int n0, int lane) {
+  const int g = lane >> 2, t = lane & 3;
+#pragma unroll
+  for (int n = 0; n < 2; ++n) {
+    const int col = n0 + n * 8 + 2 * t;
+    const float2 lo =
+        *reinterpret_cast<const float2*>(c + sw(m0 + g, col, ldc));
+    const float2 hi =
+        *reinterpret_cast<const float2*>(c + sw(m0 + g + 8, col, ldc));
+    acc[n][0] = lo.x;
+    acc[n][1] = lo.y;
+    acc[n][2] = hi.x;
+    acc[n][3] = hi.y;
   }
 }
 

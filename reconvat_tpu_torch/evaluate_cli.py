@@ -26,21 +26,20 @@ import numpy as np
 from .config import Experiment, print_config
 from .models import check_model_name, get_model
 from .models.base import resolve_device
+from .train.driver import check_spec
 
 log = True
 
 
 def check_settings(cfg):
-    """Raise for a model it cannot evaluate, a frontend the port does not
-    have, and CUDA without a card, before a dataset or a model is built."""
+    """Raise for a model it cannot evaluate, a frontend it cannot evaluate
+    (CFP, `train.driver.check_spec`), and CUDA without a card, before a
+    dataset or a model is built."""
     check_model_name(cfg["model_type"])
     if cfg["model_type"] == "Reconstructor":
         raise ValueError("model_type='Reconstructor' maps frame rolls to "
                          "spectrograms: it transcribes nothing to evaluate")
-    if cfg["spec"] != "Mel":
-        raise NotImplementedError(
-            f"spec={cfg['spec']!r}: only the Mel frontend is ported "
-            f"(ROADMAP §1 item 10)")
+    check_spec(cfg["spec"])
     resolve_device(cfg["device"])
 
 
@@ -85,8 +84,9 @@ def config():
 
 
 @ex.automain
-def main(model_type, reconstruction, weight_file, mode, inference, device,
-         refresh, rule, batch_songs, host_workers, logdir, **_ignored):
+def main(model_type, reconstruction, spec, weight_file, mode, inference,
+         device, refresh, rule, batch_songs, host_workers, logdir,
+         **_ignored):
     print_config(ex.current_run)
 
     from .data.datasets import MAPS
@@ -96,7 +96,7 @@ def main(model_type, reconstruction, weight_file, mode, inference, device,
 
     inference_state = "infer" if inference else "no_infer"
     model = get_model(model_type, log=log, reconstruction=reconstruction,
-                      mode=mode, device=device)
+                      mode=mode, spec=spec, device=device)
     load_weights(model, weight_file)
     validation_dataset = MAPS(_roots()["MAPS"],
                               groups=["ENSTDkAm", "ENSTDkCl"],

@@ -105,23 +105,16 @@ def _attn_head_apply(mod, x):
     return torch.sigmoid(mod.linear(mod.layer_norm(x))), a
 
 
-def _check_spec(spec: str) -> None:
-    if spec != "Mel":
-        raise NotImplementedError(
-            f"spec={spec!r}: only the Mel frontend is ported (ROADMAP §1 "
-            f"item 10)")
-
-
 class _AttnModel(FrameSpecModel):
-    """What the models share: the Mel chain on (B, T, F), the seeded
+    """What the models share: the signal chain of `spec` on (B, T, F),
+    whose bins set the networks' input widths, the seeded
     parameters and device. Their `run_on_batch` also takes the frame mask
     of a padded clip (`t_true`, as the other models take it: the
     evaluation runner pads songs)."""
 
     def _build(self, net_args, spec, log, mode, vat_cfg, seed, device):
-        _check_spec(spec)
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         # the network's constructor (the mixins have none)
         super(_AttnModel, self).__init__(n_bins, *net_args)
         self._init_chain(frontend, n_bins, log, mode, vat_cfg, seed, device)
@@ -239,7 +232,9 @@ class CNNAttention1DNet(nn.Module):
     def __init__(self, n_bins, input_features, output_features,
                  model_complexity, w_size, n_heads, version="a"):
         super().__init__()
-        self.cnn = (ConvStack(input_features, output_features)
+        # the trunk's FC takes the spec's bins, as the JAX package's Dense
+        # infers its input width; input_features is taken and unused there
+        self.cnn = (ConvStack(n_bins, output_features)
                     if version == "a"
                     else TimbralCNN(32, 8, output_features, n_bins))
         _attn_head_setup(self, output_features, model_complexity,
@@ -339,10 +334,12 @@ class OFSelfAttentionNet(nn.Module):
                  model_complexity, w_size, n_heads):
         super().__init__()
         size, of = model_complexity * 16, output_features
-        self.onset_conv = ConvStack(input_features, size)
+        # the spec's bins set the FC widths (the JAX package's Dense infers
+        # them; input_features is taken and unused there)
+        self.onset_conv = ConvStack(n_bins, size)
         self.onset_attn = MultiHeadAttention1D(size, size, w_size, n_heads)
         self.onset_linear = Linear(size, of)
-        self.frame_conv = ConvStack(input_features, size)
+        self.frame_conv = ConvStack(n_bins, size)
         self.frame_linear = Linear(size, of)
         self.combined_attn = MultiHeadAttention1D(2 * of, size, w_size,
                                                   n_heads)

@@ -107,7 +107,8 @@ def read_state_dict(source):
 
 
 class TranscriptionModel:
-    """Mixin of an `nn.Module` network with the Mel signal chain. The class
+    """Mixin of an `nn.Module` network with its signal chain (the frontend
+    of `make_frontend(spec)`, log, normalization). The class
     names its VAT target `vat_target(x)` (the transcriber alone: a roll, or
     a dict of rolls) and the reference state_dict's prefixes that have no
     counterpart here (`REFERENCE_ONLY`)."""
@@ -133,12 +134,30 @@ class TranscriptionModel:
 
     @property
     def device(self) -> torch.device:
-        return self.frontend.mel_basis.device
+        return next(self.parameters()).device
+
+    def check_batch_frames(self, n_frames: int) -> None:
+        """Raise ValueError for a training or evaluation batch whose labels
+        have `n_frames` frames, where the frontend cannot label them: CFP
+        drops the first and last STFT frame, so its spec has T - 2 frames
+        where the labels have T. The JAX package fails there too (at the
+        first product of the two); this raises before any work, and
+        neither crops nor pads the labels."""
+        from ..ops.spectrogram import CFP
+
+        if isinstance(self.frontend, CFP):
+            raise ValueError(
+                f"spec='CFP' gives T - 2 = {n_frames - 2} spectrogram frames "
+                f"for labels of T = {n_frames} frames (it drops the first "
+                f"and last STFT frame): CFP serves (`transcribe`) but does "
+                f"not train or evaluate, as in the JAX package")
 
     def _start(self, train: bool, generator, t_true, n_frames):
         """Start a `run_on_batch`: set the mode and, in training, new
         dropout masks from the step's generator (`nn/layers.SharedDropout`);
-        returns (loss prefix, frame mask, a zero)."""
+        returns (loss prefix, frame mask, a zero). Raises first for a batch
+        the frontend cannot label (`check_batch_frames`)."""
+        self.check_batch_frames(n_frames)
         self.train(train)
         if train:
             new_dropout_masks(self, generator)
@@ -149,7 +168,9 @@ class TranscriptionModel:
 
     def use_kernels(self, flag: bool) -> None:
         """Route the mel frontend and the attention cores through the CUDA
-        kernels (True, the default) or their plain versions (False)."""
+        kernels (True, the default) or their plain versions (False). The
+        CQT and CFP frontends have no kernel (no `use_kernel`): with them
+        the switch moves the attention cores alone."""
         for m in self.modules():
             if hasattr(m, "use_kernel"):
                 m.use_kernel = flag

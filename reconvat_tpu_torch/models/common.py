@@ -123,7 +123,9 @@ def pack_roll_device(probs: torch.Tensor, threshold: float = 0.5):
 def transcribe_spec(model, audio, bucket_frames: int = 0):
     """Serving-path spec preparation: returns (spec (B, T, F), t_true or
     None). bucket_frames > 0 pads the clip to a frame-bucket boundary; the
-    caller trims the returned rolls to t_true."""
+    caller trims the returned rolls to t_true. The frame mask runs over the
+    spec's own frames, so CFP's T - 2 frames take it as the JAX package
+    gives them."""
     if not bucket_frames:
         return make_log_norm_spec(model, audio), None
     t_true = frames_in(audio.shape[1])
@@ -188,12 +190,21 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     anchored like the full song's) and H >= 8 (the spectrogram's edge
     frames). A song of at most W + 2H frames is one bucketed call padded
     to that span. `mesh_ctx` (sharding the windows over devices) is not
-    ported: ROADMAP §1 item 11.
+    ported: ROADMAP §1 item 11; neither is a frontend other than Mel
+    (ROADMAP §1 item 1).
     """
     if mesh_ctx is not None:
         raise NotImplementedError(
             "streaming over a device mesh (mesh_ctx) is not ported: "
             "ROADMAP §1 item 11 (multi-GPU)")
+    from ..ops.spectrogram import MelSpectrogram
+
+    if not isinstance(model.frontend, MelSpectrogram):
+        raise NotImplementedError(
+            f"streaming with the {type(model.frontend).__name__} frontend "
+            f"is not ported (ROADMAP §1 item 1): pass 1's 4-frame edge halo "
+            f"is the Mel window's reach, while CQT's kernel reaches 32 "
+            f"frames each side and CFP drops a frame at each edge")
     W, H = int(window_frames), int(halo_frames)
     if H < 8:
         raise ValueError(f"halo_frames {H} < 8 does not cover the "

@@ -99,13 +99,14 @@ class _Family(FrameSpecModel):
     JAX dataclasses, with `ReconVAT`'s seed, device and compute_dtype;
     `reconstruction` is taken and has no effect: the family has no
     reconstruction chain; `kl_div` is `OnsetsAndFrames`' alone, as the
-    ablations' VAT objectives are their own) and per-step dropout
+    ablations' VAT objectives are their own; `spec` the frontend, whose
+    bins set the conv trunk's FC input width) and per-step dropout
     masks."""
 
-    def _build(self, model_complexity, log, mode, vat_cfg, seed, device,
-               compute_dtype):
+    def _build(self, model_complexity, log, mode, spec, vat_cfg, seed,
+               device, compute_dtype):
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         # the network's constructor (the mixins have none)
         super(_Family, self).__init__(n_bins, model_complexity,
                                       compute_dtype)
@@ -125,11 +126,11 @@ class OnsetsAndFrames(_Family, OnsetsAndFramesNet):
     training CLI passes its own (1e-6, 0.1)."""
 
     def __init__(self, model_complexity: int = 48, log: bool = True,
-                 mode: str = "imagewise", xi: float = 1e-5,
-                 eps: float = 10.0, kl_div: bool = False,
+                 mode: str = "imagewise", spec: str = "Mel",
+                 xi: float = 1e-5, eps: float = 10.0, kl_div: bool = False,
                  reconstruction: bool = False, seed: int = 0, device=None,
                  compute_dtype=None):
-        self._build(model_complexity, log, mode,
+        self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=-1),
                     seed, device, compute_dtype)
 
@@ -185,10 +186,10 @@ class FrameStackVAT(_Family, FrameStackNet):
     One LDS loss, `loss/{train,test}_LDS`."""
 
     def __init__(self, model_complexity: int = 48, log: bool = True,
-                 mode: str = "imagewise", xi: float = 1e-5,
-                 eps: float = 10.0, reconstruction: bool = False,
-                 seed: int = 0, device=None, compute_dtype=None,
-                 vat_mode: str = "all"):
+                 mode: str = "imagewise", spec: str = "Mel",
+                 xi: float = 1e-5, eps: float = 10.0,
+                 reconstruction: bool = False, seed: int = 0, device=None,
+                 compute_dtype=None, vat_mode: str = "all"):
         def objective(y_pred, y_ref):
             act = mse_loss(y_pred["activation"], y_ref["activation"])
             frame = binary_cross_entropy(y_pred["frame"], y_ref["frame"])
@@ -196,7 +197,7 @@ class FrameStackVAT(_Family, FrameStackNet):
                                                             act + frame)
             return total, total
 
-        self._build(model_complexity, log, mode,
+        self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, norm_axis=-1, grad_rescue=1e20,
                               objective=objective),
                     seed, device, compute_dtype)
@@ -244,11 +245,11 @@ class OnsetStackVAT(_Family, OnsetStackNet):
     the total loss like any key; its gradient is zero)."""
 
     def __init__(self, model_complexity: int = 48, log: bool = True,
-                 mode: str = "imagewise", xi: float = 1e-5,
-                 eps: float = 10.0, reconstruction: bool = False,
-                 seed: int = 0, device=None, compute_dtype=None,
-                 vat_mode: str = "all"):
-        self._build(model_complexity, log, mode,
+                 mode: str = "imagewise", spec: str = "Mel",
+                 xi: float = 1e-5, eps: float = 10.0,
+                 reconstruction: bool = False, seed: int = 0, device=None,
+                 compute_dtype=None, vat_mode: str = "all"):
+        self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, norm_axis=-1, grad_rescue=1.0,
                               clamp=False),
                     seed, device, compute_dtype)

@@ -120,10 +120,10 @@ class Prestack(FrameSpecModel, PrestackNet):
     keys as `ReconVAT`'s; `reconstruction` is taken and has no effect."""
 
     def __init__(self, log: bool = True, mode: str = "imagewise",
-                 reconstruction: bool = False, seed: int = 0, device=None,
-                 compute_dtype=None):
+                 spec: str = "Mel", reconstruction: bool = False,
+                 seed: int = 0, device=None, compute_dtype=None):
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         super().__init__(compute_dtype)
         self._init_chain(frontend, n_bins, log, mode, None, seed, device)
 
@@ -133,6 +133,7 @@ class Prestack(FrameSpecModel, PrestackNet):
         and unused. In training BatchNorm runs on the batch statistics of
         the B x T patches and updates its running statistics. Returns
         (predictions, losses, spec (B, T, F))."""
+        self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         mask = (None if t_true is None
                 else frame_mask(t_true, batch_l["frame"].shape[1],

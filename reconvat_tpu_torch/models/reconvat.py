@@ -124,15 +124,18 @@ class ReconVAT(TranscriptionModel, UNet):
     `ReconVAT.vat_chain`).
     compute_dtype None is fp32, 'bfloat16' the JAX package's mixed
     precision, for serving and training alike; the parameters are fp32 in
-    both."""
+    both. `spec` picks the frontend (`make_frontend`: 'Mel' 229 bins, 'CQT'
+    176, 'CFP' 386), and every width follows its bins: the attention runs
+    4 heads of Dh = n_bins. CFP serves only: `run_on_batch` refuses it
+    (`check_batch_frames`)."""
 
     def __init__(self, log: bool = True, reconstruction: bool = True,
-                 mode: str = "imagewise", xi: float = 1e-6,
-                 eps: float = 2.0, kl_div: bool = False, seed: int = 0,
-                 device=None, compute_dtype=None,
+                 mode: str = "imagewise", spec: str = "Mel",
+                 xi: float = 1e-6, eps: float = 2.0, kl_div: bool = False,
+                 seed: int = 0, device=None, compute_dtype=None,
                  vat_chain: str = "separate"):
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         super().__init__(n_bins, reconstruction, compute_dtype)
         self._init_chain(frontend, n_bins, log, mode,
                          self.image_vat_cfg(xi, eps, kl_div), seed, device,
@@ -195,6 +198,7 @@ class ReconVAT(TranscriptionModel, UNet):
         convolution casts the perturbed spec, as the JAX package does), the
         reconstruction is bf16 and enters the MSE against the fp32 spec and
         the second transcriber pass as it is, and every loss is fp32."""
+        self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         prefix = "train" if train else "test"
         frame_label = batch_l["frame"]
@@ -266,6 +270,7 @@ class ReconVAT(TranscriptionModel, UNet):
         if not self.reconstruction:
             raise ValueError("run_on_batch_application requires "
                              "reconstruction=True")
+        self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         prefix = "train" if train else "test"
         zero = torch.zeros((), device=self.device)

@@ -306,7 +306,7 @@ class SemanticSegmentation(TranscriptionModel, SegmentationModule):
     """The segmentation transcriber with its signal chain (the JAX
     package's `SemanticSegmentation`, reference `model/Segmentation.py:
     539-631`), the JAX dataclass's keys with `ReconVAT`'s seed and device.
-    `spec` must be 'Mel' (the CQT frontends are not ported yet);
+    `spec` picks the frontend (its bins set the `Linear(n_bins, 88)`);
     `conv_layout` 'auto' is the NHWC-equivalent layout, 'folded' (the JAX
     package's TPU layout) raises; `n_heads` and `reconstruction` are taken
     and unused, as in the JAX package. VAT perturbs the (B, T, F, 1) spec
@@ -318,10 +318,6 @@ class SemanticSegmentation(TranscriptionModel, SegmentationModule):
                  kl_div: bool = False, n_heads: int = 1,
                  reconstruction: bool = False, compute_dtype=None,
                  conv_layout: str = "auto", seed: int = 0, device=None):
-        if spec != "Mel":
-            raise NotImplementedError(
-                f"spec={spec!r}: only the Mel frontend is ported (ROADMAP "
-                f"§1 item 10)")
         if conv_layout == "folded":
             raise NotImplementedError(
                 "conv_layout='folded' is the JAX package's TPU lane-tiling "
@@ -330,7 +326,7 @@ class SemanticSegmentation(TranscriptionModel, SegmentationModule):
         if conv_layout not in ("auto", "nhwc"):
             raise ValueError(f"unknown conv_layout {conv_layout!r}")
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         super().__init__(n_bins, out_class, dropout_rate,
                          resolve_compute_dtype(compute_dtype))
         self._init_chain(frontend, n_bins, log, mode,

@@ -62,10 +62,10 @@ class Thickstun(FrameSpecModel, ThickstunNet):
     and has no effect."""
 
     def __init__(self, log: bool = True, mode: str = "imagewise",
-                 reconstruction: bool = False, seed: int = 0, device=None,
-                 compute_dtype=None):
+                 spec: str = "Mel", reconstruction: bool = False,
+                 seed: int = 0, device=None, compute_dtype=None):
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         super().__init__(n_bins, compute_dtype)
         self._init_chain(frontend, n_bins, log, mode, None, seed, device)
 
@@ -73,6 +73,7 @@ class Thickstun(FrameSpecModel, ThickstunNet):
                      vat: bool = False, train: bool = True, t_true=None):
         """batch_l {"audio", "frame"}; batch_ul, generator and vat are taken
         and unused. Returns (predictions, losses, spec (B, T, F))."""
+        self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         mask = (None if t_true is None
                 else frame_mask(t_true, batch_l["frame"].shape[1],

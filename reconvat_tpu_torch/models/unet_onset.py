@@ -115,20 +115,21 @@ class UNetOnset(TranscriptionModel, OnsetUNet):
     409-542`), with `ReconVAT`'s constructor keys and conventions: built on
     CUDA unless `device` says otherwise, parameters from `seed`, eval mode
     at start, `vat_chain` 'separate' or 'batched', compute_dtype None or
-    'bfloat16'. VAT perturbs the spec against the sum of the frame and
-    onset BCEs (their sorted-key order, as the JAX package sums a dict's
-    leaves) and reports an LDS loss per head."""
+    'bfloat16', `spec` the frontend (CFP refused by `run_on_batch`). VAT
+    perturbs the spec against the sum of the frame and onset BCEs (their
+    sorted-key order, as the JAX package sums a dict's leaves) and reports
+    an LDS loss per head."""
 
     REFERENCE_ONLY = TranscriptionModel.REFERENCE_ONLY + (
         "transcriber.lstm1.", "transcriber.linear1.")
 
     def __init__(self, log: bool = True, reconstruction: bool = True,
-                 mode: str = "imagewise", xi: float = 1e-6,
-                 eps: float = 2.0, kl_div: bool = False, seed: int = 0,
-                 device=None, compute_dtype=None,
+                 mode: str = "imagewise", spec: str = "Mel",
+                 xi: float = 1e-6, eps: float = 2.0, kl_div: bool = False,
+                 seed: int = 0, device=None, compute_dtype=None,
                  vat_chain: str = "separate"):
         device = resolve_device(device)
-        frontend, n_bins = make_frontend("Mel")
+        frontend, n_bins = make_frontend(spec)
         super().__init__(n_bins, reconstruction, compute_dtype)
         self._init_chain(frontend, n_bins, log, mode,
                          self.image_vat_cfg(xi, eps, kl_div), seed, device,
@@ -144,6 +145,7 @@ class UNetOnset(TranscriptionModel, OnsetUNet):
         batch_ul {"audio"} or None, on the model's device; returns
         (predictions, losses, spec (B, T, F)). The LDS losses are per head
         (`_LDS_l_frame`, `_LDS_l_onset`, and `_LDS_ul_*` in train mode)."""
+        self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         prefix = "train" if train else "test"
         frame_label, onset_label = batch_l["frame"], batch_l["onset"]

@@ -38,6 +38,13 @@ from ..kernels import _build
 # query rows per tile of the backward's first pass; the CUDA source builds
 # with the same value and refuses another
 BWD_TILE = 32
+# the widest head the forward kernels take (`MAX_FWD_D` of
+# csrc/banded_attention.cu: two chunks of 256 columns), and the widest the
+# backward's take (`32 * MAX_DCHUNK` of csrc/banded_attention_bwd.cu; the
+# fp32 one also needs its tiles to fit the shared memory: Dh <= 232 on the
+# H100). No path of the JAX package trains at a head wider than 256: CFP's
+# Dh = 386 serves only.
+FWD_MAX_DH, BWD_MAX_DH = 512, 256
 
 
 def banded_attention(q, kpad, vpad, rel, window: int):
@@ -78,7 +85,9 @@ def banded_attention_fwd(q, kpad, vpad, rel, window: int):
     `banded_attention_fwd.launches`), bf16 ones the bf16 tensor-core kernel
     whose tile arithmetic `banded_attention_fwd_mma_plain` repeats (counted
     in `banded_attention_fwd.launches_bf16`); rel is fp32 for both. A
-    missing rel is a zero rel."""
+    missing rel is a zero rel. Both take window <= 32 and Dh <=
+    `FWD_MAX_DH` (the kernels walk a head wider than 256 in two column
+    chunks: CFP's Dh = 386) and raise ValueError beyond."""
     if q.device.type == "cpu":
         return banded_attention(q, kpad, vpad, rel, window)
     if q.device.type != "cuda" or q.dim() != 4:
@@ -88,9 +97,10 @@ def banded_attention_fwd(q, kpad, vpad, rel, window: int):
         raise TypeError(f"banded_attention_fwd: the kernels take float32 or "
                         f"bfloat16 operands, got {q.dtype}")
     B, L, H, D = q.shape
-    if not 1 <= window <= 32 or D > 256:
-        raise ValueError(f"kernel takes window <= 32 and Dh <= 256, got "
-                         f"window={window}, Dh={D}")
+    if not 1 <= window <= 32 or D > FWD_MAX_DH:
+        raise ValueError(f"the attention forward kernels take window <= 32 "
+                         f"and Dh <= {FWD_MAX_DH}, got window={window}, "
+                         f"Dh={D}")
     if rel is None:
         rel = torch.zeros((H, D, window), device=q.device)
     _build.check_tensor("q", q, (B, L, H, D), q.device, q.dtype)
@@ -504,9 +514,12 @@ def _check_bwd_args(q, kpad, vpad, rel, d_out, window: int):
         raise TypeError(f"banded attention backward: the kernels take "
                         f"float32 or bfloat16 operands, got {q.dtype}")
     B, L, H, D = q.shape
-    if not 1 <= window <= 32 or D > 256:
-        raise ValueError(f"kernel takes window <= 32 and Dh <= 256, got "
-                         f"window={window}, Dh={D}")
+    if not 1 <= window <= 32 or D > BWD_MAX_DH:
+        raise ValueError(f"the attention backward kernels take window <= 32 "
+                         f"and Dh <= {BWD_MAX_DH} (fp32: <= 232 on the "
+                         f"H100), got window={window}, Dh={D}; no path of "
+                         f"the JAX package trains at a wider head (CFP's "
+                         f"Dh = 386 serves only)")
     _build.check_tensor("q", q, (B, L, H, D), q.device, q.dtype)
     _build.check_tensor("kpad", kpad, (B, L + window - 1, H, D), q.device,
                         q.dtype)

@@ -1,10 +1,11 @@
-"""Host-side (numpy) filterbank builders for the mel frontend.
+"""Host-side (numpy) filterbank builders for the frontends.
 
-The port's own copy of the window, windowed-DFT and slaney mel helpers of
-`reconvat_tpu/ops/filterbanks.py` (the port imports nothing of the JAX
-package). They reproduce the kernels the reference builds through nnAudio
-0.2.0 (`create_fourier_kernels` / librosa `mel`, reference
-`model/Spectrogram.py:133,421`) and run once at model build.
+The port's own copy of the window, windowed-DFT, slaney mel and CQT kernel
+helpers of `reconvat_tpu/ops/filterbanks.py` (the port imports nothing of
+the JAX package). They reproduce the kernels the reference builds through
+nnAudio 0.2.0 (`create_fourier_kernels` / librosa `mel` /
+`create_cqt_kernels`, reference `model/Spectrogram.py:133,421,1266`) and
+run once at model build.
 """
 from __future__ import annotations
 
@@ -130,3 +131,37 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         enorm = 2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels])
         weights *= enorm[:, np.newaxis]
     return weights.astype(np.float32)
+
+
+def cqt_kernels(q: float, fs: float, fmin: float, n_bins: int = 84,
+                bins_per_octave: int = 12, norm: int = 1,
+                window: str = "hann", fmax: float | None = None):
+    """Complex log-spaced CQT kernels (nnAudio `create_cqt_kernels`, used by
+    CQT1992v2, reference `model/Spectrogram.py:1266-1273`): per-bin
+    windowed complex exponentials of length ceil(Q fs / freq), centred,
+    L`norm`-normalized. Returns (kernels complex64 (n_bins, fft_len),
+    fft_len, lengths float32 (n_bins,))."""
+    if fmax is not None and n_bins is None:
+        n_bins = int(np.ceil(bins_per_octave * np.log2(fmax / fmin)))
+    freqs = fmin * 2.0 ** (np.arange(n_bins) / bins_per_octave)
+    if np.max(freqs) > fs / 2:
+        raise ValueError("The top CQT bin exceeds the Nyquist frequency; "
+                         "reduce n_bins or raise sr")
+    lengths = np.ceil(q * fs / freqs)
+    fft_len = int(2 ** np.ceil(np.log2(np.ceil(q * fs / fmin))))
+
+    kernels = np.zeros((n_bins, fft_len), dtype=np.complex64)
+    for k in range(n_bins):
+        freq = freqs[k]
+        l = int(np.ceil(q * fs / freq))
+        if l % 2 == 1:
+            start = int(np.ceil(fft_len / 2.0 - l / 2.0)) - 1
+        else:
+            start = int(np.ceil(fft_len / 2.0 - l / 2.0))
+        t = np.r_[-(l // 2):l - (l // 2)]
+        sig = (get_window(window, l, periodic=True)
+               * np.exp(t * 1j * 2 * np.pi * freq / fs) / l)
+        if norm:
+            sig = sig / np.linalg.norm(sig, norm)
+        kernels[k, start:start + l] = sig
+    return kernels, fft_len, lengths.astype(np.float32)

@@ -44,17 +44,30 @@ def build_mesh(cfg):
     return None
 
 
+def check_spec(spec: str) -> None:
+    """Raise ValueError for a frontend the training and evaluation CLIs
+    cannot run: an unknown name, or 'CFP', whose spec has T - 2 frames for
+    labels of T (it drops the first and last STFT frame), so no
+    `run_on_batch` of the JAX package or of the port takes it. 'Mel' and
+    'CQT' pass."""
+    if spec == "CFP":
+        raise ValueError(
+            "spec='CFP' gives T - 2 spectrogram frames for labels of T "
+            "frames (it drops the first and last STFT frame): CFP serves "
+            "(the transcription CLI) but does not train or evaluate, as in "
+            "the JAX package")
+    if spec not in ("Mel", "CQT"):
+        raise ValueError(f"unknown spectrogram type: {spec}")
+
+
 def check_settings(cfg):
     """Raise for the settings the training CLIs of the port do not run: a
-    device mesh, the folded U-Net layout, the plain attention, another
-    frontend, and CUDA without a card. `attn_impl` and `conv_layout` are
+    device mesh, the folded U-Net layout, the plain attention, the CFP
+    frontend (`check_spec`), and CUDA without a card. `attn_impl` and `conv_layout` are
     read where a CLI has them (the baselines' have neither). The CLIs'
     `Experiment` runs it before the observers write the run directory."""
     build_mesh(cfg)
-    if cfg["spec"] != "Mel":
-        raise NotImplementedError(
-            f"spec={cfg['spec']!r}: only the Mel frontend is ported "
-            f"(ROADMAP §1 item 10)")
+    check_spec(cfg["spec"])
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl == "xla":
         raise ValueError(

@@ -84,7 +84,7 @@ def config():
 
 
 @ex.automain
-def train(device, log, reconstruction, XI, eps, KL_Div, compute_dtype,
+def train(device, log, reconstruction, spec, XI, eps, KL_Div, compute_dtype,
           vat_chain, seed, **_ignored):
     cfg = ex.current_run.config
     print_config(ex.current_run)
@@ -92,7 +92,7 @@ def train(device, log, reconstruction, XI, eps, KL_Div, compute_dtype,
     from .train.driver import run_training
 
     model = UNetOnset(log=log, reconstruction=reconstruction, mode=mode,
-                      xi=XI, eps=eps, kl_div=KL_Div, seed=seed,
+                      spec=spec, xi=XI, eps=eps, kl_div=KL_Div, seed=seed,
                       device=device, compute_dtype=compute_dtype,
                       vat_chain=vat_chain)
     return run_training(model, cfg)

@@ -73,11 +73,11 @@ def config():
 
 
 @ex.automain
-def train(device, log, compute_dtype, seed, **_ignored):
+def train(device, log, spec, compute_dtype, seed, **_ignored):
     print_config(ex.current_run)
     from .models.prestack import Prestack
     from .train.driver import run_training
 
-    model = Prestack(log=log, mode=mode, seed=seed, device=device,
+    model = Prestack(log=log, mode=mode, spec=spec, seed=seed, device=device,
                      compute_dtype=compute_dtype)
     return run_training(model, ex.current_run.config)

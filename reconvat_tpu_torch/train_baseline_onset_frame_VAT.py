@@ -87,15 +87,15 @@ def config():
 
 
 @ex.automain
-def train(device, log, model_name, model_complexity, XI, eps, VAT_mode,
-          compute_dtype, seed, **_ignored):
+def train(device, log, spec, model_name, model_complexity, XI, eps,
+          VAT_mode, compute_dtype, seed, **_ignored):
     print_config(ex.current_run)
     from .models.onsets_frames import (FrameStackVAT, OnsetsAndFrames,
                                        OnsetStackVAT)
     from .train.driver import run_training
 
     kwargs = dict(model_complexity=model_complexity, log=log, mode=mode,
-                  xi=XI, eps=eps, seed=seed, device=device,
+                  spec=spec, xi=XI, eps=eps, seed=seed, device=device,
                   compute_dtype=compute_dtype)
     if model_name == "onset_frame":
         model = OnsetsAndFrames(**kwargs)

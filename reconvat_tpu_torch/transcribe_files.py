@@ -8,9 +8,11 @@
 Reads the .flac and .wav files (16 kHz) of `input_path`, loads a torch
 `.pt` of the reference's state_dict names (or a `model-N` checkpoint of
 the port's training CLIs) into the port's ReconVAT (`model_type=ReconVAT`)
-or SemanticSegmentation (`model_type=baseline_Multi_Inst`),
+or SemanticSegmentation (`model_type=baseline_Multi_Inst`) on the frontend
+`spec` ('Mel', 'CQT' or 'CFP'),
 transcribes each song in fp32 (bucketed to `bucket_frames`, exact with 0,
-or in haloed windows with `streaming=True` for hour-long recordings),
+or in haloed windows with `streaming=True` for hour-long recordings, Mel
+only),
 decodes notes with the native decoder and writes one MIDI file per song to
 `output_path`. Runs on CUDA unless `device=cpu`; without a card it raises.
 """
@@ -25,7 +27,19 @@ from .config import Experiment
 from .data.datasets import ApplicationDataset
 from .data.midi_io import midi_to_hz, save_midi
 
-ex = Experiment("transcription")
+
+
+def check_settings(cfg):
+    """Raise, before any work, for streaming with a frontend other than
+    Mel (`models/common.transcribe_streaming`, ROADMAP §1 item 1)."""
+    if cfg["streaming"] and cfg["spec"] != "Mel":
+        raise NotImplementedError(
+            f"streaming=True with spec={cfg['spec']!r} is not ported "
+            f"(ROADMAP §1 item 1): the streaming pass 1 reaches the Mel "
+            f"window's 4 frames only")
+
+
+ex = Experiment("transcription", check=check_settings)
 
 log = True
 mode = "imagewise"
@@ -70,6 +84,7 @@ def transcribe2midi(data, model, model_type, onset_threshold=0.5,
 def config():
     device = "cuda"
     model_type = "ReconVAT"
+    spec = "Mel"  # the frontend: 'Mel', 'CQT' or 'CFP'
     # torch .pt of the reference's names, or a model-N checkpoint directory
     # of the port's training CLI; None = the default
     weight_path = None
@@ -90,21 +105,21 @@ def config():
 
 
 @ex.automain
-def main(device, model_type, weight_path, bucket_frames, streaming,
+def main(device, model_type, spec, weight_path, bucket_frames, streaming,
          streaming_windows, streaming_depth, input_path, output_path):
     # the model first: without a card this raises before any work
     if model_type == "ReconVAT":
         from .models.reconvat import ReconVAT
 
-        model = ReconVAT(log=log, reconstruction=True, mode=mode, seed=42,
-                         device=device)
+        model = ReconVAT(log=log, reconstruction=True, mode=mode, spec=spec,
+                         seed=42, device=device)
         default_weight = ("Weight/String_MusicNet/"
                           "Unet_R_VAT-XI=1e-06-eps=1.3-String_MusicNet-"
                           "lr=0.001/weight.pt")
     elif model_type == "baseline_Multi_Inst":
         from .models.segmentation import SemanticSegmentation
 
-        model = SemanticSegmentation(seed=42, device=device)
+        model = SemanticSegmentation(spec=spec, seed=42, device=device)
         default_weight = "Weight/String_MusicNet/baseline_Multi_Inst/weight.pt"
     else:
         raise ValueError(f"unknown model_type {model_type}")

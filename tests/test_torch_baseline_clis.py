@@ -266,7 +266,7 @@ def test_multi_inst_cli_runs(corpora, monkeypatch):
 
 def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     """model_name other than the three raises before the run directory is
-    written (as a mesh, another frontend and CUDA without a card do); the
+    written (as a mesh, the CFP frontend and CUDA without a card do); the
     baselines' CLIs have no attn_impl or conv_layout, and check_settings
     reads them only where they are given."""
     with pytest.raises(ValueError, match="attention"):
@@ -275,9 +275,9 @@ def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     with pytest.raises(NotImplementedError, match="item 11"):
         thickstun_cli.ex.run(thickstun_cli.train, {
             "root": str(tmp_path), "device": "cpu", "mesh_dp": 2})
-    with pytest.raises(NotImplementedError, match="Mel frontend"):
+    with pytest.raises(ValueError, match="T - 2"):
         prestack_cli.ex.run(prestack_cli.train, {
-            "root": str(tmp_path), "device": "cpu", "spec": "CQT"})
+            "root": str(tmp_path), "device": "cpu", "spec": "CFP"})
     with pytest.raises(NotImplementedError, match="TPU"):
         multi_cli.ex.run(multi_cli.train, {
             "root": str(tmp_path), "device": "cpu",
@@ -288,6 +288,7 @@ def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     assert os.listdir(tmp_path) == []
 
     driver.check_settings({"spec": "Mel", "device": "cpu"})
+    driver.check_settings({"spec": "CQT", "device": "cpu"})
     for extra, error in (({"attn_impl": "xla"}, ValueError),
                          ({"attn_impl": "other"}, ValueError),
                          ({"conv_layout": "folded"}, NotImplementedError),

@@ -245,11 +245,10 @@ def test_evaluate_cli_segmentation_from_pt(corpus, tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ({"model_type": "Segmentation", "spec": "CQT"}, NotImplementedError,
-     "item 10"),
-    ({"model_type": "VATSelfAttention1D", "spec": "CFP"},
-     NotImplementedError, "item 10"),
-    ({"spec": "CQT"}, NotImplementedError, "Mel frontend"),
+    ({"model_type": "Segmentation", "spec": "CFP"}, ValueError, "T - 2"),
+    ({"model_type": "VATSelfAttention1D", "spec": "CFP"}, ValueError,
+     "T - 2"),
+    ({"spec": "STFT"}, ValueError, "unknown spectrogram"),
     ({"weight_file": "orbax"}, ValueError, "orbax"),
     ({}, RuntimeError, "no CUDA device"),
     ({"model_type": "NoSuchModel"}, KeyError, "unknown model"),
@@ -257,9 +256,10 @@ def test_evaluate_cli_segmentation_from_pt(corpus, tmp_path):
 ])
 def test_evaluate_cli_refuses_before_any_work(monkeypatch, tmp_path,
                                               override, error, match):
-    """Frontends not ported (for any model), a name not in the registry,
-    the Reconstructor (nothing to evaluate), an orbax directory, and CUDA
-    without a card raise before a dataset is read or a file written."""
+    """CFP (its spec has T - 2 frames for labels of T, for any model), an
+    unknown frontend, a name not in the registry, the Reconstructor
+    (nothing to evaluate), an orbax directory, and CUDA without a card
+    raise before a dataset is read or a file written."""
     monkeypatch.setenv("RECONVAT_MAPS_ROOT", str(tmp_path / "nowhere"))
     out = tmp_path / "out"
     args = {"output_folder": str(out), "device": "cpu", **override}

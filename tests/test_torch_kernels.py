@@ -371,8 +371,11 @@ def test_attention_kernel_refuses_mixed_dtypes(cuda_device):
 FWD_MODEL_SIZES = [(2, 64, 31, 229, True),     # full-width tiles
                    (2, 33, 7, 57, True),       # ragged tile
                    (2, 40, 15, 64, False),     # no rel
-                   (1, 64, 32, 256, True),     # the kernels' limits
-                   (2, 70, 31, 128, True)]     # UNetOnset's Stack heads
+                   (1, 64, 32, 256, True),     # one chunk's limits
+                   (2, 70, 31, 128, True),     # UNetOnset's Stack heads
+                   (2, 70, 31, 176, True),     # CQT's heads
+                   (2, 70, 31, 386, True),     # CFP's: two column chunks
+                   (1, 64, 32, 512, True)]     # two chunks' limits
 FWD_CARD_SIZES = [(8, 640, 31, 229, True)] + FWD_MODEL_SIZES[1:]
 
 
@@ -480,7 +483,8 @@ def test_attention_bf16_kernel_matches_mma_model(cuda_device, B, L, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
                                            (2, 100, 7, 57),
-                                           (2, 33, 31, 229)])   # ragged tile
+                                           (2, 33, 31, 229),    # ragged tile
+                                           (2, 70, 31, 176)])   # CQT
 def test_attention_bwd_kernel_matches_plain(cuda_device, B, L, window, Dh):
     q, kpad, vpad, rel = (t.to(cuda_device)
                           for t in _attn_inputs(L, window, Dh, B=B))
@@ -545,7 +549,8 @@ def test_split_tf32x2(values):
 
 @pytest.mark.parametrize("B,L,window,Dh", [(2, 100, 31, 229),
                                            (2, 33, 7, 57),      # ragged tile
-                                           (2, 70, 31, 128)])   # UNetOnset
+                                           (2, 70, 31, 128),    # UNetOnset
+                                           (2, 70, 31, 176)])   # CQT
 def test_fp32_first_pass_tf32x3_model_matches_plain(B, L, window, Dh):
     """The CPU model of the fp32 tensor-core first pass (dense 32 x 64
     tiles, zero padding to D8, 3xTF32 products) against the plain first
@@ -565,7 +570,8 @@ def test_fp32_first_pass_tf32x3_model_matches_plain(B, L, window, Dh):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
-                                           (2, 33, 7, 57)])     # ragged tile
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (2, 70, 31, 176)])   # CQT
 def test_attention_bwd_first_pass_matches_tf32x3_model(cuda_device, B, L,
                                                        window, Dh):
     """The fp32 first pass on the card against its tile-by-tile model
@@ -584,7 +590,8 @@ def test_attention_bwd_first_pass_matches_tf32x3_model(cuda_device, B, L,
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
-                                           (2, 33, 7, 57)])     # ragged tile
+                                           (2, 33, 7, 57),      # ragged tile
+                                           (2, 70, 31, 176)])   # CQT
 def test_attention_bwd_kernel_against_float64(cuda_device, B, L, window,
                                               Dh):
     """Both passes of the fp32 backward on the card, and its first pass,
@@ -623,6 +630,41 @@ def test_attention_bwd_fp32_refuses_beyond_shared_memory(cuda_device):
             wrapper(*args)
     assert (bak.banded_attention_bwd.launches,
             bak.banded_attention_bwd_partials.launches) == before
+
+
+@pytest.mark.cuda
+def test_attention_kernels_at_cfp_heads_forward_only(cuda_device):
+    """At CFP's Dh = 386 the forward kernels launch in both operand dtypes
+    (two column chunks) and agree with the plain forward; the backward
+    kernels take Dh <= 256 and raise ValueError, launching nothing: no
+    path of the JAX package trains at CFP. Past the forward's widest head
+    it raises too."""
+    q, kpad, vpad, rel = (t.to(cuda_device)
+                          for t in _attn_inputs(70, 31, 386, B=2))
+    for dtype, count in ((torch.float32, "launches"),
+                         (torch.bfloat16, "launches_bf16")):
+        args = (*(t.to(dtype) for t in (q, kpad, vpad)), rel, 31)
+        before = getattr(bak.banded_attention_fwd, count)
+        out, probs = bak.banded_attention_fwd(*args)
+        torch.cuda.synchronize()
+        assert getattr(bak.banded_attention_fwd, count) == before + 1
+        ref_out, ref_probs = bak.banded_attention(*args)
+        if dtype == torch.float32:
+            torch.testing.assert_close(out, ref_out, **ATTN_TOL)
+            torch.testing.assert_close(probs, ref_probs, **ATTN_TOL)
+        else:
+            torch.testing.assert_close(probs, ref_probs, rtol=0, atol=1e-5)
+            _assert_bf16_out_close(out, ref_out)
+        wrappers = (bak.banded_attention_bwd,
+                    bak.banded_attention_bwd_partials)
+        before = [(f.launches, f.launches_bf16) for f in wrappers]
+        for wrapper in wrappers:
+            with pytest.raises(ValueError, match="serves only"):
+                wrapper(*args[:4], _d_out(args[0], 3), 31)
+        assert [(f.launches, f.launches_bf16) for f in wrappers] == before
+    wide = (t.to(cuda_device) for t in _attn_inputs(40, 31, 520, B=1))
+    with pytest.raises(ValueError, match="Dh <= 512"):
+        bak.banded_attention_fwd(*wide, 31)
 
 
 def _d_out(q, seed):
@@ -793,7 +835,8 @@ def test_split_bf16x3_is_exact(values):
 
 @pytest.mark.parametrize("B,L,window,Dh", [(2, 100, 31, 229),
                                            (2, 33, 7, 57),      # ragged tile
-                                           (2, 70, 31, 128)])   # UNetOnset
+                                           (2, 70, 31, 128),    # UNetOnset
+                                           (2, 70, 31, 176)])   # CQT
 def test_bf16_first_pass_mma_model_matches_plain(B, L, window, Dh):
     """The CPU model of the bf16 tensor-core first pass (dense 32 x 64
     tiles, zero padding to D16, the three rel terms) against the bf16
@@ -853,7 +896,8 @@ def test_bf16_bwd_wrappers_are_plain_on_cpu():
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
                                            (2, 33, 7, 57),      # ragged tile
-                                           (1, 64, 32, 256)])   # limits
+                                           (1, 64, 32, 256),    # limits
+                                           (2, 70, 31, 176)])   # CQT
 def test_attention_bwd_bf16_kernel_matches_plain(cuda_device, B, L, window,
                                                  Dh):
     """Both passes of the bf16 backward kernel, and the bf16 plain versions
@@ -885,7 +929,8 @@ def test_attention_bwd_bf16_kernel_matches_plain(cuda_device, B, L, window,
 @pytest.mark.cuda
 @pytest.mark.parametrize("B,L,window,Dh", [(8, 640, 31, 229),   # full width
                                            (2, 33, 7, 57),      # ragged tile
-                                           (1, 64, 32, 256)])   # limits
+                                           (1, 64, 32, 256),    # limits
+                                           (2, 70, 31, 176)])   # CQT
 def test_attention_bwd_bf16_first_pass_matches_mma_model(cuda_device, B, L,
                                                          window, Dh):
     """The bf16 first pass on the card against its tile-by-tile model

@@ -342,8 +342,8 @@ def test_streaming_matches_bucketed(pair):
 
 def test_dropout_is_shared_and_layout_refused(monkeypatch):
     """Dropout layers are `SharedDropout` (one mask per step for the VAT
-    chains and the supervised forward); 'folded' and another frontend
-    raise; CUDA is the default device."""
+    chains and the supervised forward); 'folded' and an unknown frontend
+    raise, CQT builds; CUDA is the default device."""
     model = SemanticSegmentation(device="cpu")
     drops = [m for m in model.modules() if isinstance(m, SharedDropout)]
     # 2 in each of 14 encoder and 4 transposed blocks, 1 in each of 3
@@ -351,8 +351,9 @@ def test_dropout_is_shared_and_layout_refused(monkeypatch):
     assert len(drops) == 40 and all(m.p == 0.4 for m in drops)
     with pytest.raises(NotImplementedError, match="TPU"):
         SemanticSegmentation(device="cpu", conv_layout="folded")
-    with pytest.raises(NotImplementedError, match="Mel"):
-        SemanticSegmentation(device="cpu", spec="CQT")
+    assert SemanticSegmentation(device="cpu", spec="CQT").n_bins == 176
+    with pytest.raises(ValueError, match="unknown spectrogram"):
+        SemanticSegmentation(device="cpu", spec="STFT")
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         SemanticSegmentation()

@@ -201,7 +201,8 @@ def test_cli_subprocess_on_cpu(weights, jax_runs, tmp_path):
 
 def test_cli_config_and_limits(tmp_path, capsys):
     """The `with key=value` parse and the resolved config equal the JAX
-    CLI's (device defaults to cuda in the port); a model_type the JAX CLI
+    CLI's (device defaults to cuda in the port; `spec` is a key of the
+    port's CLI, a module constant of the JAX one's); a model_type the JAX CLI
     does not take, and an orbax directory, raise."""
     argv = ["print_config", "with", "bucket_frames=0", "streaming=True",
             "input_path=some/dir", "weight_path=w.pt", "note=a b"]
@@ -210,6 +211,8 @@ def test_cli_config_and_limits(tmp_path, capsys):
     got = cli.ex._resolve(overrides)
     ref = jax_cli.ex._resolve(overrides)
     assert got.pop("device") == "cuda" and ref.pop("device") == "tpu"
+    # the frontend is a key of the port's CLI, a constant of the JAX one's
+    assert got.pop("spec") == jax_cli.spec == "Mel"
     assert got == ref
     assert cli.ex.run(cli.main, overrides, ["print_config"]) is None
     assert "bucket_frames = 0" in capsys.readouterr().out
