@@ -62,7 +62,12 @@ plain versions and float64, timed (16b); a CQT VAT train step of the
 flagship, kernels against plain versions (16c); the flagship serving on
 CFP in fp32 and bf16 through `serve.submit`, kernels against plain
 versions, notes equal away from 0.5 (16d); and the transcription CLI with
-each frontend (16e).
+each frontend (16e). Last, phase 17: the flagship on CQT and on CFP
+streams a 60-s song against its bucketed transcription, kernels against
+plain versions (17a); the flagship's and Segmentation's fp32 VAT steps on
+two ranks (`--dp-rank` processes of this script sharing the card over
+gloo, and over NCCL a card each where the machine has two) against one
+process (17b); and the training CLI at `mesh_dp=2` with a resume (17c).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -72,7 +77,11 @@ or when any check fails. Imports nothing of JAX or of `reconvat_tpu`.
 
 `python3 chip_smoke.py --bf16-step-rule [n_states]` runs no phase: it reads
 phase 8b's gradient rule over n_states weight states (8 by default) beside
-the plain bf16 route's own spread (`bf16_step_rule`).
+the plain bf16 route's own spread (`bf16_step_rule`);
+`python3 chip_smoke.py --segmentation-step-rule [n_states]` reads phase
+14's the same way (10 states by default, `segmentation_step_rule`).
+`python3 chip_smoke.py --dp-rank rank world port out` is one rank of
+phase 17b, started by that phase.
 """
 from __future__ import annotations
 
@@ -1273,7 +1282,43 @@ def float64_mel(model):
         handle.remove()
 
 
-def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
+def grad_rule(gk: dict, gp: dict, moved: dict, spread=None):
+    """Phase 8's and 14's gradient rule, leaf by leaf: the kernel route's
+    gradient `gk` against the plain route's `gp` within the first limit,
+    PROBE_FACTOR x the plain route's move under one PROBE (`moved`: its
+    gradients on the probed batch) + GRAD_FLOOR x the largest gradient
+    magnitude. With `spread` ({leaf: the plain route's largest move under
+    R_NORM_PROBES further probes}) a leaf above the first limit is held by
+    the second reading, the first limit + PROBE_FACTOR x its spread.
+    Returns (the largest magnitude, {leaf: (gap, first limit, second limit
+    or None, the limit that holds it)})."""
+    top = max(g.abs().max().item() for g in gp.values())
+    out = {}
+    for name, g in gp.items():
+        diff = (gk[name] - g).abs().max().item()
+        first = (PROBE_FACTOR * (moved[name] - g).abs().max().item()
+                 + GRAD_FLOOR * top)
+        second = (None if spread is None else
+                  first + PROBE_FACTOR * spread[name])
+        limit = first if diff <= first or second is None else second
+        if not torch.isfinite(gk[name]).all():
+            diff = float("inf")
+        out[name] = (diff, first, second, limit)
+    return top, out
+
+
+def plain_spread(run, plain, batch_l, gp: dict) -> dict:
+    """{leaf: the plain route's largest gradient move without VAT under
+    R_NORM_PROBES audio probes of PROBE}, `run(model, batch_l, batch_ul,
+    vat)` giving (losses, gradients)."""
+    readings = [run(plain, probed(batch_l, 20 + 2 * j), None, False)[1]
+                for j in range(R_NORM_PROBES)]
+    return {k: max((r[k] - g).abs().max().item() for r in readings)
+            for k, g in gp.items()}
+
+
+def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
+                   grad_spread=False) -> str:
     """One step's losses and gradients through the kernels against the
     same step through the plain versions, from the same state (and the
     same dropout masks, drawn from the same seed): without VAT (losses and
@@ -1285,7 +1330,13 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
     moves both inputs (audio and frame roll). With `r_norm_spread` the VAT
     step's `r_norm` entries are held within STEP_LOSS_RTOL + PROBE_FACTOR x
     the plain route's own spread (R_NORM_PROBES audio probes of both
-    batches, and its mel in float64)."""
+    batches, and its mel in float64). With `grad_spread` a gradient leaf
+    above its first limit is held by the second reading of `grad_rule`,
+    the plain route's own spread under R_NORM_PROBES further probes (phase
+    14: Segmentation's train-mode step at random init is ill-conditioned,
+    and one probe's move can be smaller than the mel kernel's rounding;
+    `python3 chip_smoke.py --segmentation-step-rule` reads the rule over
+    weight states, PERF.md §6)."""
     import copy
     import dataclasses
 
@@ -1329,16 +1380,16 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
         if not np.isclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
             fail(f"train step without VAT: {k} {lk[k]} (kernels) vs "
                  f"{lp[k]} (plain)")
-    top = max(g.abs().max().item() for g in gp.values())
-    worst = 0.0
-    for name, g in gp.items():
-        diff = (gk[name] - g).abs().max().item()
-        moved = (gq[name] - g).abs().max().item()
-        if not torch.isfinite(gk[name]).all() or (
-                diff > PROBE_FACTOR * moved + GRAD_FLOOR * top):
+    spread = plain_spread(run, plain, batch_l, gp) if grad_spread else None
+    top, read = grad_rule(gk, gp, gq, spread)
+    worst, second = 0.0, []
+    for name, (diff, first, limit2, limit) in read.items():
+        if not diff <= limit:
             fail(f"train step without VAT: gradient of {name} differs by "
-                 f"{diff} (plain route moves {moved} under the probe)")
-        if g.abs().max().item() > GRAD_FLOOR * top and \
+                 f"{diff} (first limit {first}, second {limit2})")
+        if limit != first:
+            second.append((name, diff, first, limit2))
+        if gp[name].abs().max().item() > GRAD_FLOOR * top and \
                 gk[name].abs().max().item() == 0:
             fail(f"kernel route lost the gradient of {name}")
         worst = max(worst, diff / top)
@@ -1372,6 +1423,9 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
             f"under a {PROBE} input probe + {GRAD_FLOOR} of the largest "
             f"({top}; largest gap {worst} of it), {first} gradient max "
             f"{grad.abs().max().item()}"
+            + ("" if spread is None else
+               f"; held by the second reading (leaf, gap, first limit, "
+               f"second limit): {second}")
             + ("" if keep_share is None else
                f" (the BCE on the {keep_share} share of elements at least "
                f"{CLAMP_MARGIN} inside [0, 1]; probe on audio and frame)")
@@ -2467,6 +2521,7 @@ def phase_train_cli(rows, tmp: str) -> dict:
         "phase 11 bare CLI step profile (2 steps, B = 1 + 8, bf16, "
         "reconstruction=False)")
     ms = step_ms(rec)
+    RESULTS["phase11_ms"] = float(np.median(ms))
     per_step = {k: n / steps for k, n in rec["step_launches"].items()}
     audio_s = 327680 / 16000                       # labeled audio per step
     n_songs = 2
@@ -2958,6 +3013,7 @@ def phase_unet_onset_cli(rows, tmp: str) -> dict:
                         f"steps, B = {B} + {B}, bf16, reconstruction=False)")
     del copy
     ms = step_ms(rec)
+    RESULTS["phase11_ms"] = float(np.median(ms))
     per_step = {k: n / steps for k, n in rec["step_launches"].items()}
     audio_s = B * SAMPLES / 16000                  # labeled audio per step
     log(f"phase 12b UNetOnset training CLI (bf16, reconstruction=False, "
@@ -3498,7 +3554,66 @@ def phase_segmentation_step(rows) -> None:
         f"mel launches per step {launches['mel_power'] / n}, last losses "
         f"{ {k: v.item() for k, v in losses[-1].items()} }; kernels vs "
         f"plain versions: "
-        f"{compare_routes(model, *batches[0], r_norm_spread=True)}")
+        f"{compare_routes(model, *batches[0], r_norm_spread=True,
+                          grad_spread=True)}")
+
+
+def segmentation_step_rule(n_states: int) -> None:
+    """Phase 14's gradient rule over several weight states. Trains
+    Segmentation at phase 14's shape (`train_batches`, VAT) for 4 steps at
+    a time; after each 4 it takes the step without VAT from that state
+    through the mel kernel and through the plain mel route (the same
+    dropout masks), and reads each gradient leaf's gap against its first
+    limit (PROBE_FACTOR x the plain route's move under one probe +
+    GRAD_FLOOR of the largest) and its second (+ PROBE_FACTOR x the plain
+    route's spread under R_NORM_PROBES further probes), by `grad_rule`.
+    Prints, per state, the largest share of each limit with its leaf, the
+    leaves above the first limit with both shares, and one JSON line of
+    every leaf's shares [first, second]."""
+    import copy
+
+    from reconvat_tpu_torch.kernels import _build
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    _build.build_all()
+    model = SemanticSegmentation(seed=0)
+    state = create_train_state(model)
+    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    batches = [train_batches(seed) for seed in range(2)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    batch_l = batches[0][0]
+    probe = probed(batch_l, 9)
+    plain = copy.deepcopy(model)
+    plain.use_kernels(False)
+    log(nvidia_smi())
+    beyond = 0
+    for k in range(n_states):
+        for i in range(4):
+            step(state, *batches[i % 2], gen)
+        start = {n: v.clone() for n, v in model.state_dict().items()}
+
+        def run(m, bl, bul, vat):
+            m.load_state_dict(start)
+            return step_grads(m, bl, bul, seed=5, vat=vat)
+
+        gk = run(model, batch_l, None, False)[1]
+        gp = run(plain, batch_l, None, False)[1]
+        gq = run(plain, probe, None, False)[1]
+        top, read = grad_rule(gk, gp, gq, plain_spread(run, plain, batch_l,
+                                                       gp))
+        shares = {n: (d / a, d / b) for n, (d, a, b, _) in read.items()}
+        first = max((v[0], n) for n, v in shares.items())
+        second = max((v[1], n) for n, v in shares.items())
+        above = [(n, v) for n, v in shares.items() if v[0] > 1]
+        beyond += sum(v[1] > 1 for v in shares.values())
+        log(f"after {4 * (k + 1)} steps (largest gradient {top}): largest "
+            f"share of the first limit {first}; of the second {second}; "
+            f"leaves above the first limit (shares of the first, the "
+            f"second) {above}")
+        log(json.dumps({"state": k + 1, "shares": shares}))
+    log(f"{n_states} states: {beyond} leaves beyond the second limit")
 
 
 def phase_multi_inst_cli(rows, tmp: str) -> dict:
@@ -4146,6 +4261,550 @@ def phase_cli_cqt_cfp(rows) -> None:
         f"{frames} frames: {'; '.join(read)}")
 
 
+# phases 17a-17c: streaming on CQT and CFP (a song of STREAM_SONG_SECONDS at
+# phase 10b's windows), data-parallel steps over DP_RANKS ranks (each a
+# process of this script, `--dp-rank`) and the training CLI at mesh_dp =
+# DP_RANKS; the data-parallel step against one process by the JAX
+# package's criterion (tests/test_parallel_families.py:102-117): losses
+# within DP_LOSS_TOL, after one Adam step every parameter delta at most
+# 2.05 x lr, the median under 1e-6, over 85 % under 1e-4
+STREAM_SONG_SECONDS = 60.0
+DP_RANKS, DP_STEPS = 2, 3
+DP_LOSS_TOL = dict(rtol=3e-3, atol=1e-4)
+DP_MODELS = ("flagship", "segmentation")
+RESULTS: dict = {}      # figures an earlier phase leaves for a later one
+
+
+def tone_song(seconds: float, seed: int):
+    """(1, n) tones with a slow envelope and a little noise, on the card
+    (phase 10b's song)."""
+    n = int(seconds * 16000)
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    t = torch.arange(n, device="cuda", dtype=torch.float64) / 16000
+    phases = torch.rand(4, generator=g, device="cuda", dtype=torch.float64)
+    sig = sum(0.2 * torch.sin(2 * np.pi * f * t + ph)
+              for f, ph in zip((220.0, 440.0, 523.25, 660.0), phases))
+    sig = sig * (0.5 + 0.5 * torch.sin(2 * np.pi * 0.3 * t))
+    return (sig + 0.01 * torch.randn(n, generator=g, device="cuda",
+                                     dtype=torch.float64)).float()[None]
+
+
+def phase_streaming_cqt_cfp(rows) -> None:
+    """Phase 17a: the flagship on CQT and on CFP (phase 16d's weights:
+    statistics and biases perturbed, the output sharpened on two clips)
+    streams a song of STREAM_SONG_SECONDS at phase 10b's windows (halo
+    STREAM_H, past CQT's 32-frame reach): the main path at depth 3 with
+    the counts reset just before and read just after (row 2 once per
+    window group, nothing else: no mel kernel on these frontends; on CFP
+    the wide kernel at Dh 386); depth 1 and 3 bit-identical under
+    deterministic cuDNN; against the bucketed transcribe (bucket
+    CLI_BUCKET) within POST_ATOL inside and STREAM_TAIL_ATOL over the last
+    STREAM_TAIL frames; through the kernels against the plain versions
+    within POST_ATOL; audio-s/s and peak GB."""
+    from reconvat_tpu_torch.models.common import frames_in
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+
+    song = tone_song(STREAM_SONG_SECONDS, seed=17)
+    t_true = frames_in(song.shape[1])
+    n_windows = -(-t_true // STREAM_W)
+    rng = np.random.RandomState(160)
+    clips = torch.tensor(rng.randn(2, SAMPLES) * 0.1, dtype=torch.float32,
+                         device="cuda")
+    counters = kernel_counters()
+    read = []
+    for spec in ("CQT", "CFP"):
+        model = ReconVAT(seed=0, spec=spec)
+        perturb_stats(model, seed=16)
+        sharpen_output(model, [clips[i:i + 1] for i in range(2)])
+
+        def run(fn):
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            for f, c in counters.values():
+                setattr(f, c, 0)
+            t0 = time.perf_counter()
+            roll = fn()["frame"].cpu()
+            torch.cuda.synchronize()
+            return (roll, time.perf_counter() - t0,
+                    torch.cuda.max_memory_allocated() / 1e9,
+                    {k: getattr(f, c) for k, (f, c) in counters.items()
+                     if getattr(f, c)})
+
+        def stream(**kw):
+            return run(lambda: model.transcribe_streaming(
+                song, STREAM_W, STREAM_H, **kw))
+
+        stream()                                          # warm-up
+        s3, sec3, gb3, launches = stream(pipeline_depth=3)    # main path
+        if launches != {"banded_attention_fwd": n_windows}:
+            fail(f"{spec} streaming of {n_windows} windows launched "
+                 f"{launches}: one row 2 per window group and nothing else")
+        if tuple(s3.shape) != (1, t_true, 88) or not torch.isfinite(
+                s3).all():
+            fail(f"{spec} streamed roll {tuple(s3.shape)} is not finite of "
+                 f"(1, {t_true}, 88)")
+        cudnn = torch.backends.cudnn
+        cudnn.deterministic = True
+        try:
+            det3, det1 = (stream(pipeline_depth=d)[0] for d in (3, 1))
+        finally:
+            cudnn.deterministic = False
+        if not torch.equal(det1, det3):
+            fail(f"{spec} streaming at depth 1 and 3 differ by "
+                 f"{(det1 - det3).abs().max().item()} with deterministic "
+                 f"cuDNN")
+        run(lambda: model.transcribe(song, CLI_BUCKET))        # warm-up
+        full, sec_b, gb_b, _ = run(lambda: model.transcribe(song,
+                                                            CLI_BUCKET))
+        inner = (s3 - full)[:, :-STREAM_TAIL].abs().max().item()
+        tail = (s3 - full)[:, -STREAM_TAIL:].abs().max().item()
+        if inner > POST_ATOL or tail > STREAM_TAIL_ATOL:
+            fail(f"{spec} streamed and bucketed rolls differ by {inner} "
+                 f"inside and {tail} over the last {STREAM_TAIL} frames")
+        model.use_kernels(False)
+        plain = stream(pipeline_depth=3)
+        model.use_kernels(True)
+        if plain[3]:
+            fail(f"{spec} plain streaming launched {plain[3]}")
+        routes = (plain[0] - s3).abs().max().item()
+        if routes > POST_ATOL:
+            fail(f"{spec} streaming through the kernels and the plain "
+                 f"versions differ by {routes}")
+        for row in rows:
+            row[f"launches_{spec.lower()}_stream"] = launches.get(
+                row["name"], 0) / n_windows
+        read.append(
+            f"{spec}: against bucketed {inner} inside, {tail} over the "
+            f"last {STREAM_TAIL} frames (tols {POST_ATOL}, "
+            f"{STREAM_TAIL_ATOL}); kernels vs plain {routes}; density "
+            f"{(s3 > 0.5).float().mean().item()}; launches {launches} for "
+            f"{n_windows} window groups; audio-s/s streamed "
+            f"{STREAM_SONG_SECONDS / sec3} (plain "
+            f"{STREAM_SONG_SECONDS / plain[1]}), "
+            f"bucketed {STREAM_SONG_SECONDS / sec_b}; peak GB streamed "
+            f"{gb3}, bucketed {gb_b}")
+        del model
+        torch.cuda.empty_cache()
+    log(f"phase 17a streaming on CQT and CFP (1 x {STREAM_SONG_SECONDS} s, "
+        f"{t_true} frames, W={STREAM_W} H={STREAM_H}, {n_windows} windows, "
+        f"fp32, sharpened weights; depth 1 and 3 identical under "
+        f"deterministic cuDNN): {'; '.join(read)}")
+
+
+def dp_model(name: str):
+    """(model, VAT step's batches) of phase 17b's `name`: the flagship
+    (reconstruction, fp32) or Segmentation (dropout 0.4, fp32), seed 0,
+    on the global batch of B + B clips of 20.48 s."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+
+    model = (ReconVAT(seed=0) if name == "flagship"
+             else SemanticSegmentation(seed=0))
+    return model, [train_batches(seed) for seed in range(2)]
+
+
+def _union_ms(spans) -> float:
+    """The length (ms) of the union of (start, end) spans in us."""
+    total, end = 0.0, -np.inf
+    for a, b in sorted(spans):
+        if b > end:
+            total += b - max(a, end)
+            end = b
+    return total / 1e3
+
+
+def step_split(run) -> dict:
+    """How one call of `run` (a train step) splits, from torch.profiler
+    (CPU and CUDA): its wall ms, the device's busy ms (the union of every
+    kernel, copy and set on any stream) and within that the NCCL kernels'
+    ms; the host's ms inside the `batchnorm_moments` spans (the train-mode
+    BatchNorm moment all-reduces, `parallel.mesh.global_moments`), their
+    number and the device's idle ms inside them; the host's ms inside the
+    `gradient_all_reduce` span; and the device's idle ms elsewhere (the
+    host's dispatch and every other wait)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    device, nccl, bn, grad = [], [], [], []
+    for e in prof.events():
+        span = (e.time_range.start, e.time_range.end)
+        if str(e.device_type).endswith("CUDA"):
+            device.append(span)
+            if "nccl" in e.name.lower():
+                nccl.append(span)
+        elif e.name == "batchnorm_moments":
+            bn.append(span)
+        elif e.name == "gradient_all_reduce":
+            grad.append(span)
+    busy = _union_ms(device)
+    bn_ms = _union_ms(bn)
+    # device busy inside the BatchNorm spans: the union of the device
+    # spans clipped to each BatchNorm span
+    inside = _union_ms([(max(a, c), min(b, d)) for a, b in bn
+                        for c, d in device if c < b and d > a])
+    return {"wall_ms": wall,
+            # None: the profiler recorded no device time (not measured)
+            "device_busy_ms": busy if device else None,
+            "nccl_kernel_ms": _union_ms(nccl),
+            "batchnorm_calls": len(bn), "batchnorm_host_ms": bn_ms,
+            "device_idle_in_batchnorm_ms": bn_ms - inside,
+            "gradient_ms": _union_ms(grad),
+            "device_idle_elsewhere_ms": wall - busy - (bn_ms - inside)}
+
+
+def dp_rank(rank: int, world: int, port: int, out: str) -> None:
+    """One rank of phase 17b (`python3 chip_smoke.py --dp-rank rank world
+    port out`): joins the process group (NCCL with a card per rank, else
+    gloo), and for each of DP_MODELS takes DP_STEPS data-parallel VAT
+    steps on its rows of the global batches (`parallel.mesh.shard_batch`)
+    with the counts set to 0 just before and read just after; after every
+    step it holds its parameters and statistics bit-equal to rank 0's
+    (broadcast). Saves the first step's losses and state (rank 0), the
+    ms/step of the later steps, the `gradient_all_reduce` span's ms of a
+    profiled step, the step's split (`step_split`), peak GB and the
+    launches to `out`."""
+    import torch.distributed as dist
+
+    from reconvat_tpu_torch.kernels import _build
+    from reconvat_tpu_torch.parallel import distributed
+    from reconvat_tpu_torch.parallel import mesh as pmesh
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    _build.build_all()
+    device = distributed.initialize("localhost", port, world, rank,
+                                    device="cuda")
+    counters = kernel_counters()
+    result = {"backend": dist.get_backend(), "device": str(device)}
+    try:
+        with pmesh.activate(pmesh.make_mesh(world, device=device)) as ctx:
+            for name in DP_MODELS:
+                model, batches = dp_model(name)
+                batches = [tuple(pmesh.shard_batch(b, ctx) for b in pair)
+                           for pair in batches]
+                state = create_train_state(model)
+                step = make_train_step(model, 1.0, vat=True,
+                                       use_unlabeled=True)
+                gen = torch.Generator(device=device).manual_seed(0)
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                for f, c in counters.values():
+                    setattr(f, c, 0)
+                times, equal = [], []
+                for i in range(DP_STEPS):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    losses = step(state, *batches[i % 2], gen)
+                    torch.cuda.synchronize()
+                    times.append((time.perf_counter() - t0) * 1e3)
+                    if i == 0:
+                        first = {k: v.item() for k, v in losses.items()}
+                        saved = {k: v.detach().cpu().clone() for k, v in
+                                 model.state_dict().items()}
+                    flat = torch.cat([v.detach().reshape(-1).double()
+                                      for v in model.state_dict().values()])
+                    ref = flat.clone()
+                    dist.broadcast(ref, 0)
+                    equal.append(bool(torch.equal(ref, flat)))
+                launches = {k: getattr(f, c) / DP_STEPS
+                            for k, (f, c) in counters.items()}
+                split = step_split(lambda: step(state, *batches[0], gen))
+                result[name] = {
+                    "losses": first, "state": saved if rank == 0 else None,
+                    "ms": times, "all_reduce_ms": split["gradient_ms"],
+                    "split": split,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+                    "launches": launches, "equal": equal}
+                del model, state, batches
+                torch.cuda.empty_cache()
+    finally:
+        distributed.shutdown()
+    torch.save(result, out)
+
+
+def dp_deltas(got: dict, ref: dict, names) -> np.ndarray:
+    return torch.cat([(got[k].float() - ref[k].float()).abs().reshape(-1)
+                      for k in names]).numpy()
+
+
+def phase_data_parallel_steps(rows) -> None:
+    """Phase 17b: the fp32 flagship VAT step and a Segmentation VAT step
+    (dropout masks and train-mode BatchNorm over the global batch) at B +
+    B x 640 frames, on DP_RANKS ranks of B/DP_RANKS + B/DP_RANKS clips
+    (`dp_rank`, one process each; they share the card over gloo, and a
+    machine with as many cards runs them again over NCCL, a card each),
+    against one process taking the same first step from the same state on
+    the same global batches: losses and parameters by the JAX package's
+    criterion (DP_LOSS_TOL, deltas against 2.05 x lr; the VAT `r_norm`
+    entries, means of a direction that rounding sets at xi 1e-6, within
+    DP_LOSS_TOL + PROBE_FACTOR x the one process's spread under
+    R_NORM_PROBES audio probes, as phase 14 holds them), the ranks'
+    parameters and statistics bit-equal after every step, each rank's
+    launches (the flagship rows 1-4 and no bf16 row; Segmentation row 1
+    alone), ms/step per rank, the gradient all-reduce's ms and peak GB per
+    rank, and how a step splits on each rank (`step_split`) beside one
+    process's step on rank 0's rows alone."""
+    import socket
+    import tempfile
+
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    def first_step(name, probe=None):
+        """(losses, state, parameter names, ms) of one process's first
+        step from the seeded init; `probe` j moves both batches' audio by
+        PROBE (`probed`)."""
+        model, batches = dp_model(name)
+        batch_l, batch_ul = batches[0]
+        if probe is not None:
+            batch_l = probed(batch_l, 20 + 2 * probe)
+            batch_ul = probed(batch_ul, 40 + 2 * probe)
+        state = create_train_state(model)
+        step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = step(state, batch_l, batch_ul, gen)
+        torch.cuda.synchronize()
+        out = ({k: v.item() for k, v in losses.items()},
+               {k: v.detach().cpu().clone() for k, v in
+                model.state_dict().items()},
+               [n for n, _ in model.named_parameters()],
+               (time.perf_counter() - t0) * 1e3)
+        del model, state, batches
+        torch.cuda.empty_cache()
+        return out
+
+    def half_steps(name):
+        """ms of DP_STEPS one-process steps on rank 0's rows alone (B/2 +
+        B/2, no mesh: what a rank's own work takes) and the split of one
+        more (`step_split`)."""
+        model, batches = dp_model(name)
+        half = [{k: v[:B // DP_RANKS] for k, v in b.items()}
+                for b in batches[0]]
+        state = create_train_state(model)
+        step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+        gen = torch.Generator(device="cuda").manual_seed(0)
+        times = []
+        for _ in range(DP_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            step(state, *half, gen)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        split = step_split(lambda: step(state, *half, gen))
+        del model, state, batches, half
+        torch.cuda.empty_cache()
+        return times, split
+
+    reference, spread, alone = {}, {}, {}
+    for name in DP_MODELS:
+        reference[name] = first_step(name)
+        alone[name] = half_steps(name)
+        probes = [first_step(name, j)[0] for j in range(R_NORM_PROBES)]
+        spread[name] = {k: max(abs(p[k] - v) for p in probes)
+                        for k, v in reference[name][0].items()
+                        if "_r_norm_" in k}
+    layouts = [("gloo, ranks share a card", "0")]
+    if torch.cuda.device_count() >= DP_RANKS:
+        layouts.append(("NCCL, a card per rank", ",".join(
+            str(i) for i in range(DP_RANKS))))
+    read, misses = [], []
+    for label, visible in layouts:
+        with socket.socket() as sock:
+            sock.bind(("localhost", 0))
+            port = sock.getsockname()[1]
+        out = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+        env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible)
+        procs = [subprocess.Popen(
+            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+             "--dp-rank", str(r), str(DP_RANKS), str(port),
+             os.path.join(out, f"rank{r}.pt")], env=env, cwd=HERE,
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+            for r in range(DP_RANKS)]
+        try:
+            logs = [p.communicate(timeout=900)[0] for p in procs]
+        finally:
+            for p in procs:
+                p.kill()
+        for r, (p, text) in enumerate(zip(procs, logs)):
+            if p.returncode:
+                fail(f"phase 17b rank {r} ({label}) exited with "
+                     f"{p.returncode}: {text[-3000:]}")
+        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
+                 for r in range(DP_RANKS)]
+        for name in DP_MODELS:
+            ref_losses, ref_state, params, ref_ms = reference[name]
+            got = ranks[0][name]
+            for r, res in enumerate(ranks):
+                mine = res[name]
+                if not all(mine["equal"]):
+                    fail(f"phase 17b {name} ({label}): rank {r}'s "
+                         f"parameters left rank 0's after the steps "
+                         f"{mine['equal']}")
+                expect = ({"mel_power"} | set(ATTENTION_ROWS)
+                          if name == "flagship" else {"mel_power"})
+                ran = {k for k, n in mine["launches"].items() if n}
+                if ran != expect:
+                    fail(f"phase 17b {name} ({label}): rank {r} launched "
+                         f"{mine['launches']}, not {sorted(expect)}")
+            for k, v in ref_losses.items():
+                tol = (DP_LOSS_TOL["atol"] + DP_LOSS_TOL["rtol"] * abs(v)
+                       + PROBE_FACTOR * spread[name].get(k, 0.0))
+                if not abs(got["losses"][k] - v) <= tol:
+                    misses.append(
+                        f"{name} ({label}): {k} {got['losses'][k]} on "
+                        f"{DP_RANKS} ranks, {v} in one process (tolerance "
+                        f"{tol})")
+            d = dp_deltas(got["state"], ref_state, params)
+            lr = 1e-3
+            if not (d.max() <= 2.05 * lr and np.median(d) < 1e-6
+                    and np.mean(d < 1e-4) > 0.85):
+                misses.append(
+                    f"{name} ({label}): parameter deltas against one "
+                    f"process max {d.max()} median {np.median(d)} share "
+                    f"under 1e-4 {np.mean(d < 1e-4)}")
+            loss_gap = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+                           for k, v in ref_losses.items())
+            if label.startswith("gloo"):
+                for row in rows:
+                    row["launches_dp_step"] = max(
+                        row.get("launches_dp_step", 0),
+                        got["launches"][row["name"]])
+            read.append(
+                f"{name} ({label}; {ranks[0]['backend']}): ms/step per rank "
+                f"{[res[name]['ms'] for res in ranks]} (one process, first "
+                f"step {ref_ms}); gradient all-reduce ms "
+                f"{[res[name]['all_reduce_ms'] for res in ranks]}; peak GB "
+                f"per rank {[res[name]['peak_gb'] for res in ranks]}; "
+                f"launches per step rank 0 "
+                f"{ {k: v for k, v in got['launches'].items() if v} }; "
+                f"losses max rel gap {loss_gap}; "
+                f"deltas max {d.max()} median {np.median(d)} share under "
+                f"1e-4 {np.mean(d < 1e-4)}; the one process's r_norm spread "
+                f"under {R_NORM_PROBES} probes {spread[name]}; ranks "
+                f"bit-equal after each of {DP_STEPS} steps; a step's split "
+                f"per rank {[res[name]['split'] for res in ranks]}; one "
+                f"process on rank 0's rows alone ({B // DP_RANKS} + "
+                f"{B // DP_RANKS}, no mesh) ms/step {alone[name][0]}, "
+                f"split {alone[name][1]}")
+    log(f"phase 17b data-parallel VAT steps (fp32, {DP_RANKS} ranks of "
+        f"{B // DP_RANKS} + {B // DP_RANKS} x 640 against one process of "
+        f"{B} + {B}): {'; '.join(read)}")
+    if misses:
+        fail(f"phase 17b: {misses}")
+
+
+def phase_data_parallel_cli(rows, tmp: str) -> None:
+    """Phase 17c: `python -m reconvat_tpu_torch.train_UNet_VAT with
+    mesh_dp=DP_RANKS` (this process rank 0, the CLI starts rank 1) at its
+    defaults (bf16, VAT) but train_batch_size DP_RANKS (it must divide
+    over the ranks) and the four labeled songs of phase 11's corpus, one
+    epoch with one checkpoint: rank 0's launches (rows 1, 2b, 3b, 4b),
+    only rank 0's artifacts in the run directory, ms/step against phase
+    11's one-process figure; then a resume at mesh_dp=DP_RANKS restoring
+    every tensor bit-equal."""
+    import datetime
+
+    from reconvat_tpu_torch.parallel import distributed
+    from reconvat_tpu_torch.train import checkpoint as ckpt
+
+    corpus = os.path.join(tmp, "corpus")
+    env = {"RECONVAT_MAPS_ROOT": os.path.join(corpus, "MAPS"),
+           "RECONVAT_MAESTRO_ROOT": os.path.join(corpus, "MAESTRO")}
+    args = dict(TRAIN_CLI, supersmall=False, train_batch_size=DP_RANKS,
+                mesh_dp=DP_RANKS, epoches=1, saving_freq=1)
+    root = os.path.join(tmp, "runs_dp")
+    backend = distributed.choose_backend("cuda", DP_RANKS)
+    # a rank that waits longer than this at a collective fails the phase
+    # (and rank 0 then stops the other) inside the script's time limit
+    timeout = distributed.TIMEOUT
+    distributed.TIMEOUT = datetime.timedelta(minutes=5)
+    try:
+        rec = train_cli(dict(args, root=root), env)
+        resumed = train_cli(dict(args, root=os.path.join(tmp, "resumed_dp"),
+                                 epoches=0, resume_iteration="latest",
+                                 trained_dir=rec["logdir"]), env)
+    finally:
+        distributed.TIMEOUT = timeout
+    for name, n in rec["launches"].items():
+        if (n > 0) != (name == "mel_power" or name.endswith("_bf16")):
+            fail(f"the data-parallel CLI (bf16) launched {name} {n} times "
+                 f"on rank 0")
+    logdir, steps = rec["logdir"], rec["steps"]
+    names = sorted(os.listdir(logdir))
+    events = [n for n in names if n.startswith("events.out.tfevents.")]
+    if os.listdir(root) != [os.path.basename(logdir)] or len(events) != 1 \
+            or not {"model-1", "result_dict", "MIDI_results",
+                    "config.json"} <= set(names):
+        fail(f"the data-parallel CLI wrote {os.listdir(root)}: {names}")
+    saved = ckpt.load_state(os.path.join(logdir, "model-1"))
+    n_tensors = 0
+    for k, v in resumed["model"].state_dict().items():
+        if not torch.equal(v.cpu(), saved["model"][k]):
+            fail(f"data-parallel resume: tensor {k} differs from the saved")
+        n_tensors += 1
+    opt = resumed["state"].optimizer.state_dict()["state"]
+    for i, slots in saved["optimizer"]["state"].items():
+        for name, v in slots.items():
+            if not torch.equal(opt[i][name].cpu(), v):
+                fail(f"data-parallel resume: optimizer state {i}.{name}")
+            n_tensors += 1
+    for row in rows:
+        row["launches_dp_cli"] = rec["step_launches"][row["name"]] / steps
+    ms = step_ms(rec)
+    log(f"phase 17c the training CLI at mesh_dp={DP_RANKS} (bf16, VAT, "
+        f"{DP_RANKS} labeled + 8 unlabeled x 327680 samples a step over "
+        f"{DP_RANKS} ranks on {backend}, "
+        f"{'a card each' if backend == 'nccl' else 'sharing the card'}, "
+        f"{steps} steps): ms/step "
+        f"(rank 0's StepTimer) median {np.median(ms)} min {min(ms)} max "
+        f"{max(ms)}, against phase 11's one process (1 + 8) median "
+        f"{RESULTS.get('phase11_ms')}; rank 0's launches per step "
+        f"{ {k: n / steps for k, n in rec['step_launches'].items() if n} }; "
+        f"rank 0's peak GB {rec['peak_gb']}; run wall {rec['wall_s']} s; "
+        f"artifacts (rank 0 alone) {names}; resumed at mesh_dp={DP_RANKS} "
+        f"with {n_tensors} tensors bit-equal to the saved ones")
+
+
+
+def data_parallel_phases() -> None:
+    """`python3 chip_smoke.py --data-parallel`: phases 17b and 17c alone
+    (with the kernels built and phase 11's corpus written first), for a
+    machine with two or more cards, where both run over NCCL with a card
+    per rank (17b also over gloo on one card). Runs no other phase and
+    prints no kernels line."""
+    import shutil
+    import tempfile
+
+    from reconvat_tpu_torch.kernels import _build
+
+    log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
+        f"{torch.cuda.device_count()} cards: {nvidia_smi()}")
+    _build.build_all()
+    rows = [{"name": name} for name in kernel_counters()]
+    os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+    tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    try:
+        write_corpus(os.path.join(tmp, "corpus"))
+        for label, phase, args in (
+                ("17b", phase_data_parallel_steps, (rows,)),
+                ("17c", phase_data_parallel_cli, (rows, tmp))):
+            t0 = time.perf_counter()
+            phase(*args)
+            torch.cuda.empty_cache()
+            log(f"phase {label} took {time.perf_counter() - t0} s")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    log(f"rows' launches {rows}")
+
+
 def main(argv: list) -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; nothing measured", file=sys.stderr)
@@ -4162,6 +4821,15 @@ def main(argv: list) -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     if argv[:1] == ["--bf16-step-rule"]:
         bf16_step_rule(int(argv[1]) if len(argv) > 1 else 8)
+        return 0
+    if argv[:1] == ["--dp-rank"]:
+        dp_rank(*(int(a) for a in argv[1:4]), argv[4])
+        return 0
+    if argv[:1] == ["--segmentation-step-rule"]:
+        segmentation_step_rule(int(argv[1]) if len(argv) > 1 else 10)
+        return 0
+    if argv[:1] == ["--data-parallel"]:
+        data_parallel_phases()
         return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -4216,7 +4884,10 @@ def main(argv: list) -> int:
                 ("16b", phase_attention_cqt_cfp, (rows,)),
                 ("16c", phase_reconvat_cqt_step, (rows,)),
                 ("16d", phase_serve_cfp, (rows,)),
-                ("16e", phase_cli_cqt_cfp, (rows,))):
+                ("16e", phase_cli_cqt_cfp, (rows,)),
+                ("17a", phase_streaming_cqt_cfp, (rows,)),
+                ("17b", phase_data_parallel_steps, (rows,)),
+                ("17c", phase_data_parallel_cli, (rows, tmp))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()

@@ -13,6 +13,7 @@ entry point's source in the run directory.
 from __future__ import annotations
 
 import ast
+import contextlib
 import inspect
 import json
 import os
@@ -127,11 +128,16 @@ class _Run:
 
 
 class Experiment:
-    def __init__(self, name, check=None):
+    def __init__(self, name, check=None, launch=None):
         """`check(config)`, when given, runs on each resolved config before
-        the observers start, so a run it refuses writes nothing."""
+        the observers start, so a run it refuses writes nothing.
+        `launch(config, main_fn, overrides)`, when given, is a context
+        manager around the run that yields whether this process is the one
+        that writes (the training CLIs' `driver.start_ranks`: rank 0 of a
+        data-parallel run); the observers start only there."""
         self.name = name
         self.check = check
+        self.launch = launch
         self._config_fns = []
         self.observers = []
         self.current_run = None
@@ -159,9 +165,16 @@ class Experiment:
             return None
         if self.check is not None:
             self.check(cfg)
-        for obs in self.observers:
-            obs.start(self.name, cfg,
-                      source_path=inspect.getsourcefile(main_fn))
+        launch = (self.launch(cfg, main_fn, overrides or {})
+                  if self.launch is not None else contextlib.nullcontext(True))
+        with launch as writes:
+            return self._call(main_fn, cfg, writes)
+
+    def _call(self, main_fn, cfg, writes):
+        if writes:
+            for obs in self.observers:
+                obs.start(self.name, cfg,
+                          source_path=inspect.getsourcefile(main_fn))
         sig = inspect.signature(main_fn)
         has_var_kw = any(p.kind is inspect.Parameter.VAR_KEYWORD
                          for p in sig.parameters.values())

@@ -113,7 +113,13 @@ class PianoRollAudioDataset:
 
         midi = load_tsv(tsv_path)
         label, velocity = tsv_to_rolls(midi, len(audio))
-        np.savez(cache, audio=audio, label=label, velocity=velocity)
+        # written whole under another name and renamed: the ranks of a
+        # data-parallel run prepare the same files at once, and a reader
+        # must never open a cache that another rank is still writing
+        part = f"{cache}.{os.getpid()}.part"
+        with open(part, "wb") as f:
+            np.savez(f, audio=audio, label=label, velocity=velocity)
+        os.replace(part, cache)
         return dict(path=audio_path, audio=audio, label=label,
                     velocity=velocity)
 

@@ -151,3 +151,19 @@ def prefetch_to_device(iterator, device, size: int = 2):
             yield take()
     while pending:
         yield take()
+
+
+class MappedLoader:
+    """A sized loader whose batches pass through `fn` (the data-parallel
+    full-epoch sweep's `parallel.mesh.shard_batch`, train/driver.py)."""
+
+    def __init__(self, loader, fn):
+        self.loader = loader
+        self.fn = fn
+
+    def __len__(self):
+        return len(self.loader)
+
+    def __iter__(self):
+        for batch in self.loader:
+            yield self.fn(batch)

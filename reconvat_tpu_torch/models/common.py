@@ -171,10 +171,12 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     P) fp32 roll on the host, or the dict of them.
 
     1. `imagewise` normalization needs the song-global log-spec min/max:
-       pass 1 reduces them over spectrogram chunks of W frames with a
-       4-frame edge halo (only the chunk's own frames count, so the
-       statistics equal the full song's exactly). The reductions stay on
-       the device: no chunk waits for the host.
+       pass 1 reduces them over spectrogram chunks of W frames with an
+       edge halo of E frames, the frontend's reach (`frame_reach`) plus
+       the frames it drops at the start (`frame_offset`): Mel 4, CQT 32,
+       CFP 5 (only the chunk's own frames count, so the statistics equal
+       the full song's). The reductions stay on the device: no chunk
+       waits for the host.
     2. pass 2 runs windows of W + 2H frames (H frames of real context per
        side), normalized by the global statistics, and keeps each
        window's W interior frames. `windows_per_batch` = G windows are
@@ -184,31 +186,33 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
        copied to pinned host memory on a side stream (CUDA) while later
        groups run. Output is identical for any depth.
 
+    A slice's spec frame i is the song's frame f0 + i for every frontend:
+    CFP drops the first frame of the slice as it drops the song's, so its
+    offset moves the frames a spec frame reads (the halo E above), not the
+    map. The roll has the bucketed roll's frames: t_true, of which CFP's
+    last two lie past the audio, as the bucketed path's do.
+
     Interior outputs equal the full-song path wherever the halo covers the
     transcriber's receptive field. W and H must be multiples of 16 (the
     U-Net's total stride, which keeps every window's strided grids
-    anchored like the full song's) and H >= 8 (the spectrogram's edge
-    frames). A song of at most W + 2H frames is one bucketed call padded
-    to that span. `mesh_ctx` (sharding the windows over devices) is not
-    ported: ROADMAP §1 item 11; neither is a frontend other than Mel
-    (ROADMAP §1 item 1).
+    anchored like the full song's) and H at least 8 and E (the
+    spectrogram's edge frames). A song of at most W + 2H frames is one
+    bucketed call padded to that span. `mesh_ctx` (sharding the windows
+    over devices) is not ported: ROADMAP §1 item 3.2.
     """
     if mesh_ctx is not None:
-        raise NotImplementedError(
-            "streaming over a device mesh (mesh_ctx) is not ported: "
-            "ROADMAP §1 item 11 (multi-GPU)")
-    from ..ops.spectrogram import MelSpectrogram
+        from ..parallel.mesh import STREAM_ITEM
 
-    if not isinstance(model.frontend, MelSpectrogram):
         raise NotImplementedError(
-            f"streaming with the {type(model.frontend).__name__} frontend "
-            f"is not ported (ROADMAP §1 item 1): pass 1's 4-frame edge halo "
-            f"is the Mel window's reach, while CQT's kernel reaches 32 "
-            f"frames each side and CFP drops a frame at each edge")
+            f"streaming over a device mesh (mesh_ctx) is not ported: "
+            f"{STREAM_ITEM}")
     W, H = int(window_frames), int(halo_frames)
-    if H < 8:
-        raise ValueError(f"halo_frames {H} < 8 does not cover the "
-                         f"spectrogram edge frames")
+    E = model.frontend.frame_reach + model.frontend.frame_offset
+    if H < max(8, E):
+        raise ValueError(f"halo_frames {H} < {max(8, E)} does not cover the "
+                         f"spectrogram edge frames (the "
+                         f"{type(model.frontend).__name__} frontend reaches "
+                         f"{E} frames)")
     if W % 16 or H % 16:
         raise ValueError(f"window_frames {W} and halo_frames {H} must be "
                          f"multiples of 16 (the U-Net's total stride)")
@@ -227,7 +231,6 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     G = max(1, int(windows_per_batch))
     imagewise = model.normalize.mode == "imagewise"
     if imagewise:  # pass 1: song-global statistics
-        E = 4      # spectrogram edge halo (centre window 2048 = 4 hops)
         mins, maxs = [], []
         for w0 in range(0, t_true, W):
             w1 = min(t_true, w0 + W)

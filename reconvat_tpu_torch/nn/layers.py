@@ -28,6 +28,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as pmesh
 from .precision import cast, promote_fp32
 from .unet import BATCHNORM_EPS, BatchNorm2d, Conv2d
 
@@ -51,7 +52,9 @@ class SharedDropout(nn.Module):
     """Dropout whose mask is drawn once per input shape and step: kept
     elements are scaled by 1/(1 - p), as Flax's `Dropout` does. The masks
     come from `generator` (seed 0 when it is None, as the JAX package's
-    default key) and hold until `new_masks`."""
+    default key) and hold until `new_masks`. Inside a data-parallel step
+    each rank keeps its rows of the global batch's mask
+    (`parallel.mesh.draw_rows`)."""
 
     def __init__(self, p: float):
         super().__init__()
@@ -70,8 +73,8 @@ class SharedDropout(nn.Module):
             g = self.generator
             if g is None:
                 g = self.generator = torch.Generator(x.device).manual_seed(0)
-            keep = torch.rand(x.shape, generator=g, device=g.device) \
-                < 1.0 - self.p
+            keep = pmesh.draw_rows(lambda shape: torch.rand(
+                shape, generator=g, device=g.device), x.shape) < 1.0 - self.p
             keep = self.masks[tuple(x.shape)] = keep.to(x.device)
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 

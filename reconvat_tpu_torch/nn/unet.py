@@ -22,6 +22,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..parallel import mesh as pmesh
 from .precision import cast, promote_fp32
 
 BATCHNORM_EPS = 1e-5
@@ -68,7 +69,9 @@ class BatchNorm2d(nn.BatchNorm2d):
     (`reconvat_tpu/nn/unet.py:MaskedBatchNorm`): in training it normalizes
     with the biased batch variance and updates `running_var` with that
     biased variance too (torch's own layer updates it with the unbiased
-    one); momentum 0.1 on both sides. `update_stats = False` (see
+    one); momentum 0.1 on both sides. Inside a data-parallel step over
+    several ranks (`parallel.mesh.sharded_step`) the batch statistics are
+    the global batch's (`_global_batch`). `update_stats = False` (see
     `frozen_batch_stats`) keeps the batch statistics but discards the
     running-statistics update. Eval mode is `nn.BatchNorm2d`'s. A bf16
     input is promoted to fp32 first, and the output is fp32."""
@@ -79,6 +82,9 @@ class BatchNorm2d(nn.BatchNorm2d):
         x = promote_fp32(x)
         if not self.training:
             return super().forward(x)
+        ctx = pmesh.step_context()
+        if ctx is not None:
+            return self._global_batch(x, ctx)
         if self.update_stats:
             with torch.no_grad():
                 var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
@@ -87,6 +93,24 @@ class BatchNorm2d(nn.BatchNorm2d):
                 self.num_batches_tracked += 1
         return F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0,
                             self.eps)
+
+    def _global_batch(self, x, ctx):
+        """Training inside a data-parallel step: normalize by the global
+        batch's mean and biased variance (`parallel.mesh.global_moments`,
+        whose all-reduce carries the gradient through the statistics to
+        every rank), as the JAX package's BatchNorm sees a sharded batch;
+        the running statistics move by the same global moments on every
+        rank."""
+        var, mean = torch.var_mean(x, dim=(0, 2, 3), unbiased=False)
+        mean, var = pmesh.global_moments(mean, var, ctx)
+        if self.update_stats:
+            with torch.no_grad():
+                self.running_mean.lerp_(mean, self.momentum)
+                self.running_var.lerp_(var, self.momentum)
+                self.num_batches_tracked += 1
+        scale = torch.rsqrt(var + self.eps) * self.weight
+        return ((x - mean[None, :, None, None]) * scale[None, :, None, None]
+                + self.bias[None, :, None, None])
 
 
 @contextlib.contextmanager

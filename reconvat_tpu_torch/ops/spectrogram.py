@@ -11,8 +11,13 @@ complex CQT kernels, taken as accumulated matmuls over hop-sized chunks of
 the kernels (cuBLAS). CFP: FFT magnitudes and a spectrum/cepstrum cascade
 of real FFTs (cuFFT), then two triangular projections (cuBLAS). The JAX
 package has no TPU kernel for CQT or CFP, and neither has the port.
-Outputs are time-major (B, T, bins). The bases and what the kernel reads
-in their place are non-persistent buffers: they follow the module's device
+Outputs are time-major (B, T, bins). Each frontend states how far its
+frames reach into the audio (`frame_reach`, in hops on either side of a
+frame's centre: Mel 4, the 2,048-sample window with its reflect padding;
+CQT 32, half its 32,768-tap kernel; CFP 4, half its 4,000-sample frame)
+and how many leading STFT frames it drops (`frame_offset`: CFP 1); the
+streaming path's halos are taken from them. The bases and what the kernel
+reads in their place are non-persistent buffers: they follow the module's device
 but are not part of its state_dict.
 
 Precision: every frontend computes in fp32, in fp32 and bf16 models alike
@@ -87,6 +92,9 @@ class MelSpectrogram(nn.Module):
                              persistent=False)
         self.n_mels = n_mels
         self.use_kernel = True
+        # frames of audio a spec frame reads on either side, and how many
+        # leading frames the frontend drops (streaming's halos)
+        self.frame_reach, self.frame_offset = 4, 0
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, T, n_mels)."""
@@ -128,6 +136,9 @@ class CQT1992v2(nn.Module):
         kernels, self.kernel_width, lengths = fb.cqt_kernels(
             q, sr, fmin, n_bins, bins_per_octave, norm, window, fmax)
         self.n_bins = n_bins
+        # a frame's kernel spans kernel_width samples about its centre
+        self.frame_reach = -(-(self.kernel_width // 2) // hop_length)
+        self.frame_offset = 0
         basis = np.concatenate([kernels.real, kernels.imag])  # (2n, width)
         self.register_buffer("sqrt_lengths",
                              torch.from_numpy(np.sqrt(lengths)),
@@ -218,6 +229,10 @@ class CFP(nn.Module):
 
         self.hop_length = hop_length
         self.N = int(fs / float(fr))
+        # a frame spans N samples about its centre; output frame i is STFT
+        # frame i + 1 (the first and last are dropped)
+        self.frame_reach = -(-(self.N // 2) // hop_length)
+        self.frame_offset = 1
         f = fs * np.linspace(0, 0.5, round(self.N // 2), endpoint=True)
         h = scipy.signal.windows.blackmanharris(window_size)
         self.g = list(g)

@@ -21,6 +21,8 @@ import threading
 
 import torch
 
+from ..parallel import distributed
+
 STATE_FILE = "state.pt"
 
 _lock = threading.Lock()
@@ -58,8 +60,23 @@ def save_checkpoint(directory: str, step: int, model, state,
     """Save the model and the train state `state` (`train.state.
     TrainState`) as `directory/model-{step}`; returns its path. Returns
     once the tensors are on the host; block=True also waits for the file
-    (before reading it back in the same process)."""
+    (before reading it back in the same process). In a data-parallel run
+    over several ranks rank 0 alone writes, blocking, and every rank then
+    waits at a barrier; each rank restores the same `model-N`."""
     path = os.path.abspath(os.path.join(directory, f"model-{step}"))
+    if distributed.world_size() > 1:
+        # several ranks hold the same state (parallel.mesh.replicate and
+        # the all-reduced steps): rank 0 writes it, to the end, and every
+        # rank waits at a barrier, so none races past an unfinished write
+        if distributed.rank() == 0:
+            _save(path, step, model, state, block=True)
+        distributed.sync(f"checkpoint-{step}")
+        return path
+    _save(path, step, model, state, block)
+    return path
+
+
+def _save(path, step, model, state, block):
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tree = _to_host({"model": model.state_dict(),
                      "optimizer": state.optimizer.state_dict(),
@@ -79,7 +96,6 @@ def save_checkpoint(directory: str, step: int, model, state,
     thread.start()
     if block:
         wait_for_checkpoints()
-    return path
 
 
 def wait_for_checkpoints() -> None:

@@ -3,7 +3,8 @@
 82-170`): prepare the datasets -> loaders with device prefetch -> train
 state -> epoch loop (`train_VAT_model`, or the supervised baselines'
 full-epoch `train_model`; `tensorboard_log`, periodic checkpoints) ->
-full-song evaluation of the test split, on one device.
+full-song evaluation of the test split, on one device or data-parallel
+over the ranks of `mesh_dp` (`run_training`).
 
 One `torch.Generator` on the model's device, seeded from `seed`, draws
 every VAT direction and dropout mask in place of the JAX package's key
@@ -17,31 +18,100 @@ import pickle
 
 import torch
 
-from ..data.loader import (DataLoader, cycle, device_batch,
+from ..data.loader import (DataLoader, MappedLoader, cycle, device_batch,
                            prefetch_to_device)
 from ..evaluate import (evaluate_wo_velocity, make_bucketed_runner,
                         print_metrics)
 from ..models.base import resolve_device
+from ..parallel import distributed, launch
+from ..parallel import mesh as pmesh
 from ..utils import summary
 from . import checkpoint as ckpt
 from . import profiler
-from .loop import (TensorboardLogger, tensorboard_log, train_model,
-                   train_VAT_model)
+from .loop import (NullLogger, TensorboardLogger, tensorboard_log,
+                   train_model, train_VAT_model)
 from .prepare import prepare_VAT_dataset
 from .state import create_train_state, make_eval_step, make_train_step
 
 
-def build_mesh(cfg):
-    """None: the port trains on one device. Raises for the JAX package's
-    mesh settings (mesh_dp, mesh_sp other than 0 or 1, multihost)."""
+def mesh_world(cfg) -> int:
+    """The number of ranks the config asks for: `mesh_dp` 0 or 1 one,
+    N > 1 N, -1 every visible GPU; `multihost=True` the launcher's
+    `WORLD_SIZE` (required). `mesh_sp` > 1 raises (not ported). Raises
+    ValueError for a setting that cannot run, before any work."""
     dp = int(cfg.get("mesh_dp") or 0)
-    sp = int(cfg.get("mesh_sp") or 0)
-    if cfg.get("multihost", False) or dp > 1 or sp > 1 or dp == -1:
-        raise NotImplementedError(
-            f"mesh_dp={dp}, mesh_sp={sp}, multihost="
-            f"{cfg.get('multihost', False)}: training over a device mesh "
-            f"is not ported (ROADMAP §1 item 11, multi-GPU)")
-    return None
+    pmesh.refuse_sp(int(cfg.get("mesh_sp") or 0))
+    launched = distributed.launcher_env()
+    if cfg.get("multihost", False):
+        if not launched:
+            raise ValueError(
+                "multihost=True needs the launcher's environment "
+                f"({', '.join(distributed.LAUNCH_ENV)}, as torchrun sets "
+                f"it) on every host")
+        world = int(os.environ["WORLD_SIZE"])
+        if dp not in (0, 1, -1, world):
+            raise ValueError(f"mesh_dp={dp} under multihost: each process "
+                             f"holds one device, {world} ranks in all")
+        return world
+    if dp < -1:
+        raise ValueError(f"mesh_dp={dp}: 0 or 1 for one device, N for N "
+                         f"ranks, -1 for every visible GPU")
+    if dp == -1:
+        if torch.device(cfg.get("device", "cuda")).type != "cuda":
+            raise ValueError("mesh_dp=-1 takes every visible GPU; on the "
+                             "CPU give the number of ranks")
+        dp = torch.cuda.device_count() if torch.cuda.is_available() else 1
+    dp = max(dp, 1)
+    if launched and dp > 1 and int(os.environ["WORLD_SIZE"]) != dp:
+        raise ValueError(f"mesh_dp={dp} under a launcher of "
+                         f"{os.environ['WORLD_SIZE']} ranks")
+    return dp
+
+
+def check_mesh(cfg) -> int:
+    """`mesh_world` and the JAX driver's divisibility check: each sharded
+    loader's batch (the labeled `train_batch_size`, and with VAT the
+    unlabeled `batch_size`) must divide over the ranks. Returns the
+    number of ranks."""
+    world = mesh_world(cfg)
+    sizes = {"train_batch_size": cfg.get("train_batch_size",
+                                         cfg.get("batch_size"))}
+    if cfg.get("VAT", False):
+        sizes["batch_size"] = cfg.get("batch_size")
+    for key, size in sizes.items():
+        if size is not None and int(size) % world:
+            raise ValueError(
+                f"global batch ({key}={size}) must divide over {world} "
+                f"ranks (mesh_dp): adjust the batch size or mesh_dp")
+    return world
+
+
+def build_mesh(cfg, device=None):
+    """This rank's view of the config's data-parallel mesh over the
+    started process group (`start_ranks`) on `device`, or None for one
+    device."""
+    world = mesh_world(cfg)
+    if world == 1:
+        return None
+    if distributed.world_size() != world:
+        raise RuntimeError(
+            f"{world} ranks asked for, the process group has "
+            f"{distributed.world_size()}: run through a training CLI (which "
+            f"starts them) or start the group first "
+            f"(parallel.distributed.initialize)")
+    return pmesh.make_mesh(world, device=device)
+
+
+def start_ranks(cfg, main_fn, overrides):
+    """The training CLIs' `Experiment` launch: the ranks of `mesh_world`,
+    started from this process without a launcher (`parallel.launch`); the
+    other ranks take this run's directory. Yields whether this process
+    writes (rank 0)."""
+    settings = dict(overrides)
+    if "logdir" in cfg:
+        settings["logdir"] = cfg["logdir"]
+    return launch.ranks(mesh_world(cfg), cfg.get("device", "cuda"), main_fn,
+                        settings)
 
 
 def check_spec(spec: str) -> None:
@@ -61,12 +131,14 @@ def check_spec(spec: str) -> None:
 
 
 def check_settings(cfg):
-    """Raise for the settings the training CLIs of the port do not run: a
-    device mesh, the folded U-Net layout, the plain attention, the CFP
-    frontend (`check_spec`), and CUDA without a card. `attn_impl` and `conv_layout` are
-    read where a CLI has them (the baselines' have neither). The CLIs'
-    `Experiment` runs it before the observers write the run directory."""
-    build_mesh(cfg)
+    """Raise for the settings the training CLIs of the port do not run:
+    sequence parallelism and a mesh that cannot run (`check_mesh`), the
+    folded U-Net layout, the plain attention, the CFP frontend
+    (`check_spec`), and CUDA without a card. `attn_impl` and
+    `conv_layout` are read where a CLI has them (the baselines' have
+    neither). The CLIs' `Experiment` runs it before the observers write
+    the run directory."""
+    check_mesh(cfg)
     check_spec(cfg["spec"])
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl == "xla":
@@ -92,8 +164,26 @@ def run_training(model, cfg, datasets=None):
     artifacts under cfg["logdir"]: `model-N` checkpoints, the TensorBoard
     event file, `MIDI_results/` and the `result_dict` pickle. Returns
     (model, train state, metrics). `donate` is taken and has no effect
-    (the updates are in place)."""
-    build_mesh(cfg)
+    (the updates are in place).
+
+    With `mesh_dp` N > 1 (or `multihost`) the whole run is data-parallel
+    over the N ranks of the process group (`start_ranks`), each on its own
+    device or sharing one: every rank runs the same seeded loaders and
+    keeps its rows of each global batch (`parallel.mesh.shard_batch`), the
+    parameters and optimizer state start as rank 0's
+    (`parallel.mesh.replicate`), each step is a data-parallel step
+    (`train.state.make_train_step`), and rank 0 alone writes the
+    artifacts. Every rank runs the same logging passes and the same final
+    evaluation (eval mode runs no collective), as the JAX package's hosts
+    do."""
+    ctx = build_mesh(cfg, model.device)
+    if ctx is None:
+        return _run_training(model, cfg, datasets, None)
+    with pmesh.activate(ctx):
+        return _run_training(model, cfg, datasets, ctx)
+
+
+def _run_training(model, cfg, datasets, ctx):
     if datasets is None:
         datasets = prepare_VAT_dataset(
             sequence_length=cfg["sequence_length"],
@@ -127,6 +217,7 @@ def run_training(model, cfg, datasets=None):
     batch_visualize = {k: torch.from_numpy(v).to(device) for k, v in
                        device_batch(next(iter(valloader))).items()}
 
+    is_main = ctx is None or ctx.rank == 0
     generator = torch.Generator(device=device).manual_seed(seed)
     state = create_train_state(
         model, learning_rate=cfg["learning_rate"],
@@ -146,7 +237,11 @@ def run_training(model, cfg, datasets=None):
         ckpt.restore_checkpoint(path, model, state)
         print(f"resumed from {path}")
 
-    summary(type(model).__name__, model)
+    if ctx is not None:
+        pmesh.replicate(model, ctx)
+        pmesh.replicate(state, ctx)
+    if is_main:
+        summary(type(model).__name__, model)
 
     application = cfg.get("application", False)
     train_steps = {
@@ -159,10 +254,17 @@ def run_training(model, cfg, datasets=None):
     eval_step = make_eval_step(model)
 
     # batches assembled in the loaders' threads and copied to the device
-    # ahead of the step that takes them
-    l_iter = prefetch_to_device(cycle(supervised_loader), device)
-    ul_iter = (prefetch_to_device(cycle(ul_loader), device)
+    # ahead of the step that takes them; under a mesh each rank's rows
+    def rows(batches):
+        return (batches if ctx is None else
+                (pmesh.batch_rows(b, ctx) for b in batches))
+
+    l_iter = prefetch_to_device(rows(cycle(supervised_loader)), device)
+    ul_iter = (prefetch_to_device(rows(cycle(ul_loader)), device)
                if ul_loader is not None else None)
+    epoch_loader = (supervised_loader if ctx is None else
+                    MappedLoader(supervised_loader,
+                                 lambda b: pmesh.shard_batch(b, ctx)))
 
     epoches = cfg.get("epoches", 20000)
     iteration = cfg.get("iteration", 10)
@@ -182,24 +284,26 @@ def run_training(model, cfg, datasets=None):
     for ep in range(1, epoches + 1):
         if full_epoch:
             losses = train_model(model, state, train_steps[False], ep,
-                                 supervised_loader, generator, timer=timer,
-                                 pipeline=pipeline)
+                                 epoch_loader, generator, timer=timer,
+                                 pipeline=pipeline, verbose=is_main)
         else:
             losses = train_VAT_model(
                 model, state, train_steps, iteration, ep, l_iter, ul_iter,
                 generator, vat=vat, vat_start=vat_start, timer=timer,
-                pipeline=pipeline)
+                pipeline=pipeline, verbose=is_main)
         if cfg.get("profile_epoch") == ep:
             with profiler.trace(os.path.join(logdir, "profile")):
                 train_VAT_model(model, state, train_steps, 1, ep, l_iter,
                                 ul_iter, generator, vat=vat,
                                 vat_start=vat_start, verbose=False)
         if logger is None:
-            logger = TensorboardLogger(logdir)
+            logger = TensorboardLogger(logdir) if is_main else NullLogger()
+        # every rank runs the whole of it, writing nothing but on rank 0:
+        # the generator and the loaders' shuffles stay in step
         tensorboard_log(logger, model, batch_visualize, validation_dataset,
                         supervised_loader, eval_step, ep, logging_freq,
                         generator, vat, vat_start,
-                        cfg.get("reconstruction", False))
+                        cfg.get("reconstruction", False), verbose=is_main)
         if ep % saving_freq == 0:
             ckpt.save_checkpoint(logdir, ep, model, state)
         logger.log_losses(losses, ep)
@@ -210,10 +314,12 @@ def run_training(model, cfg, datasets=None):
         reconstruction=False,
         batch_songs=cfg.get("eval_batch_songs", 1),
         host_workers=cfg.get("eval_host_workers", 4),
-        save_path=os.path.join(logdir, "MIDI_results"))
-    print_metrics(metrics)
-    with open(os.path.join(logdir, "result_dict"), "wb") as f:
-        pickle.dump(dict(metrics), f)
+        save_path=(os.path.join(logdir, "MIDI_results") if is_main
+                   else None))
+    if is_main:
+        print_metrics(metrics)
+        with open(os.path.join(logdir, "result_dict"), "wb") as f:
+            pickle.dump(dict(metrics), f)
     if logger is not None:
         logger.close()
     ckpt.wait_for_checkpoints()

@@ -156,8 +156,8 @@ def train_model(model, state, train_step, ep, loader, generator,
 
 
 def _to_device(batch, device):
-    return {k: torch.as_tensor(np.asarray(v)).to(device)
-            for k, v in batch.items()}
+    return {k: (v if torch.is_tensor(v) else torch.as_tensor(np.asarray(v)))
+            .to(device) for k, v in batch.items()}
 
 
 def eval_model(model, eval_step, ep, loader, generator=None, verbose=False,

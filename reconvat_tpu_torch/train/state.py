@@ -21,6 +21,7 @@ from typing import Callable
 import torch
 
 from ..models.reconvat import fp32_math
+from ..parallel import mesh as pmesh
 
 
 @dataclasses.dataclass
@@ -84,20 +85,40 @@ def make_train_step(model, alpha: float, vat: bool, use_unlabeled: bool,
     PyTorch idiom: the model's parameters and BatchNorm running statistics
     and the state's optimizer, schedule and step count. The returned
     losses are detached device scalars, with "loss/total" (every loss,
-    LDS terms at alpha 1) beside the reference's keys."""
+    LDS terms at alpha 1) beside the reference's keys.
+
+    Under an active data-parallel mesh (`parallel.mesh.activate`) the
+    batches are this rank's rows of the global batch: the step runs as a
+    `sharded_step` (global BatchNorm moments, the global batch's random
+    draws), all-reduces the gradients to their mean after the backward and
+    before the clipping (one flat buffer per dtype, in the parameters'
+    order, a `gradient_all_reduce` profiler span), and returns the losses'
+    means over the ranks. `run_on_batch` runs the transcriber several
+    times a step and VAT differentiates with respect to its input inside
+    it, so the gradients are reduced here, once, instead of by
+    `DistributedDataParallel`'s reducer."""
 
     run = (model.run_on_batch_application if application
            else model.run_on_batch)
 
     def step(state: TrainState, batch_l, batch_ul, generator):
+        ctx = pmesh.active()
         state.optimizer.zero_grad(set_to_none=True)
-        with fp32_math():
+        with fp32_math(), pmesh.sharded_step(ctx):
             _, losses, _ = run(
                 batch_l, batch_ul if use_unlabeled else None, generator,
                 vat=vat, train=True)
             total_loss_from_dict(losses, alpha).backward()
+            if ctx is not None:
+                with torch.profiler.record_function("gradient_all_reduce"):
+                    pmesh.all_reduce_mean(
+                        [p.grad for p in model.parameters()
+                         if p.grad is not None], ctx)
             apply_gradients(model, state)
         losses = {k: v.detach() for k, v in losses.items()}
+        if ctx is not None:
+            losses = {k: v.clone() for k, v in losses.items()}
+            pmesh.all_reduce_mean(list(losses.values()), ctx)
         losses["loss/total"] = total_loss_from_dict(losses, 1.0)
         return losses
 

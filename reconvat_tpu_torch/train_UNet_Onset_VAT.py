@@ -6,8 +6,9 @@
 
 Runs on CUDA unless `device=cpu`; without a card it raises before any
 work. The settings are checked as in `train_UNet_VAT` (`train.driver.
-check_settings`): a device mesh, `conv_layout='folded'`, `attn_impl='xla'`
-and a frontend other than Mel raise before the run directory is written.
+check_settings`): `mesh_sp` > 1, `conv_layout='folded'`,
+`attn_impl='xla'` and the CFP frontend raise before the run directory is
+written; `with mesh_dp=N` trains data-parallel on N ranks.
 Writes its run directory under `root`: `config.json`, `run.json`,
 `_sources/`, the TensorBoard event file, `model-N` checkpoints,
 `MIDI_results/` and `result_dict`.
@@ -15,9 +16,9 @@ Writes its run directory under `root`: `config.json`, `run.json`,
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
-from .train.driver import check_settings
+from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings)
+ex = Experiment("train_original", check=check_settings, launch=start_ranks)
 
 ds_ksize, ds_stride = (2, 2), (2, 2)
 mode = "imagewise"
@@ -64,8 +65,9 @@ def config():
     compute_dtype = 'bfloat16'  # fp32 params/BN/heads; None = full fp32
     attn_impl = 'auto'  # 'auto'|'pallas': the kernels ('xla' is refused)
     conv_layout = 'auto'  # 'auto'|'nhwc' ('folded' is TPU-only)
-    # device-mesh parallelism of the JAX package: only the defaults (one
-    # device) are ported
+    # data parallelism over mesh_dp ranks (-1: every visible GPU),
+    # started from this command (train/driver.run_training); mesh_sp > 1,
+    # sequence parallelism, raises
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

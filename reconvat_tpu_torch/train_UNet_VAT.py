@@ -7,8 +7,10 @@ counterpart of `train_UNet_VAT.py`, with its keys and defaults):
 Runs on CUDA unless `device=cpu`; without a card it raises before any
 work. On the card the model runs the port's kernels (`attn_impl` 'auto' or
 'pallas'); 'xla', the plain attention, is refused there and here alike.
-The JAX package's TPU-only settings are taken and checked: a device mesh
-(`mesh_dp`, `mesh_sp`, `multihost`) and `conv_layout='folded'` raise,
+`with mesh_dp=N` trains data-parallel on N ranks (one per GPU, or
+sharing one; gloo ranks with `device=cpu`), started from this command, or
+joins a launcher's group (`multihost=True`). `mesh_sp` > 1 (sequence
+parallelism) and `conv_layout='folded'` raise,
 `donate` has no effect (the updates are in place). Writes its run
 directory under `root`: `config.json`, `run.json`, `_sources/`, the
 TensorBoard event file, `model-N` checkpoints, `MIDI_results/` and
@@ -17,9 +19,9 @@ TensorBoard event file, `model-N` checkpoints, `MIDI_results/` and
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
-from .train.driver import check_settings
+from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings)
+ex = Experiment("train_original", check=check_settings, launch=start_ranks)
 
 ds_ksize, ds_stride = (2, 2), (2, 2)
 mode = "imagewise"
@@ -66,8 +68,9 @@ def config():
     compute_dtype = 'bfloat16'  # fp32 params/BN/heads; None = full fp32
     attn_impl = 'auto'  # 'auto'|'pallas': the kernels ('xla' is refused)
     conv_layout = 'auto'  # 'auto'|'nhwc' ('folded' is TPU-only)
-    # device-mesh parallelism of the JAX package: only the defaults (one
-    # device) are ported
+    # data parallelism over mesh_dp ranks (-1: every visible GPU),
+    # started from this command (train/driver.run_training); mesh_sp > 1,
+    # sequence parallelism, raises
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

@@ -6,17 +6,18 @@ defaults):
 
 `SemanticSegmentation` over `train.driver.run_training`: 8 labeled clips a
 step, VAT off by default (`VAT=True` adds 8 unlabeled ones). Runs on CUDA
-unless `device=cpu`; without a card, a device mesh, `conv_layout=folded`
-or a frontend other than Mel it raises before the run directory is
-written (`train.driver.check_settings`). Writes its run directory under
+unless `device=cpu`; without a card, for `mesh_sp` > 1,
+`conv_layout=folded` or the CFP frontend it raises before the run
+directory is written (`train.driver.check_settings`); `with mesh_dp=N`
+trains data-parallel on N ranks. Writes its run directory under
 `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
-from .train.driver import check_settings
+from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings)
+ex = Experiment("train_original", check=check_settings, launch=start_ranks)
 
 mode = "imagewise"
 logging_freq = 100
@@ -62,8 +63,9 @@ def config():
     seed = 42
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
     conv_layout = 'auto'   # 'auto' or 'nhwc'; 'folded' (TPU) raises
-    # device-mesh parallelism of the JAX package: only the defaults (one
-    # device) are ported
+    # data parallelism over mesh_dp ranks (-1: every visible GPU),
+    # started from this command (train/driver.run_training); mesh_sp > 1,
+    # sequence parallelism, raises
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

@@ -5,16 +5,17 @@ counterpart of `train_baseline_Prestack.py`, with its keys and defaults):
 
 Supervised full-epoch sweeps at batch 1 (`train_loop='full_epoch'`,
 `train.driver.run_training`). Runs on CUDA unless `device=cpu`; without a
-card, a device mesh or a frontend other than Mel it raises before the run
-directory is written (`train.driver.check_settings`). Writes its run
+card, for `mesh_sp` > 1 or the CFP frontend it raises before the run
+directory is written (`train.driver.check_settings`); `with mesh_dp=N`
+trains data-parallel on N ranks. Writes its run
 directory under `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
-from .train.driver import check_settings
+from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings)
+ex = Experiment("train_original", check=check_settings, launch=start_ranks)
 
 mode = "imagewise"
 logging_freq = 100
@@ -59,8 +60,9 @@ def config():
     # 10-iteration VAT loop (`train_baseline_Thickstun.py:122`)
     train_loop = "full_epoch"
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
-    # device-mesh parallelism of the JAX package: only the defaults (one
-    # device) are ported
+    # data parallelism over mesh_dp ranks (-1: every visible GPU),
+    # started from this command (train/driver.run_training); mesh_sp > 1,
+    # sequence parallelism, raises
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

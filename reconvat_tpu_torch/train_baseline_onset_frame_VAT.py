@@ -9,14 +9,15 @@ keys and defaults):
 (`FrameStackVAT`) or `onset` (`OnsetStackVAT`); any other value raises (the
 reference's 'attention' branch names a class it does not define). Runs on
 CUDA unless `device=cpu`; without a card, for another `model_name`, a
-device mesh or a frontend other than Mel it raises before the run
-directory is written (`train.driver.check_settings`). Writes its run
+`mesh_sp` > 1 or the CFP frontend it raises before the run directory is
+written (`train.driver.check_settings`); `with mesh_dp=N` trains
+data-parallel on N ranks. Writes its run
 directory under `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
-from .train.driver import check_settings
+from .train.driver import check_settings, start_ranks
 
 MODEL_NAMES = ("onset_frame", "frame", "onset")
 
@@ -29,7 +30,7 @@ def check(cfg):
     check_settings(cfg)
 
 
-ex = Experiment("train_original", check=check)
+ex = Experiment("train_original", check=check, launch=start_ranks)
 
 mode = "imagewise"
 logging_freq = 100
@@ -74,8 +75,9 @@ def config():
     refresh = False
     seed = 42
     compute_dtype = None   # 'bfloat16' = mixed-precision conv trunks
-    # device-mesh parallelism of the JAX package: only the defaults (one
-    # device) are ported
+    # data parallelism over mesh_dp ranks (-1: every visible GPU),
+    # started from this command (train/driver.run_training); mesh_sp > 1,
+    # sequence parallelism, raises
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

@@ -11,8 +11,8 @@ the port's training CLIs) into the port's ReconVAT (`model_type=ReconVAT`)
 or SemanticSegmentation (`model_type=baseline_Multi_Inst`) on the frontend
 `spec` ('Mel', 'CQT' or 'CFP'),
 transcribes each song in fp32 (bucketed to `bucket_frames`, exact with 0,
-or in haloed windows with `streaming=True` for hour-long recordings, Mel
-only),
+or in haloed windows with `streaming=True` for hour-long recordings, on
+every frontend),
 decodes notes with the native decoder and writes one MIDI file per song to
 `output_path`. Runs on CUDA unless `device=cpu`; without a card it raises.
 """
@@ -28,18 +28,7 @@ from .data.datasets import ApplicationDataset
 from .data.midi_io import midi_to_hz, save_midi
 
 
-
-def check_settings(cfg):
-    """Raise, before any work, for streaming with a frontend other than
-    Mel (`models/common.transcribe_streaming`, ROADMAP §1 item 1)."""
-    if cfg["streaming"] and cfg["spec"] != "Mel":
-        raise NotImplementedError(
-            f"streaming=True with spec={cfg['spec']!r} is not ported "
-            f"(ROADMAP §1 item 1): the streaming pass 1 reaches the Mel "
-            f"window's 4 frames only")
-
-
-ex = Experiment("transcription", check=check_settings)
+ex = Experiment("transcription")
 
 log = True
 mode = "imagewise"

@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from .models.common import tree_map
 from .models.losses import binary_cross_entropy, binary_kl_div
+from .parallel import mesh as pmesh
 
 GRAD_RESCUE = 1e10   # d * 1e10 underflow rescue of the UNet variants
 
@@ -80,6 +81,8 @@ def vat_loss(apply_fn: Callable, x, generator, cfg: VATConfig, init_d=None,
     apply_fn uses; the adversarial direction is detached. d is drawn from
     `generator` (on x's device) unless `init_d` gives it. y_ref: the clean
     prediction, when the caller already has it; it is detached either way.
+    Inside a data-parallel step d is this rank's rows of the global batch's
+    draw (`parallel.mesh.draw_rows`).
     split: x is two chains stacked on the batch axis (`[:split]` and
     `[split:]`), and the loss is the pair of their objectives."""
 
@@ -93,8 +96,9 @@ def vat_loss(apply_fn: Callable, x, generator, cfg: VATConfig, init_d=None,
             y_ref = apply_fn(x)
     y_ref = tree_map(torch.Tensor.detach, y_ref)
     if init_d is None:
-        d = torch.randn(x.shape, generator=generator, device=x.device,
-                        dtype=x.dtype)
+        d = pmesh.draw_rows(lambda shape: torch.randn(
+            shape, generator=generator, device=x.device, dtype=x.dtype),
+            x.shape, split)
     else:
         d = init_d
 

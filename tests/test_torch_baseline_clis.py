@@ -266,15 +266,15 @@ def test_multi_inst_cli_runs(corpora, monkeypatch):
 
 def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     """model_name other than the three raises before the run directory is
-    written (as a mesh, the CFP frontend and CUDA without a card do); the
-    baselines' CLIs have no attn_impl or conv_layout, and check_settings
-    reads them only where they are given."""
+    written (as sequence parallelism, the CFP frontend and CUDA without a
+    card do); the baselines' CLIs have no attn_impl or conv_layout, and
+    check_settings reads them only where they are given."""
     with pytest.raises(ValueError, match="attention"):
         of_cli.ex.run(of_cli.train, {"root": str(tmp_path), "device": "cpu",
                                      "model_name": "attention"})
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 3.3"):
         thickstun_cli.ex.run(thickstun_cli.train, {
-            "root": str(tmp_path), "device": "cpu", "mesh_dp": 2})
+            "root": str(tmp_path), "device": "cpu", "mesh_sp": 2})
     with pytest.raises(ValueError, match="T - 2"):
         prestack_cli.ex.run(prestack_cli.train, {
             "root": str(tmp_path), "device": "cpu", "spec": "CFP"})

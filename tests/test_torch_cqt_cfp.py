@@ -283,13 +283,3 @@ def test_cfp_run_on_batch_refused_in_both_packages(monkeypatch):
         port.run_on_batch(batch, None, torch.Generator(), vat=False)
     with pytest.raises(ValueError, match="CFP"):
         port.run_on_batch_application(batch, None, torch.Generator())
-
-
-@pytest.mark.parametrize("spec", ["CQT", "CFP"])
-def test_streaming_refuses_other_frontends(spec):
-    """Streaming reads the Mel window's 4-frame edge halo in pass 1: with
-    another frontend it raises, naming the ROADMAP item."""
-    model = ReconVAT(device="cpu", spec=spec)
-    audio = torch.from_numpy(_audio(1, 2000, 5))
-    with pytest.raises(NotImplementedError, match="ROADMAP §1 item 1\\)"):
-        model.transcribe_streaming(audio, window_frames=256)

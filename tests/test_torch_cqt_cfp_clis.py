@@ -7,8 +7,8 @@
 - Every training CLI refuses CFP, whose spec has T - 2 frames for labels
   of T, before the run directory is written.
 - The transcription CLI writes a MIDI file per clip of `Application/Input`
-  with `spec=CQT` and `spec=CFP` (random seeded weights), and refuses
-  streaming on either before any work.
+  with `spec=CQT` and `spec=CFP` (random seeded weights); its streaming
+  on them is in tests/test_torch_streaming_frontends.py.
 Nothing here compares numbers with the JAX package: the frontends and the
 models on them are held to it in tests/test_torch_cqt_cfp.py and
 tests/test_torch_cqt_cfp_models.py.
@@ -98,12 +98,3 @@ def test_transcription_cli_writes_midi(spec, tmp_path):
         "ReconVAT-clip_amid", "ReconVAT-clip_bmid"]
     # 8-s clips: 250 frames, bucketed to 512 and trimmed back
     assert [roll.shape for _, roll in written] == [(250, 88)] * 2
-
-
-@pytest.mark.parametrize("spec", ["CQT", "CFP"])
-def test_transcription_cli_refuses_streaming(spec, tmp_path):
-    with pytest.raises(NotImplementedError, match="item 1\\)"):
-        transcribe_files.ex.run(transcribe_files.main, dict(
-            device="cpu", spec=spec, streaming=True, input_path=INPUT,
-            output_path=str(tmp_path / "out")))
-    assert not (tmp_path / "out").exists()

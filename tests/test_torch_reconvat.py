@@ -249,6 +249,8 @@ PORT_MODULES = [
     "reconvat_tpu_torch.models.segmentation",
     "reconvat_tpu_torch.models.attention_models",
     "reconvat_tpu_torch.train_baseline_Multi_Inst",
+    "reconvat_tpu_torch.parallel", "reconvat_tpu_torch.parallel.distributed",
+    "reconvat_tpu_torch.parallel.mesh", "reconvat_tpu_torch.parallel.launch",
     "chip_smoke",
 ]
 

@@ -49,6 +49,7 @@ from reconvat_tpu_torch.nn.layers import SharedDropout
 from reconvat_tpu_torch.vat import VATConfig, vat_loss
 from reconvat_tpu_torch.weights import flax_to_torch
 
+from . import torch_dp_worker as worker
 from .test_torch_bf16 import _jax_variables
 from .torch_threads import torch_one_thread  # noqa: F401
 
@@ -156,30 +157,23 @@ def test_eval_forward_matches_jax(pair, jax_eval):
     _close("posteriogram", got, jax_eval)
 
 
-def test_train_step_matches_jax(pair):
-    """The train-mode forward, its frame BCE, the updated running
-    statistics and every gradient, against one jitted `jax.value_and_grad`
-    of the JAX module's BCE, both packages in float64: train-mode
-    BatchNorm over the 2 x 3 x 15 bottleneck amplifies fp32 rounding
-    (two fp32 runs of the port itself, on one thread and on several,
-    differ by up to 7e-3). The JAX package's attention keeps its softmax
-    in fp32 in x64 mode, so the sides agree to ~1e-6, not to float64's
-    precision. The port goes through `run_on_batch` (its spec is the JAX
-    side's input; the loss keys are the JAX package's)."""
+@pytest.fixture(scope="module")
+def train_step(pair):
+    """The port's train-mode `run_on_batch` on a float64 batch, its frame
+    BCE's backward, and one jitted `jax.value_and_grad` of the JAX
+    module's BCE on the port's spec: the port's model, preds, losses and
+    spec, the batch, and JAX's loss, posteriogram, new statistics and
+    gradients (as the port's state-dict names)."""
     jmodel, variables, _ = pair
     rng = np.random.RandomState(2)
     audio = rng.randn(B, FRAMES * 512) * 0.1
     label = (rng.rand(B, FRAMES, 88) < 0.05).astype(np.float64)
     port = SemanticSegmentation(device="cpu", dropout_rate=0.0).double()
     port.load_state_dict(flax_to_torch(variables), strict=True)
-    preds, losses, spec = port.run_on_batch(
-        {"audio": torch.from_numpy(audio), "frame": torch.from_numpy(label)},
-        train=True)
+    batch = {"audio": torch.from_numpy(audio),
+             "frame": torch.from_numpy(label)}
+    preds, losses, spec = port.run_on_batch(batch, train=True)
     losses["loss/train_frame"].backward()
-    assert sorted(losses) == sorted(
-        ["loss/train_frame", "loss/train_LDS_l", "loss/train_LDS_ul",
-         "loss/train_r_norm_l", "loss/train_r_norm_ul"])
-    assert preds["onset"] is preds["frame"] and preds["r_adv"] is None
 
     def loss_fn(params, x, y):
         pred, upd = jmodel.module.apply(
@@ -197,20 +191,66 @@ def test_train_step_matches_jax(pair):
                                         ..., None]), jnp.asarray(label))
         loss, pred, stats, grads = jax.tree_util.tree_map(
             np.asarray, (loss, pred, stats, grads))
-    _close("posteriogram", preds["frame"], pred)
-    _close("loss/train_frame", losses["loss/train_frame"], loss)
-    ref_stats = flax_to_torch({"params": variables["params"],
-                               "batch_stats": stats})
-    ref_grads = flax_to_torch({"params": grads})
-    buffers = dict(port.named_buffers())
-    for name in ref_stats:
+    return {"port": port, "preds": preds, "losses": losses, "batch": batch,
+            "loss": loss, "pred": pred,
+            "stats": flax_to_torch({"params": variables["params"],
+                                    "batch_stats": stats}),
+            "grads": flax_to_torch({"params": grads})}
+
+
+def _assert_step_matches_jax(step, loss, grads: dict, buffers: dict):
+    """A frame BCE, its gradients and the new running statistics against
+    the JAX step's, by the tolerances above."""
+    _close("loss/train_frame", loss, step["loss"])
+    for name in step["stats"]:
         if name.endswith(("running_mean", "running_var")):
-            _close(name, buffers[name], ref_stats[name], atol=1e-5)
+            _close(name, buffers[name], step["stats"][name], atol=1e-5)
+    ref_grads = step["grads"]
     top = max(g.abs().max().item() for g in ref_grads.values())
-    params = dict(port.named_parameters())
-    assert sorted(params) == sorted(ref_grads)
+    assert sorted(grads) == sorted(ref_grads)
     for name, g in ref_grads.items():
-        _close(f"grad {name}", params[name].grad / top, g / top, rtol=0)
+        _close(f"grad {name}", grads[name] / top, g / top, rtol=0)
+
+
+def test_train_step_matches_jax(train_step):
+    """The train-mode forward, its frame BCE, the updated running
+    statistics and every gradient, against one jitted `jax.value_and_grad`
+    of the JAX module's BCE, both packages in float64: train-mode
+    BatchNorm over the 2 x 3 x 15 bottleneck amplifies fp32 rounding
+    (two fp32 runs of the port itself, on one thread and on several,
+    differ by up to 7e-3). The JAX package's attention keeps its softmax
+    in fp32 in x64 mode, so the sides agree to ~1e-6, not to float64's
+    precision. The port goes through `run_on_batch` (its spec is the JAX
+    side's input; the loss keys are the JAX package's)."""
+    preds, losses = train_step["preds"], train_step["losses"]
+    assert sorted(losses) == sorted(
+        ["loss/train_frame", "loss/train_LDS_l", "loss/train_LDS_ul",
+         "loss/train_r_norm_l", "loss/train_r_norm_ul"])
+    assert preds["onset"] is preds["frame"] and preds["r_adv"] is None
+    _close("posteriogram", preds["frame"], train_step["pred"])
+    port = train_step["port"]
+    _assert_step_matches_jax(
+        train_step, losses["loss/train_frame"],
+        {n: p.grad for n, p in port.named_parameters()},
+        dict(port.named_buffers()))
+
+
+def test_train_step_two_ranks_matches_jax(pair, train_step, tmp_path):
+    """The same step data-parallel over 2 gloo ranks of one clip each
+    (`make_train_step` under a mesh, no VAT, unclipped;
+    tests/torch_dp_worker.py): the all-reduced BCE and gradients and the
+    global BatchNorm statistics against the JAX step's, by the
+    one-process tolerances; the ranks' new parameters and statistics
+    bit-equal."""
+    _, variables, _ = pair
+    r0, r1 = worker.run_job(tmp_path, {
+        "model": "Segmentation", "kwargs": {"dropout_rate": 0.0},
+        "state": flax_to_torch(variables), "batch_l": train_step["batch"],
+        "batch_ul": None, "vat": False, "seed": 0})
+    for k, v in r1["state"].items():
+        assert torch.equal(r0["state"][k], v), k
+    _assert_step_matches_jax(train_step, r0["losses"]["loss/train_frame"],
+                             r0["grads"], r0["state"])
 
 
 def test_vat_image_norm_matches_jax():

@@ -124,7 +124,7 @@ def test_short_clip_is_one_bucketed_call(models):
 def test_streaming_rejects_what_is_not_ported_or_misaligned(models):
     port = models[2]
     audio = torch.zeros(1, 64 * 512)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(NotImplementedError, match="item 3.2"):
         port.transcribe_streaming(audio, mesh_ctx=object())
     with pytest.raises(ValueError, match="multiples of 16"):
         port.transcribe_streaming(audio, window_frames=100)

@@ -61,6 +61,7 @@ from reconvat_tpu_torch.train.state import (create_train_state,
                                             total_loss_from_dict)
 from reconvat_tpu_torch import weights
 
+from . import torch_dp_worker as worker
 from .torch_threads import torch_one_thread  # noqa: F401
 
 B, FRAMES, XI, SEED = 2, 32, 1e-2, 11
@@ -171,8 +172,33 @@ def _assert_grads_close(got: dict, expect: dict, atol: float):
                                    err_msg=name)
 
 
+def _assert_step_matches_jax(reference, got: dict, grads: dict,
+                             state: dict):
+    """The port's losses, gradients (of the total loss) and new running
+    statistics against the JAX step's, by the tolerances above."""
+    variables, jgrads, grads_probe, losses, new_stats = reference
+    assert set(got) == set(losses)
+    for k, v in losses.items():
+        np.testing.assert_allclose(float(got[k]), float(v), **F64_TOL,
+                                   err_msg=k)
+    expect, moved = (_to_f64({"params": g}) for g in (jgrads, grads_probe))
+    assert set(grads) == set(expect)
+    top = max(g.abs().max().item() for g in expect.values())
+    for name, g in expect.items():
+        diff = (grads[name] - g).abs().max().item()
+        self_move = (moved[name] - g).abs().max().item()
+        assert diff <= PROBE_FACTOR * self_move + F64_GRAD_FLOOR * top, (
+            name, diff / top, self_move / top)
+    stats = _to_f64({"params": {}, "batch_stats": new_stats})
+    assert len(stats) == 2 * 30 + 30        # mean, var, batch count x 30
+    for name, v in stats.items():
+        if name.endswith(("running_mean", "running_var")):
+            np.testing.assert_allclose(state[name].numpy(), v.numpy(),
+                                       **STATS_TOL, err_msg=name)
+
+
 def test_vat_train_step_matches_jax(reference):
-    variables, grads, grads_probe, losses, new_stats = reference
+    variables = reference[0]
     model = ReconVAT(device="cpu", xi=XI).double()
     model.load_state_dict(_to_f64(variables), strict=True)
     batch_l, batch_ul = (_torch_batch(b)
@@ -181,27 +207,29 @@ def test_vat_train_step_matches_jax(reference):
                                    torch.Generator().manual_seed(SEED),
                                    vat=True, train=True)
     total_loss_from_dict(got, 1.0).backward()
+    _assert_step_matches_jax(
+        reference, {k: v.item() for k, v in got.items()},
+        {n: p.grad for n, p in model.named_parameters()},
+        model.state_dict())
 
-    assert set(got) == set(losses)
-    for k, v in losses.items():
-        np.testing.assert_allclose(got[k].item(), float(v), **F64_TOL,
-                                   err_msg=k)
-    expect, moved = (_to_f64({"params": g}) for g in (grads, grads_probe))
-    params = dict(model.named_parameters())
-    assert set(params) == set(expect)
-    top = max(g.abs().max().item() for g in expect.values())
-    for name, g in expect.items():
-        diff = (params[name].grad - g).abs().max().item()
-        self_move = (moved[name] - g).abs().max().item()
-        assert diff <= PROBE_FACTOR * self_move + F64_GRAD_FLOOR * top, (
-            name, diff / top, self_move / top)
-    stats = _to_f64({"params": {}, "batch_stats": new_stats})
-    state = model.state_dict()
-    assert len(stats) == 2 * 30 + 30        # mean, var, batch count x 30
-    for name, v in stats.items():
-        if name.endswith(("running_mean", "running_var")):
-            np.testing.assert_allclose(state[name].numpy(), v.numpy(),
-                                       **STATS_TOL, err_msg=name)
+
+def test_vat_train_step_two_ranks_matches_jax(reference, tmp_path):
+    """The same step data-parallel over 2 gloo ranks of 1 + 1 clips
+    (`make_train_step` under a mesh, unclipped; tests/torch_dp_worker.py):
+    each rank draws the global batch's directions from the same seed and
+    keeps its rows, so the pinned directions. The all-reduced losses and
+    gradients and the global BatchNorm statistics against the JAX step's
+    by the one-process tolerances; the ranks' new parameters and
+    statistics bit-equal."""
+    r0, r1 = worker.run_job(tmp_path, {
+        "model": "ReconVAT", "kwargs": {"xi": XI},
+        "state": _to_f64(reference[0]), "vat": True, "seed": SEED,
+        **dict(zip(("batch_l", "batch_ul"), (
+            _torch_batch(b) for b in _batches(dtype=np.float64))))})
+    for k, v in r1["state"].items():
+        assert torch.equal(r0["state"][k], v), k
+    losses = {k: v for k, v in r0["losses"].items() if k != "loss/total"}
+    _assert_step_matches_jax(reference, losses, r0["grads"], r0["state"])
 
 
 def test_kernel_route_matches_plain_route_on_cpu():

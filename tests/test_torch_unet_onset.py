@@ -340,8 +340,8 @@ def test_model_registry_and_refusals(monkeypatch, tmp_path):
         UNetOnset()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.ex.run(cli.train, {"root": str(tmp_path), "train_on": "nowhere"})
-    for override, error, match in (({"mesh_dp": 2}, NotImplementedError,
-                                     "item 11"),
+    for override, error, match in (({"mesh_sp": 2}, NotImplementedError,
+                                     "item 3.3"),
                                     ({"attn_impl": "xla"}, ValueError,
                                      "plain attention")):
         with pytest.raises(error, match=match):
