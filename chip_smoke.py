@@ -68,6 +68,15 @@ plain versions (17a); the flagship's and Segmentation's fp32 VAT steps on
 two ranks (`--dp-rank` processes of this script sharing the card over
 gloo, and over NCCL a card each where the machine has two) against one
 process (17b); and the training CLI at `mesh_dp=2` with a resume (17c).
+Last, phase 18, sequence parallelism (`mesh_sp=2`: each rank holds 320 of
+a crop's 640 frames, the U-Net's convolutions and the attention take
+their halos from the other rank): the flagship's eval-mode forward and
+fp32 VAT step (18a) and UNetOnset's VAT step (18b) on two ranks against
+one process, and a 60-s song
+streamed over the two ranks against one device's stream (18c), the ranks
+sharing the card over gloo (over NCCL a card each where the machine has
+two; on four cards 18a also at mesh_dp=2 x mesh_sp=2); and the training
+CLI at `mesh_sp=2` with a resume (18d).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -78,10 +87,14 @@ or when any check fails. Imports nothing of JAX or of `reconvat_tpu`.
 `python3 chip_smoke.py --bf16-step-rule [n_states]` runs no phase: it reads
 phase 8b's gradient rule over n_states weight states (8 by default) beside
 the plain bf16 route's own spread (`bf16_step_rule`);
-`python3 chip_smoke.py --segmentation-step-rule [n_states]` reads phase
-14's the same way (10 states by default, `segmentation_step_rule`).
-`python3 chip_smoke.py --dp-rank rank world port out` is one rank of
-phase 17b, started by that phase.
+`python3 chip_smoke.py --NAME-step-rule [n_states]` reads the same way the
+rule of the phases that hold an fp32 train step through the kernels
+against the plain versions (10 states by default, `step_rule`): NAME
+`flagship` (phase 8), `onset` (12a), `onsets-frames` (13),
+`segmentation` (14), `attention` (15a) or `cqt` (16c).
+`python3 chip_smoke.py --dp-rank rank world port out [sp [what]]` is one
+rank of phase 17b or 18, started by that phase; `--data-parallel` runs
+phases 17b-18d alone.
 """
 from __future__ import annotations
 
@@ -1282,43 +1295,67 @@ def float64_mel(model):
         handle.remove()
 
 
-def grad_rule(gk: dict, gp: dict, moved: dict, spread=None):
-    """Phase 8's and 14's gradient rule, leaf by leaf: the kernel route's
+def grad_rule(gk: dict, gp: dict, moved: dict, spread: dict):
+    """`compare_routes`'s gradient rule, leaf by leaf: the kernel route's
     gradient `gk` against the plain route's `gp` within the first limit,
     PROBE_FACTOR x the plain route's move under one PROBE (`moved`: its
     gradients on the probed batch) + GRAD_FLOOR x the largest gradient
-    magnitude. With `spread` ({leaf: the plain route's largest move under
-    R_NORM_PROBES further probes}) a leaf above the first limit is held by
-    the second reading, the first limit + PROBE_FACTOR x its spread.
-    Returns (the largest magnitude, {leaf: (gap, first limit, second limit
-    or None, the limit that holds it)})."""
+    magnitude; a leaf above the first limit is held by the second reading,
+    the first limit + PROBE_FACTOR x its `spread` ({leaf: the plain
+    route's largest move under R_NORM_PROBES further probes}). Returns
+    (the largest magnitude, {leaf: (gap, first limit, second limit, the
+    limit that holds it)})."""
     top = max(g.abs().max().item() for g in gp.values())
     out = {}
     for name, g in gp.items():
         diff = (gk[name] - g).abs().max().item()
         first = (PROBE_FACTOR * (moved[name] - g).abs().max().item()
                  + GRAD_FLOOR * top)
-        second = (None if spread is None else
-                  first + PROBE_FACTOR * spread[name])
-        limit = first if diff <= first or second is None else second
+        second = first + PROBE_FACTOR * spread[name]
+        limit = first if diff <= first else second
         if not torch.isfinite(gk[name]).all():
             diff = float("inf")
         out[name] = (diff, first, second, limit)
     return top, out
 
 
-def plain_spread(run, plain, batch_l, gp: dict) -> dict:
+def plain_spread(run, plain, batch_l, gp: dict, keys=("audio",)) -> dict:
     """{leaf: the plain route's largest gradient move without VAT under
-    R_NORM_PROBES audio probes of PROBE}, `run(model, batch_l, batch_ul,
-    vat)` giving (losses, gradients)."""
-    readings = [run(plain, probed(batch_l, 20 + 2 * j), None, False)[1]
-                for j in range(R_NORM_PROBES)]
+    R_NORM_PROBES probes of PROBE on `keys`}, `run(model, batch_l,
+    batch_ul, vat)` giving (losses, gradients)."""
+    readings = [run(plain, probed(batch_l, 20 + 2 * j, keys), None,
+                    False)[1] for j in range(R_NORM_PROBES)]
     return {k: max((r[k] - g).abs().max().item() for r in readings)
             for k, g in gp.items()}
 
 
-def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
-                   grad_spread=False) -> str:
+def route_objective(model, plain, start: dict, batch_l):
+    """(objective, keep share, probed keys) of `compare_routes`'s step
+    without VAT: for the Reconstructor its BCE on the elements that the
+    plain route (`plain` at `start`) puts CLAMP_MARGIN or more inside
+    [0, 1], probed on audio and frame roll; for every other model the
+    total loss (None, None), probed on the audio."""
+    from reconvat_tpu_torch.models.reconvat import fp32_math
+
+    if type(model).__name__ != "Reconstructor":
+        return None, None, ("audio",)
+    plain.load_state_dict(start)
+    gen = torch.Generator(device=plain.device).manual_seed(5)
+    with torch.no_grad(), fp32_math():
+        preds, _, _ = plain.run_on_batch(batch_l, None, gen, train=True)
+    rec = preds["reconstruction"][..., 0]
+    keep = ((rec >= CLAMP_MARGIN) & (rec <= 1 - CLAMP_MARGIN)).float()
+
+    def objective(preds, _, spec):
+        bce = torch.nn.functional.binary_cross_entropy(
+            preds["reconstruction"][..., 0].clamp(0.0, 1.0),
+            spec.detach(), reduction="none")
+        return (bce * keep).sum() / keep.sum()
+
+    return objective, keep.mean().item(), ("audio", "frame")
+
+
+def compare_routes(model, batch_l, batch_ul, r_norm_spread=False) -> str:
     """One step's losses and gradients through the kernels against the
     same step through the plain versions, from the same state (and the
     same dropout masks, drawn from the same seed): without VAT (losses and
@@ -1330,17 +1367,17 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
     moves both inputs (audio and frame roll). With `r_norm_spread` the VAT
     step's `r_norm` entries are held within STEP_LOSS_RTOL + PROBE_FACTOR x
     the plain route's own spread (R_NORM_PROBES audio probes of both
-    batches, and its mel in float64). With `grad_spread` a gradient leaf
-    above its first limit is held by the second reading of `grad_rule`,
-    the plain route's own spread under R_NORM_PROBES further probes (phase
-    14: Segmentation's train-mode step at random init is ill-conditioned,
-    and one probe's move can be smaller than the mel kernel's rounding;
-    `python3 chip_smoke.py --segmentation-step-rule` reads the rule over
-    weight states, PERF.md §6)."""
+    batches, and its mel in float64). A gradient leaf above its first
+    limit is held by the second reading of `grad_rule`, the plain route's
+    own spread under R_NORM_PROBES further probes: the train-mode step at
+    random init is ill-conditioned (max-pools and ReLUs switch a
+    gradient's route on a rounding), and one probe's move can be smaller
+    than the mel kernel's rounding; `python3 chip_smoke.py
+    --NAME-step-rule` reads the rule over weight states for each phase
+    that calls this (`rule_models`; PERF.md §6)."""
     import copy
     import dataclasses
 
-    from reconvat_tpu_torch.models.reconvat import fp32_math
     from reconvat_tpu_torch.nn.layers import new_dropout_masks
 
     new_dropout_masks(model, None)    # each run draws its own from `seed`
@@ -1350,24 +1387,8 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
         if isinstance(m, torch.nn.LSTM):
             m.flatten_parameters()        # the copy holds its weights apart
     start = {k: v.clone() for k, v in model.state_dict().items()}
-    objective, keep_share = None, None
-    probe = probed(batch_l, 9)
-    if type(model).__name__ == "Reconstructor":
-        plain.load_state_dict(start)
-        gen = torch.Generator(device=plain.device).manual_seed(5)
-        with torch.no_grad(), fp32_math():
-            preds, _, _ = plain.run_on_batch(batch_l, None, gen, train=True)
-        rec = preds["reconstruction"][..., 0]
-        keep = ((rec >= CLAMP_MARGIN) & (rec <= 1 - CLAMP_MARGIN)).float()
-        keep_share = keep.mean().item()
-
-        def objective(preds, _, spec):
-            bce = torch.nn.functional.binary_cross_entropy(
-                preds["reconstruction"][..., 0].clamp(0.0, 1.0),
-                spec.detach(), reduction="none")
-            return (bce * keep).sum() / keep.sum()
-
-        probe = probed(batch_l, 9, ("audio", "frame"))
+    objective, keep_share, keys = route_objective(model, plain, start,
+                                                  batch_l)
 
     def run(m, bl, bul, vat):
         m.load_state_dict(start)
@@ -1375,13 +1396,13 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
 
     lk, gk = run(model, batch_l, None, False)
     lp, gp = run(plain, batch_l, None, False)
-    _, gq = run(plain, probe, None, False)
+    _, gq = run(plain, probed(batch_l, 9, keys), None, False)
     for k in lp:
         if not np.isclose(lk[k], lp[k], rtol=STEP_LOSS_RTOL, atol=1e-6):
             fail(f"train step without VAT: {k} {lk[k]} (kernels) vs "
                  f"{lp[k]} (plain)")
-    spread = plain_spread(run, plain, batch_l, gp) if grad_spread else None
-    top, read = grad_rule(gk, gp, gq, spread)
+    top, read = grad_rule(gk, gp, gq, plain_spread(run, plain, batch_l, gp,
+                                                   keys))
     worst, second = 0.0, []
     for name, (diff, first, limit2, limit) in read.items():
         if not diff <= limit:
@@ -1395,7 +1416,7 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
         worst = max(worst, diff / top)
     cfg = model.vat_cfg
     lvk = lvp = None
-    spread = {}
+    r_spread = {}
     if cfg is not None:             # the supervised models have no VAT
         model.vat_cfg = plain.vat_cfg = dataclasses.replace(cfg, xi=1e-2)
         lvk, _ = run(model, batch_l, batch_ul, True)
@@ -1406,16 +1427,16 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
                         for j in range(R_NORM_PROBES)]
             with float64_mel(plain):
                 readings.append(run(plain, batch_l, batch_ul, True)[0])
-            spread = {k: max(abs(r[k] - lvp[k]) for r in readings)
-                      for k in lvp if "_r_norm_" in k}
+            r_spread = {k: max(abs(r[k] - lvp[k]) for r in readings)
+                        for k in lvp if "_r_norm_" in k}
         model.vat_cfg = cfg
         for k in lvp:
             tol = (1e-6 + STEP_LOSS_RTOL * abs(lvp[k])
-                   + PROBE_FACTOR * spread.get(k, 0.0))
+                   + PROBE_FACTOR * r_spread.get(k, 0.0))
             if not abs(lvk[k] - lvp[k]) <= tol:
                 fail(f"train step with VAT (xi 1e-2): {k} {lvk[k]} "
                      f"(kernels) vs {lvp[k]} (plain; tolerance {tol}, the "
-                     f"plain route's r_norm spread {spread})")
+                     f"plain route's r_norm spread {r_spread})")
     model.load_state_dict(start)
     first, grad = next(iter(gk.items()))            # the input layer's
     return (f"without VAT: losses agree (rtol {STEP_LOSS_RTOL}), every "
@@ -1423,15 +1444,14 @@ def compare_routes(model, batch_l, batch_ul, r_norm_spread=False,
             f"under a {PROBE} input probe + {GRAD_FLOOR} of the largest "
             f"({top}; largest gap {worst} of it), {first} gradient max "
             f"{grad.abs().max().item()}"
-            + ("" if spread is None else
-               f"; held by the second reading (leaf, gap, first limit, "
-               f"second limit): {second}")
+            + f"; held by the second reading (leaf, gap, first limit, "
+              f"second limit): {second}"
             + ("" if keep_share is None else
                f" (the BCE on the {keep_share} share of elements at least "
                f"{CLAMP_MARGIN} inside [0, 1]; probe on audio and frame)")
             + f"; with VAT at xi 1e-2: losses kernels {lvk} plain {lvp}"
             + (f" (r_norm within rtol + {PROBE_FACTOR} x the plain route's "
-               f"spread {spread})" if spread else ""))
+               f"spread {r_spread})" if r_spread else ""))
 
 
 def kernel_counters() -> dict:
@@ -3013,7 +3033,6 @@ def phase_unet_onset_cli(rows, tmp: str) -> dict:
                         f"steps, B = {B} + {B}, bf16, reconstruction=False)")
     del copy
     ms = step_ms(rec)
-    RESULTS["phase11_ms"] = float(np.median(ms))
     per_step = {k: n / steps for k, n in rec["step_launches"].items()}
     audio_s = B * SAMPLES / 16000                  # labeled audio per step
     log(f"phase 12b UNetOnset training CLI (bf16, reconstruction=False, "
@@ -3554,66 +3573,111 @@ def phase_segmentation_step(rows) -> None:
         f"mel launches per step {launches['mel_power'] / n}, last losses "
         f"{ {k: v.item() for k, v in losses[-1].items()} }; kernels vs "
         f"plain versions: "
-        f"{compare_routes(model, *batches[0], r_norm_spread=True,
-                          grad_spread=True)}")
+        f"{compare_routes(model, *batches[0], r_norm_spread=True)}")
 
 
-def segmentation_step_rule(n_states: int) -> None:
-    """Phase 14's gradient rule over several weight states. Trains
-    Segmentation at phase 14's shape (`train_batches`, VAT) for 4 steps at
-    a time; after each 4 it takes the step without VAT from that state
-    through the mel kernel and through the plain mel route (the same
-    dropout masks), and reads each gradient leaf's gap against its first
-    limit (PROBE_FACTOR x the plain route's move under one probe +
-    GRAD_FLOOR of the largest) and its second (+ PROBE_FACTOR x the plain
-    route's spread under R_NORM_PROBES further probes), by `grad_rule`.
-    Prints, per state, the largest share of each limit with its leaf, the
-    leaves above the first limit with both shares, and one JSON line of
-    every leaf's shares [first, second]."""
+def rule_models(name: str) -> list:
+    """The models whose train step a phase holds through the kernels
+    against the plain versions (`compare_routes`), for `step_rule`: [(label,
+    constructor, batches, trained with VAT)] of phase 8 ('flagship'), 12a
+    ('onset'), 13 ('onsets-frames'), 14 ('segmentation'), 15a
+    ('attention') or 16c ('cqt'), each as its phase builds and trains it."""
+    from reconvat_tpu_torch.models import get_model
+    from reconvat_tpu_torch.models.onsets_frames import (FrameStackVAT,
+                                                         OnsetsAndFrames)
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.models.unet_onset import UNetOnset
+
+    return {
+        "flagship": [("ReconVAT", lambda: ReconVAT(seed=0), train_batches,
+                      True)],
+        "onset": [("UNetOnset", lambda: UNetOnset(seed=0,
+                                                  reconstruction=True),
+                   onset_batches, True)],
+        "onsets-frames": [
+            (cls.__name__, lambda cls=cls: cls(seed=0, xi=1e-6, eps=0.1),
+             onset_batches, vat)
+            for cls, vat in ((OnsetsAndFrames, False),
+                             (FrameStackVAT, True))],
+        "segmentation": [("SemanticSegmentation",
+                          lambda: SemanticSegmentation(seed=0),
+                          train_batches, True)],
+        "attention": [
+            (n + kw.get("version", ""),
+             lambda n=n, kw=kw: get_model(n, seed=0, **kw), onset_batches,
+             vat) for n, kw, vat in ATTENTION_MODELS],
+        "cqt": [("ReconVAT on CQT", lambda: ReconVAT(seed=0, spec="CQT"),
+                 train_batches, True)]}[name]
+
+
+def step_rule(name: str, n_states: int) -> None:
+    """The gradient rule of a phase's `compare_routes` (`rule_models(name)`)
+    over several weight states. Trains each model at its phase's shape for
+    4 steps at a time (with VAT where its phase trains with VAT); after
+    each 4 it takes the step without VAT from that state through the
+    kernels and through the plain versions (the same dropout masks, the
+    Reconstructor's clamp-margin BCE, `route_objective`), and reads each
+    gradient leaf's gap against its first limit (PROBE_FACTOR x the plain
+    route's move under one probe + GRAD_FLOOR of the largest) and its
+    second (+ PROBE_FACTOR x the plain route's spread under R_NORM_PROBES
+    further probes), by `grad_rule`. Prints, per state, the largest share
+    of each limit with its leaf, the leaves above the first limit with
+    both shares, and one JSON line of every leaf's shares [first,
+    second]."""
     import copy
 
     from reconvat_tpu_torch.kernels import _build
-    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
 
     _build.build_all()
-    model = SemanticSegmentation(seed=0)
-    state = create_train_state(model)
-    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
-    batches = [train_batches(seed) for seed in range(2)]
-    gen = torch.Generator(device="cuda").manual_seed(0)
-    batch_l = batches[0][0]
-    probe = probed(batch_l, 9)
-    plain = copy.deepcopy(model)
-    plain.use_kernels(False)
-    log(nvidia_smi())
-    beyond = 0
-    for k in range(n_states):
-        for i in range(4):
-            step(state, *batches[i % 2], gen)
-        start = {n: v.clone() for n, v in model.state_dict().items()}
+    log(f"{name} step rule: {nvidia_smi()}")
+    for label, build, make_batches, vat in rule_models(name):
+        model = build()
+        state = create_train_state(model)
+        step = make_train_step(model, 1.0, vat=vat, use_unlabeled=vat)
+        batches = [make_batches(seed) for seed in range(2)]
+        gen = torch.Generator(device=model.device).manual_seed(0)
+        batch_l = batches[0][0]
+        plain = copy.deepcopy(model)
+        plain.use_kernels(False)
+        for m in plain.modules():
+            if isinstance(m, torch.nn.LSTM):
+                m.flatten_parameters()
+        beyond = 0
+        for k in range(n_states):
+            for i in range(4):
+                step(state, *batches[i % 2], gen)
+            start = {n: v.clone() for n, v in model.state_dict().items()}
+            objective, _, keys = route_objective(model, plain, start,
+                                                 batch_l)
 
-        def run(m, bl, bul, vat):
-            m.load_state_dict(start)
-            return step_grads(m, bl, bul, seed=5, vat=vat)
+            def run(m, bl, bul, vat):
+                m.load_state_dict(start)
+                return step_grads(m, bl, bul, seed=5, vat=vat,
+                                  objective=objective)
 
-        gk = run(model, batch_l, None, False)[1]
-        gp = run(plain, batch_l, None, False)[1]
-        gq = run(plain, probe, None, False)[1]
-        top, read = grad_rule(gk, gp, gq, plain_spread(run, plain, batch_l,
-                                                       gp))
-        shares = {n: (d / a, d / b) for n, (d, a, b, _) in read.items()}
-        first = max((v[0], n) for n, v in shares.items())
-        second = max((v[1], n) for n, v in shares.items())
-        above = [(n, v) for n, v in shares.items() if v[0] > 1]
-        beyond += sum(v[1] > 1 for v in shares.values())
-        log(f"after {4 * (k + 1)} steps (largest gradient {top}): largest "
-            f"share of the first limit {first}; of the second {second}; "
-            f"leaves above the first limit (shares of the first, the "
-            f"second) {above}")
-        log(json.dumps({"state": k + 1, "shares": shares}))
-    log(f"{n_states} states: {beyond} leaves beyond the second limit")
+            gk = run(model, batch_l, None, False)[1]
+            gp = run(plain, batch_l, None, False)[1]
+            gq = run(plain, probed(batch_l, 9, keys), None, False)[1]
+            top, read = grad_rule(gk, gp, gq, plain_spread(
+                run, plain, batch_l, gp, keys))
+            shares = {n: (d / a, d / b) for n, (d, a, b, _) in read.items()}
+            first = max((v[0], n) for n, v in shares.items())
+            second = max((v[1], n) for n, v in shares.items())
+            above = [(n, v) for n, v in shares.items() if v[0] > 1]
+            beyond += sum(v[1] > 1 for v in shares.values())
+            log(f"{label} after {4 * (k + 1)} steps (largest gradient "
+                f"{top}): largest share of the first limit {first}; of the "
+                f"second {second}; leaves above the first limit (shares of "
+                f"the first, the second) {above}")
+            log(json.dumps({"model": label, "state": k + 1,
+                            "shares": shares}))
+        log(f"{label}: {n_states} states, {beyond} leaves beyond the second "
+            f"limit")
+        del model, plain, state, step
+        torch.cuda.empty_cache()
 
 
 def phase_multi_inst_cli(rows, tmp: str) -> dict:
@@ -4272,6 +4336,15 @@ STREAM_SONG_SECONDS = 60.0
 DP_RANKS, DP_STEPS = 2, 3
 DP_LOSS_TOL = dict(rtol=3e-3, atol=1e-4)
 DP_MODELS = ("flagship", "segmentation")
+SP_RANKS = 2
+SP_MODELS = ("flagship", "onset")
+# phase 18a's eval forward at mesh_sp against one process, both fp32 with
+# deterministic cuDNN: each output's largest gap over its largest
+# magnitude. The ranks run each convolution on 320 + 2 frames where one
+# process runs 640 + 2, so cuDNN may sum in another order (~1e-7 a
+# layer); a halo that is wrong or missing moves the frames beside the
+# ranks' boundary by O(1).
+SP_EVAL_RTOL = 1e-5
 RESULTS: dict = {}      # figures an earlier phase leaves for a later one
 
 
@@ -4392,12 +4465,17 @@ def phase_streaming_cqt_cfp(rows) -> None:
 
 
 def dp_model(name: str):
-    """(model, VAT step's batches) of phase 17b's `name`: the flagship
-    (reconstruction, fp32) or Segmentation (dropout 0.4, fp32), seed 0,
-    on the global batch of B + B clips of 20.48 s."""
+    """(model, VAT step's batches) of phase 17b's and 18's `name`: the
+    flagship (reconstruction, fp32), Segmentation (dropout 0.4, fp32) or
+    UNetOnset ('onset': reconstruction, fp32; `onset_batches`), seed 0, on
+    the global batch of B + B clips of 20.48 s."""
     from reconvat_tpu_torch.models.reconvat import ReconVAT
     from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.models.unet_onset import UNetOnset
 
+    if name == "onset":
+        return (UNetOnset(seed=0, reconstruction=True),
+                [onset_batches(seed) for seed in range(2)])
     model = (ReconVAT(seed=0) if name == "flagship"
              else SemanticSegmentation(seed=0))
     return model, [train_batches(seed) for seed in range(2)]
@@ -4420,8 +4498,10 @@ def step_split(run) -> dict:
     ms; the host's ms inside the `batchnorm_moments` spans (the train-mode
     BatchNorm moment all-reduces, `parallel.mesh.global_moments`), their
     number and the device's idle ms inside them; the host's ms inside the
-    `gradient_all_reduce` span; and the device's idle ms elsewhere (the
-    host's dispatch and every other wait)."""
+    `gradient_all_reduce` span; the number of `halo_exchange` spans (the
+    time halos of sequence parallelism, `parallel.mesh.time_halo`) and
+    the host's ms inside them; and the device's idle ms elsewhere (the
+    host's dispatch and every other wait; under sp the halos' too).""" 
     from torch.profiler import ProfilerActivity, profile
 
     with profile(activities=[ProfilerActivity.CPU,
@@ -4431,7 +4511,7 @@ def step_split(run) -> dict:
         run()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
-    device, nccl, bn, grad = [], [], [], []
+    device, nccl, bn, grad, halo = [], [], [], [], []
     for e in prof.events():
         span = (e.time_range.start, e.time_range.end)
         if str(e.device_type).endswith("CUDA"):
@@ -4442,6 +4522,8 @@ def step_split(run) -> dict:
             bn.append(span)
         elif e.name == "gradient_all_reduce":
             grad.append(span)
+        elif e.name == "halo_exchange":
+            halo.append(span)
     busy = _union_ms(device)
     bn_ms = _union_ms(bn)
     # device busy inside the BatchNorm spans: the union of the device
@@ -4455,20 +4537,26 @@ def step_split(run) -> dict:
             "batchnorm_calls": len(bn), "batchnorm_host_ms": bn_ms,
             "device_idle_in_batchnorm_ms": bn_ms - inside,
             "gradient_ms": _union_ms(grad),
+            "halo_calls": len(halo), "halo_host_ms": _union_ms(halo),
             "device_idle_elsewhere_ms": wall - busy - (bn_ms - inside)}
 
 
-def dp_rank(rank: int, world: int, port: int, out: str) -> None:
-    """One rank of phase 17b (`python3 chip_smoke.py --dp-rank rank world
-    port out`): joins the process group (NCCL with a card per rank, else
-    gloo), and for each of DP_MODELS takes DP_STEPS data-parallel VAT
-    steps on its rows of the global batches (`parallel.mesh.shard_batch`)
-    with the counts set to 0 just before and read just after; after every
-    step it holds its parameters and statistics bit-equal to rank 0's
-    (broadcast). Saves the first step's losses and state (rank 0), the
-    ms/step of the later steps, the `gradient_all_reduce` span's ms of a
-    profiled step, the step's split (`step_split`), peak GB and the
-    launches to `out`."""
+def dp_rank(rank: int, world: int, port: int, out: str, sp: int = 1,
+            what=DP_MODELS) -> None:
+    """One rank of phase 17b or 18 (`python3 chip_smoke.py --dp-rank rank
+    world port out [sp [what]]`, `what` comma-separated): joins the
+    process group (NCCL with a card per rank, else gloo) and lays a mesh
+    of world / sp x sp ranks over it. For each model of `what` it takes
+    DP_STEPS sharded VAT steps on its share of the global batches
+    (`parallel.mesh.shard_batch`: its rows, and under sp its frames of
+    the labels) with the counts set to 0 just before and read just after;
+    after every step it holds its parameters and statistics bit-equal to
+    rank 0's (broadcast). Saves the first step's losses and state (rank
+    0), the ms/step of the later steps, the `gradient_all_reduce` span's
+    ms of a profiled step, the step's split (`step_split`), peak GB and
+    the launches to `out`. 'stream' in `what` streams phase 18c's song
+    over the mesh (`sp_streams`), 'eval' runs phase 18a's eval forward on
+    it (`sp_eval`)."""
     import torch.distributed as dist
 
     from reconvat_tpu_torch.kernels import _build
@@ -4483,8 +4571,13 @@ def dp_rank(rank: int, world: int, port: int, out: str) -> None:
     counters = kernel_counters()
     result = {"backend": dist.get_backend(), "device": str(device)}
     try:
-        with pmesh.activate(pmesh.make_mesh(world, device=device)) as ctx:
-            for name in DP_MODELS:
+        with pmesh.activate(pmesh.make_mesh(world // sp, sp,
+                                            device=device)) as ctx:
+            for name in what:
+                if name in ("stream", "eval"):
+                    result[name] = (sp_streams if name == "stream"
+                                    else sp_eval)(ctx)
+                    continue
                 model, batches = dp_model(name)
                 batches = [tuple(pmesh.shard_batch(b, ctx) for b in pair)
                            for pair in batches]
@@ -4533,6 +4626,137 @@ def dp_deltas(got: dict, ref: dict, names) -> np.ndarray:
                       for k in names]).numpy()
 
 
+def one_process_step(name: str, probe=None):
+    """(losses, state, parameter names, ms) of one process's first VAT
+    step of `dp_model(name)` from the seeded init on the global batches;
+    `probe` j moves both batches' audio by PROBE (`probed`)."""
+    from reconvat_tpu_torch.train.state import (create_train_state,
+                                                make_train_step)
+
+    model, batches = dp_model(name)
+    batch_l, batch_ul = batches[0]
+    if probe is not None:
+        batch_l = probed(batch_l, 20 + 2 * probe)
+        batch_ul = probed(batch_ul, 40 + 2 * probe)
+    state = create_train_state(model)
+    step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    losses = step(state, batch_l, batch_ul, gen)
+    torch.cuda.synchronize()
+    out = ({k: v.item() for k, v in losses.items()},
+           {k: v.detach().cpu().clone() for k, v in
+            model.state_dict().items()},
+           [n for n, _ in model.named_parameters()],
+           (time.perf_counter() - t0) * 1e3)
+    del model, state, batches
+    torch.cuda.empty_cache()
+    return out
+
+
+def one_process_reference(name: str):
+    """(`one_process_step(name)`, its `r_norm` entries' spread under
+    R_NORM_PROBES audio probes), read once per run (RESULTS)."""
+    key = f"one_process_{name}"
+    if key not in RESULTS:
+        ref = one_process_step(name)
+        probes = [one_process_step(name, j)[0] for j in range(R_NORM_PROBES)]
+        RESULTS[key] = (ref, {k: max(abs(p[k] - v) for p in probes)
+                              for k, v in ref[0].items() if "_r_norm_" in k})
+    return RESULTS[key]
+
+
+def run_ranks(label: str, visible: str, world: int, args=()) -> list:
+    """Each rank's saved result of `world` `--dp-rank` processes of this
+    script (extra arguments `args`) on the cards `visible`, started
+    together; fails with a rank's output if one failed or outlasted 900
+    s."""
+    import socket
+    import tempfile
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        port = sock.getsockname()[1]
+    out = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
+    env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible)
+    procs = [subprocess.Popen(
+        [sys.executable, os.path.join(HERE, "chip_smoke.py"),
+         "--dp-rank", str(r), str(world), str(port),
+         os.path.join(out, f"rank{r}.pt"), *args], env=env, cwd=HERE,
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for r in range(world)]
+    try:
+        logs = [p.communicate(timeout=900)[0] for p in procs]
+    finally:
+        for p in procs:
+            p.kill()
+    for r, (p, text) in enumerate(zip(procs, logs)):
+        if p.returncode:
+            fail(f"rank {r} ({label}) exited with {p.returncode}: "
+                 f"{text[-3000:]}")
+    return [torch.load(os.path.join(out, f"rank{r}.pt"))
+            for r in range(world)]
+
+
+def hold_sharded_step(what: str, name: str, ranks: list, misses: list):
+    """Phase 17b's and 18's criterion on `ranks`' results for `name`
+    against one process (`one_process_reference`): every rank's
+    parameters and statistics bit-equal to rank 0's after each step; each
+    rank launches the path's rows (the flagship's and UNetOnset's rows
+    1-4, Segmentation's row 1) and no other; losses within DP_LOSS_TOL
+    (the `r_norm` entries + PROBE_FACTOR x the one process's spread);
+    parameter deltas at most 2.05 x lr, the median under 1e-6, over 85 %
+    under 1e-4. Failures of the comparison with one process go to
+    `misses`; returns (the largest relative loss gap, the deltas)."""
+    (ref_losses, ref_state, params, _), spread = one_process_reference(name)
+    got = ranks[0][name]
+    expect = ({"mel_power"} if name == "segmentation"
+              else {"mel_power"} | set(ATTENTION_ROWS))
+    for r, res in enumerate(ranks):
+        mine = res[name]
+        if not all(mine["equal"]):
+            fail(f"{what} {name}: rank {r}'s parameters left rank 0's "
+                 f"after the steps {mine['equal']}")
+        ran = {k for k, n in mine["launches"].items() if n}
+        if ran != expect:
+            fail(f"{what} {name}: rank {r} launched {mine['launches']}, "
+                 f"not {sorted(expect)}")
+    for k, v in ref_losses.items():
+        tol = (DP_LOSS_TOL["atol"] + DP_LOSS_TOL["rtol"] * abs(v)
+               + PROBE_FACTOR * spread.get(k, 0.0))
+        if not abs(got["losses"][k] - v) <= tol:
+            misses.append(f"{what} {name}: {k} {got['losses'][k]} on "
+                          f"{len(ranks)} ranks, {v} in one process "
+                          f"(tolerance {tol})")
+    d = dp_deltas(got["state"], ref_state, params)
+    lr = 1e-3
+    if not (d.max() <= 2.05 * lr and np.median(d) < 1e-6
+            and np.mean(d < 1e-4) > 0.85):
+        misses.append(f"{what} {name}: parameter deltas against one "
+                      f"process max {d.max()} median {np.median(d)} share "
+                      f"under 1e-4 {np.mean(d < 1e-4)}")
+    return max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
+               for k, v in ref_losses.items()), d
+
+
+def sharded_read(name: str, ranks: list, gap: float, d) -> str:
+    """What phases 17b and 18 print of `name`'s sharded steps."""
+    _, spread = one_process_reference(name)
+    got = ranks[0][name]
+    return (f"ms/step per rank {[res[name]['ms'] for res in ranks]} (one "
+            f"process, first step {one_process_reference(name)[0][3]}); "
+            f"gradient all-reduce ms "
+            f"{[res[name]['all_reduce_ms'] for res in ranks]}; peak GB per "
+            f"rank {[res[name]['peak_gb'] for res in ranks]}; launches per "
+            f"step rank 0 { {k: v for k, v in got['launches'].items() if v} }"
+            f"; losses max rel gap {gap}; deltas max {d.max()} median "
+            f"{np.median(d)} share under 1e-4 {np.mean(d < 1e-4)}; the one "
+            f"process's r_norm spread under {R_NORM_PROBES} probes {spread}; "
+            f"ranks bit-equal after each of {DP_STEPS} steps; a step's split "
+            f"per rank {[res[name]['split'] for res in ranks]}")
+
+
 def phase_data_parallel_steps(rows) -> None:
     """Phase 17b: the fp32 flagship VAT step and a Segmentation VAT step
     (dropout masks and train-mode BatchNorm over the global batch) at B +
@@ -4540,46 +4764,18 @@ def phase_data_parallel_steps(rows) -> None:
     (`dp_rank`, one process each; they share the card over gloo, and a
     machine with as many cards runs them again over NCCL, a card each),
     against one process taking the same first step from the same state on
-    the same global batches: losses and parameters by the JAX package's
-    criterion (DP_LOSS_TOL, deltas against 2.05 x lr; the VAT `r_norm`
-    entries, means of a direction that rounding sets at xi 1e-6, within
-    DP_LOSS_TOL + PROBE_FACTOR x the one process's spread under
-    R_NORM_PROBES audio probes, as phase 14 holds them), the ranks'
-    parameters and statistics bit-equal after every step, each rank's
-    launches (the flagship rows 1-4 and no bf16 row; Segmentation row 1
-    alone), ms/step per rank, the gradient all-reduce's ms and peak GB per
-    rank, and how a step splits on each rank (`step_split`) beside one
-    process's step on rank 0's rows alone."""
-    import socket
-    import tempfile
-
+    the same global batches (`hold_sharded_step`: losses and parameters
+    by the JAX package's criterion, DP_LOSS_TOL, deltas against 2.05 x
+    lr; the VAT `r_norm` entries, means of a direction that rounding sets
+    at xi 1e-6, within DP_LOSS_TOL + PROBE_FACTOR x the one process's
+    spread under R_NORM_PROBES audio probes, as phase 14 holds them; the
+    ranks' parameters and statistics bit-equal after every step; each
+    rank's launches: the flagship rows 1-4 and no bf16 row, Segmentation
+    row 1 alone), ms/step per rank, the gradient all-reduce's ms and peak
+    GB per rank, and how a step splits on each rank (`step_split`) beside
+    one process's step on rank 0's rows alone."""
     from reconvat_tpu_torch.train.state import (create_train_state,
                                                 make_train_step)
-
-    def first_step(name, probe=None):
-        """(losses, state, parameter names, ms) of one process's first
-        step from the seeded init; `probe` j moves both batches' audio by
-        PROBE (`probed`)."""
-        model, batches = dp_model(name)
-        batch_l, batch_ul = batches[0]
-        if probe is not None:
-            batch_l = probed(batch_l, 20 + 2 * probe)
-            batch_ul = probed(batch_ul, 40 + 2 * probe)
-        state = create_train_state(model)
-        step = make_train_step(model, 1.0, vat=True, use_unlabeled=True)
-        gen = torch.Generator(device="cuda").manual_seed(0)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        losses = step(state, batch_l, batch_ul, gen)
-        torch.cuda.synchronize()
-        out = ({k: v.item() for k, v in losses.items()},
-               {k: v.detach().cpu().clone() for k, v in
-                model.state_dict().items()},
-               [n for n, _ in model.named_parameters()],
-               (time.perf_counter() - t0) * 1e3)
-        del model, state, batches
-        torch.cuda.empty_cache()
-        return out
 
     def half_steps(name):
         """ms of DP_STEPS one-process steps on rank 0's rows alone (B/2 +
@@ -4603,97 +4799,30 @@ def phase_data_parallel_steps(rows) -> None:
         torch.cuda.empty_cache()
         return times, split
 
-    reference, spread, alone = {}, {}, {}
+    alone = {}
     for name in DP_MODELS:
-        reference[name] = first_step(name)
+        one_process_reference(name)
         alone[name] = half_steps(name)
-        probes = [first_step(name, j)[0] for j in range(R_NORM_PROBES)]
-        spread[name] = {k: max(abs(p[k] - v) for p in probes)
-                        for k, v in reference[name][0].items()
-                        if "_r_norm_" in k}
     layouts = [("gloo, ranks share a card", "0")]
     if torch.cuda.device_count() >= DP_RANKS:
         layouts.append(("NCCL, a card per rank", ",".join(
             str(i) for i in range(DP_RANKS))))
     read, misses = [], []
     for label, visible in layouts:
-        with socket.socket() as sock:
-            sock.bind(("localhost", 0))
-            port = sock.getsockname()[1]
-        out = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
-        env = dict(os.environ, CUDA_VISIBLE_DEVICES=visible)
-        procs = [subprocess.Popen(
-            [sys.executable, os.path.join(HERE, "chip_smoke.py"),
-             "--dp-rank", str(r), str(DP_RANKS), str(port),
-             os.path.join(out, f"rank{r}.pt")], env=env, cwd=HERE,
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
-            for r in range(DP_RANKS)]
-        try:
-            logs = [p.communicate(timeout=900)[0] for p in procs]
-        finally:
-            for p in procs:
-                p.kill()
-        for r, (p, text) in enumerate(zip(procs, logs)):
-            if p.returncode:
-                fail(f"phase 17b rank {r} ({label}) exited with "
-                     f"{p.returncode}: {text[-3000:]}")
-        ranks = [torch.load(os.path.join(out, f"rank{r}.pt"))
-                 for r in range(DP_RANKS)]
+        ranks = run_ranks(f"phase 17b, {label}", visible, DP_RANKS)
         for name in DP_MODELS:
-            ref_losses, ref_state, params, ref_ms = reference[name]
-            got = ranks[0][name]
-            for r, res in enumerate(ranks):
-                mine = res[name]
-                if not all(mine["equal"]):
-                    fail(f"phase 17b {name} ({label}): rank {r}'s "
-                         f"parameters left rank 0's after the steps "
-                         f"{mine['equal']}")
-                expect = ({"mel_power"} | set(ATTENTION_ROWS)
-                          if name == "flagship" else {"mel_power"})
-                ran = {k for k, n in mine["launches"].items() if n}
-                if ran != expect:
-                    fail(f"phase 17b {name} ({label}): rank {r} launched "
-                         f"{mine['launches']}, not {sorted(expect)}")
-            for k, v in ref_losses.items():
-                tol = (DP_LOSS_TOL["atol"] + DP_LOSS_TOL["rtol"] * abs(v)
-                       + PROBE_FACTOR * spread[name].get(k, 0.0))
-                if not abs(got["losses"][k] - v) <= tol:
-                    misses.append(
-                        f"{name} ({label}): {k} {got['losses'][k]} on "
-                        f"{DP_RANKS} ranks, {v} in one process (tolerance "
-                        f"{tol})")
-            d = dp_deltas(got["state"], ref_state, params)
-            lr = 1e-3
-            if not (d.max() <= 2.05 * lr and np.median(d) < 1e-6
-                    and np.mean(d < 1e-4) > 0.85):
-                misses.append(
-                    f"{name} ({label}): parameter deltas against one "
-                    f"process max {d.max()} median {np.median(d)} share "
-                    f"under 1e-4 {np.mean(d < 1e-4)}")
-            loss_gap = max(abs(got["losses"][k] - v) / max(abs(v), 1e-12)
-                           for k, v in ref_losses.items())
+            gap, d = hold_sharded_step(f"phase 17b ({label})", name, ranks,
+                                       misses)
             if label.startswith("gloo"):
                 for row in rows:
                     row["launches_dp_step"] = max(
                         row.get("launches_dp_step", 0),
-                        got["launches"][row["name"]])
+                        ranks[0][name]["launches"][row["name"]])
             read.append(
-                f"{name} ({label}; {ranks[0]['backend']}): ms/step per rank "
-                f"{[res[name]['ms'] for res in ranks]} (one process, first "
-                f"step {ref_ms}); gradient all-reduce ms "
-                f"{[res[name]['all_reduce_ms'] for res in ranks]}; peak GB "
-                f"per rank {[res[name]['peak_gb'] for res in ranks]}; "
-                f"launches per step rank 0 "
-                f"{ {k: v for k, v in got['launches'].items() if v} }; "
-                f"losses max rel gap {loss_gap}; "
-                f"deltas max {d.max()} median {np.median(d)} share under "
-                f"1e-4 {np.mean(d < 1e-4)}; the one process's r_norm spread "
-                f"under {R_NORM_PROBES} probes {spread[name]}; ranks "
-                f"bit-equal after each of {DP_STEPS} steps; a step's split "
-                f"per rank {[res[name]['split'] for res in ranks]}; one "
-                f"process on rank 0's rows alone ({B // DP_RANKS} + "
-                f"{B // DP_RANKS}, no mesh) ms/step {alone[name][0]}, "
-                f"split {alone[name][1]}")
+                f"{name} ({label}; {ranks[0]['backend']}): "
+                f"{sharded_read(name, ranks, gap, d)}; one process on rank "
+                f"0's rows alone ({B // DP_RANKS} + {B // DP_RANKS}, no "
+                f"mesh) ms/step {alone[name][0]}, split {alone[name][1]}")
     log(f"phase 17b data-parallel VAT steps (fp32, {DP_RANKS} ranks of "
         f"{B // DP_RANKS} + {B // DP_RANKS} x 640 against one process of "
         f"{B} + {B}): {'; '.join(read)}")
@@ -4701,14 +4830,185 @@ def phase_data_parallel_steps(rows) -> None:
         fail(f"phase 17b: {misses}")
 
 
-def phase_data_parallel_cli(rows, tmp: str) -> None:
-    """Phase 17c: `python -m reconvat_tpu_torch.train_UNet_VAT with
-    mesh_dp=DP_RANKS` (this process rank 0, the CLI starts rank 1) at its
-    defaults (bf16, VAT) but train_batch_size DP_RANKS (it must divide
-    over the ranks) and the four labeled songs of phase 11's corpus, one
+def sp_streams(ctx=None) -> dict:
+    """Phase 18c: the flagship and UNetOnset (seed 0, fp32, random
+    weights) stream a song of STREAM_SONG_SECONDS (`tone_song`) at their
+    default windows (W 640, H 128) with deterministic cuDNN, over the
+    ranks of mesh `ctx` (`transcribe_streaming(mesh_ctx=ctx)`) or on one
+    device: {model: (the frame roll, the onset roll or None, seconds, the
+    launches)}."""
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.models.unet_onset import UNetOnset
+    from reconvat_tpu_torch.parallel import distributed
+
+    counters = kernel_counters()
+    cudnn = torch.backends.cudnn
+    song = tone_song(STREAM_SONG_SECONDS, seed=18)
+    out = {}
+    cudnn.deterministic = True
+    try:
+        for name, make in (("flagship", ReconVAT), ("onset", UNetOnset)):
+            model = make(seed=0)
+            model.transcribe_streaming(song[:, :SAMPLES], mesh_ctx=ctx)
+            for f, c in counters.values():
+                setattr(f, c, 0)
+            torch.cuda.synchronize()
+            distributed.sync()          # the ranks start the clock together
+            t0 = time.perf_counter()
+            rolls = model.transcribe_streaming(song, mesh_ctx=ctx)
+            torch.cuda.synchronize()
+            out[name] = (rolls["frame"], rolls["onset"]
+                         if name == "onset" else None,
+                         time.perf_counter() - t0,
+                         {k: getattr(f, c) for k, (f, c) in
+                          counters.items() if getattr(f, c)})
+            del model
+    finally:
+        cudnn.deterministic = False
+    return out
+
+
+def sp_eval(ctx=None) -> dict:
+    """Phase 18a's forward: the flagship (seed 0, fp32, random weights,
+    reconstruction) in eval mode on the labeled audio of
+    `train_batches(0)`, with deterministic cuDNN; under mesh `ctx` on this
+    rank's rows, inside a sharded step (so on its frames of the spec):
+    {output: this rank's share of it, on the CPU}."""
+    from reconvat_tpu_torch.models.base import fp32_math
+    from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.parallel import mesh as pmesh
+
+    model = ReconVAT(seed=0).eval()
+    audio = train_batches(0)[0]["audio"]
+    if ctx is not None:
+        audio = pmesh.shard_batch({"audio": audio}, ctx)["audio"]
+    cudnn = torch.backends.cudnn
+    cudnn.deterministic = True
+    try:
+        with torch.no_grad(), fp32_math(), pmesh.sharded_step(ctx):
+            spec = model.make_spec(audio)
+            out = model(spec)
+    finally:
+        cudnn.deterministic = False
+    names = ("reconstruction", "pianoroll", "pianoroll2", "attention",
+             "spec")
+    return {k: v.float().cpu() for k, v in zip(names, out + (spec,))}
+
+
+def phase_sequence_parallel(rows) -> None:
+    """Phase 18a-18c, sequence parallelism (`mesh_sp`, the time axis over
+    ranks) against one process on the card. 18a: the flagship's eval-mode
+    forward with reconstruction on the B x 640 labeled batch at
+    mesh_sp=SP_RANKS (`sp_eval`), every output (the spec, the
+    reconstruction, both rolls, the attention) within SP_EVAL_RTOL of one
+    process's, which holds every frame beside the ranks' boundaries; and
+    the flagship's fp32 VAT
+    step with reconstruction on SP_RANKS ranks of mesh_sp=SP_RANKS, each
+    holding B + B clips x 640 / SP_RANKS frames of the global B + B x
+    640 (`dp_rank` processes sharing the card over gloo; over NCCL a card
+    each on a machine with as many cards, and on four cards also at
+    mesh_dp=2 x mesh_sp=2), held by phase 17b's criterion
+    (`hold_sharded_step`: DP_LOSS_TOL, deltas within 2.05 x lr, `r_norm`
+    with the spread, the ranks bit-equal after every step, each rank
+    launching rows 1-4 and no bf16 row); ms/step, peak GB, launches and
+    the `halo_exchange` spans' count and host ms per rank (`step_split`).
+    18b: UNetOnset's fp32 VAT step at mesh_sp=SP_RANKS, held the same
+    way. 18c: a 60-s song streamed by the flagship and by UNetOnset over
+    the ranks (`sp_streams`) against one device's stream, within 1e-6
+    (deterministic cuDNN; each window is the same computation)."""
+    for name in SP_MODELS:
+        one_process_reference(name)
+    one = sp_streams()
+    one_eval = sp_eval()
+    layouts = [("gloo, ranks share a card", "0", 1)]
+    if torch.cuda.device_count() >= SP_RANKS:
+        layouts.append(("NCCL, a card per rank", ",".join(
+            str(i) for i in range(SP_RANKS)), 1))
+    if torch.cuda.device_count() >= 2 * SP_RANKS:
+        layouts.append(("NCCL, mesh_dp=2 x mesh_sp=2", ",".join(
+            str(i) for i in range(2 * SP_RANKS)), 2))
+    read, misses = [], []
+    for label, visible, dp in layouts:
+        what = ("eval",) + (SP_MODELS + ("stream",) if dp == 1
+                            else ("flagship",))
+        ranks = run_ranks(f"phase 18, {label}", visible, dp * SP_RANKS,
+                          (str(SP_RANKS), ",".join(what)))
+        gaps = {}
+        for k, v in one_eval.items():
+            whole = torch.cat([torch.cat(
+                [ranks[i * SP_RANKS + j]["eval"][k] for j in range(SP_RANKS)],
+                dim=1) for i in range(dp)])
+            gaps[k] = ((whole - v).abs().max().item()
+                       / max(v.abs().max().item(), 1e-30)
+                       if whole.shape == v.shape else float("inf"))
+            if not gaps[k] <= SP_EVAL_RTOL:
+                misses.append(f"18a eval forward ({label}): {k} "
+                              f"{tuple(whole.shape)} on the ranks, "
+                              f"{tuple(v.shape)} in one process, largest "
+                              f"gap {gaps[k]} of its largest magnitude "
+                              f"(tolerance {SP_EVAL_RTOL})")
+        read.append(f"18a eval forward ({label}, dp {dp} x sp {SP_RANKS}): "
+                    f"largest gap over largest magnitude {gaps}")
+        for name in what:
+            if name in ("stream", "eval"):
+                continue
+            gap, d = hold_sharded_step(f"phase 18 ({label})", name, ranks,
+                                       misses)
+            halos = [res[name]["split"]["halo_calls"] for res in ranks]
+            if min(halos) == 0:
+                fail(f"phase 18 {name} ({label}): a rank ran no halo "
+                     f"exchange {halos}")
+            if label.startswith("gloo"):
+                for row in rows:
+                    row[f"launches_sp_{name}_step"] = \
+                        ranks[0][name]["launches"][row["name"]]
+            read.append(f"18{'ab'[SP_MODELS.index(name)]} {name} ({label}; "
+                        f"{ranks[0]['backend']}, dp {dp} x sp {SP_RANKS}): "
+                        f"{sharded_read(name, ranks, gap, d)}")
+        if "stream" not in what:
+            continue
+        for name, (frame, onset, sec, _) in one.items():
+            gaps = []
+            for r, res in enumerate(ranks):
+                got = res["stream"][name]
+                for a, b in ((got[0], frame), (got[1], onset)):
+                    if b is None:
+                        continue
+                    if a.shape != b.shape or not torch.isfinite(a).all():
+                        fail(f"phase 18c {name} ({label}): rank {r}'s roll "
+                             f"{tuple(a.shape)}, one device's "
+                             f"{tuple(b.shape)}")
+                    gaps.append((a - b).abs().max().item())
+            if max(gaps) > 1e-6:
+                misses.append(f"18c {name} ({label}): streamed over "
+                              f"{SP_RANKS} ranks {max(gaps)} from one "
+                              f"device's roll")
+            audio_s = STREAM_SONG_SECONDS
+            read.append(
+                f"18c {name} ({label}): {audio_s}-s song, {frame.shape[1]} "
+                f"frames, largest gap to one device's roll {max(gaps)}; "
+                f"audio-s/s per rank "
+                f"{[audio_s / res['stream'][name][2] for res in ranks]} "
+                f"(one device {audio_s / sec}); launches per rank "
+                f"{[res['stream'][name][3] for res in ranks]} (one device "
+                f"{one[name][3]})")
+    log(f"phase 18 sequence-parallel steps (fp32, {SP_RANKS} ranks of {B} "
+        f"+ {B} x {640 // SP_RANKS} frames against one process of {B} + "
+        f"{B} x 640) and streaming: {'; '.join(read)}")
+    if misses:
+        fail(f"phase 18: {misses}")
+
+
+def phase_sharded_cli(rows, tmp: str, phase: str, mesh: dict) -> None:
+    """Phase 17c (`mesh` {mesh_dp: DP_RANKS, train_batch_size: DP_RANKS,
+    supersmall: False}: the batch must divide over the ranks, so the four
+    labeled songs of phase 11's corpus) or 18d (`mesh` {mesh_sp:
+    SP_RANKS}: each crop's 640 frames over the ranks): `python -m
+    reconvat_tpu_torch.train_UNet_VAT with <mesh>` (this process rank 0,
+    the CLI starts the others) at its defaults otherwise (bf16, VAT), one
     epoch with one checkpoint: rank 0's launches (rows 1, 2b, 3b, 4b),
     only rank 0's artifacts in the run directory, ms/step against phase
-    11's one-process figure; then a resume at mesh_dp=DP_RANKS restoring
+    11's one-process figure; then a resume on the same mesh restoring
     every tensor bit-equal."""
     import datetime
 
@@ -4718,50 +5018,52 @@ def phase_data_parallel_cli(rows, tmp: str) -> None:
     corpus = os.path.join(tmp, "corpus")
     env = {"RECONVAT_MAPS_ROOT": os.path.join(corpus, "MAPS"),
            "RECONVAT_MAESTRO_ROOT": os.path.join(corpus, "MAESTRO")}
-    args = dict(TRAIN_CLI, supersmall=False, train_batch_size=DP_RANKS,
-                mesh_dp=DP_RANKS, epoches=1, saving_freq=1)
-    root = os.path.join(tmp, "runs_dp")
-    backend = distributed.choose_backend("cuda", DP_RANKS)
+    args = dict(TRAIN_CLI, epoches=1, saving_freq=1, **mesh)
+    world = int(mesh.get("mesh_dp", 1)) * int(mesh.get("mesh_sp", 1))
+    root = os.path.join(tmp, f"runs_{phase}")
+    backend = distributed.choose_backend("cuda", world)
     # a rank that waits longer than this at a collective fails the phase
-    # (and rank 0 then stops the other) inside the script's time limit
+    # (and rank 0 then stops the others) inside the script's time limit
     timeout = distributed.TIMEOUT
     distributed.TIMEOUT = datetime.timedelta(minutes=5)
     try:
         rec = train_cli(dict(args, root=root), env)
-        resumed = train_cli(dict(args, root=os.path.join(tmp, "resumed_dp"),
+        resumed = train_cli(dict(args, root=os.path.join(tmp, f"resumed_"
+                                                              f"{phase}"),
                                  epoches=0, resume_iteration="latest",
                                  trained_dir=rec["logdir"]), env)
     finally:
         distributed.TIMEOUT = timeout
     for name, n in rec["launches"].items():
         if (n > 0) != (name == "mel_power" or name.endswith("_bf16")):
-            fail(f"the data-parallel CLI (bf16) launched {name} {n} times "
-                 f"on rank 0")
+            fail(f"phase {phase}, the sharded CLI (bf16) launched {name} "
+                 f"{n} times on rank 0")
     logdir, steps = rec["logdir"], rec["steps"]
     names = sorted(os.listdir(logdir))
     events = [n for n in names if n.startswith("events.out.tfevents.")]
     if os.listdir(root) != [os.path.basename(logdir)] or len(events) != 1 \
             or not {"model-1", "result_dict", "MIDI_results",
                     "config.json"} <= set(names):
-        fail(f"the data-parallel CLI wrote {os.listdir(root)}: {names}")
+        fail(f"phase {phase}: the sharded CLI wrote {os.listdir(root)}: "
+             f"{names}")
     saved = ckpt.load_state(os.path.join(logdir, "model-1"))
     n_tensors = 0
     for k, v in resumed["model"].state_dict().items():
         if not torch.equal(v.cpu(), saved["model"][k]):
-            fail(f"data-parallel resume: tensor {k} differs from the saved")
+            fail(f"phase {phase} resume: tensor {k} differs from the saved")
         n_tensors += 1
     opt = resumed["state"].optimizer.state_dict()["state"]
     for i, slots in saved["optimizer"]["state"].items():
         for name, v in slots.items():
             if not torch.equal(opt[i][name].cpu(), v):
-                fail(f"data-parallel resume: optimizer state {i}.{name}")
+                fail(f"phase {phase} resume: optimizer state {i}.{name}")
             n_tensors += 1
+    key = "launches_dp_cli" if "mesh_dp" in mesh else "launches_sp_cli"
     for row in rows:
-        row["launches_dp_cli"] = rec["step_launches"][row["name"]] / steps
+        row[key] = rec["step_launches"][row["name"]] / steps
     ms = step_ms(rec)
-    log(f"phase 17c the training CLI at mesh_dp={DP_RANKS} (bf16, VAT, "
-        f"{DP_RANKS} labeled + 8 unlabeled x 327680 samples a step over "
-        f"{DP_RANKS} ranks on {backend}, "
+    log(f"phase {phase} the training CLI at {mesh} (bf16, VAT, "
+        f"{world} ranks on {backend}, "
         f"{'a card each' if backend == 'nccl' else 'sharing the card'}, "
         f"{steps} steps): ms/step "
         f"(rank 0's StepTimer) median {np.median(ms)} min {min(ms)} max "
@@ -4769,17 +5071,22 @@ def phase_data_parallel_cli(rows, tmp: str) -> None:
         f"{RESULTS.get('phase11_ms')}; rank 0's launches per step "
         f"{ {k: n / steps for k, n in rec['step_launches'].items() if n} }; "
         f"rank 0's peak GB {rec['peak_gb']}; run wall {rec['wall_s']} s; "
-        f"artifacts (rank 0 alone) {names}; resumed at mesh_dp={DP_RANKS} "
+        f"artifacts (rank 0 alone) {names}; resumed on the same mesh "
         f"with {n_tensors} tensors bit-equal to the saved ones")
 
 
+DP_CLI = {"mesh_dp": DP_RANKS, "train_batch_size": DP_RANKS,
+          "supersmall": False}
+SP_CLI = {"mesh_sp": SP_RANKS}
+
 
 def data_parallel_phases() -> None:
-    """`python3 chip_smoke.py --data-parallel`: phases 17b and 17c alone
-    (with the kernels built and phase 11's corpus written first), for a
-    machine with two or more cards, where both run over NCCL with a card
-    per rank (17b also over gloo on one card). Runs no other phase and
-    prints no kernels line."""
+    """`python3 chip_smoke.py --data-parallel`: phases 17b, 17c and 18a-18d
+    alone (with the kernels built and phase 11's corpus written first),
+    for a machine with two or more cards, where they run over NCCL with a
+    card per rank too (17b and 18a-18c also over gloo on one card; on
+    four cards 18a also at mesh_dp=2 x mesh_sp=2). Runs no other phase
+    and prints no kernels line."""
     import shutil
     import tempfile
 
@@ -4795,7 +5102,9 @@ def data_parallel_phases() -> None:
         write_corpus(os.path.join(tmp, "corpus"))
         for label, phase, args in (
                 ("17b", phase_data_parallel_steps, (rows,)),
-                ("17c", phase_data_parallel_cli, (rows, tmp))):
+                ("17c", phase_sharded_cli, (rows, tmp, "17c", DP_CLI)),
+                ("18a-18c", phase_sequence_parallel, (rows,)),
+                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()
@@ -4823,10 +5132,14 @@ def main(argv: list) -> int:
         bf16_step_rule(int(argv[1]) if len(argv) > 1 else 8)
         return 0
     if argv[:1] == ["--dp-rank"]:
-        dp_rank(*(int(a) for a in argv[1:4]), argv[4])
+        dp_rank(*(int(a) for a in argv[1:4]), argv[4],
+                *([int(argv[5])] if len(argv) > 5 else []),
+                *([tuple(argv[6].split(","))] if len(argv) > 6 else []))
         return 0
-    if argv[:1] == ["--segmentation-step-rule"]:
-        segmentation_step_rule(int(argv[1]) if len(argv) > 1 else 10)
+    if argv[:1] and argv[0].startswith("--") and \
+            argv[0].endswith("-step-rule"):
+        step_rule(argv[0][2:-len("-step-rule")],
+                  int(argv[1]) if len(argv) > 1 else 10)
         return 0
     if argv[:1] == ["--data-parallel"]:
         data_parallel_phases()
@@ -4887,7 +5200,9 @@ def main(argv: list) -> int:
                 ("16e", phase_cli_cqt_cfp, (rows,)),
                 ("17a", phase_streaming_cqt_cfp, (rows,)),
                 ("17b", phase_data_parallel_steps, (rows,)),
-                ("17c", phase_data_parallel_cli, (rows, tmp))):
+                ("17c", phase_sharded_cli, (rows, tmp, "17c", DP_CLI)),
+                ("18a-18c", phase_sequence_parallel, (rows,)),
+                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()

@@ -154,8 +154,9 @@ def prefetch_to_device(iterator, device, size: int = 2):
 
 
 class MappedLoader:
-    """A sized loader whose batches pass through `fn` (the data-parallel
-    full-epoch sweep's `parallel.mesh.shard_batch`, train/driver.py)."""
+    """A sized loader whose batches pass through `fn` (the sharded
+    full-epoch sweep's `parallel.mesh.shard_batch`, train/driver.py: this
+    rank's rows, and under sp its frames of the labels)."""
 
     def __init__(self, loader, fn):
         self.loader = loader

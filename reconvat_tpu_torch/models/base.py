@@ -17,6 +17,7 @@ from ..nn.attention import MultiHeadAttention1D
 from ..nn.layers import new_dropout_masks
 from ..nn.unet import frozen_batch_stats, use_running_stats
 from ..ops.normalize import Normalization
+from ..parallel import mesh as pmesh
 from ..vat import VATConfig
 from .common import frame_mask, make_log_norm_spec, transcribe_spec
 
@@ -114,6 +115,11 @@ class TranscriptionModel:
     counterpart here (`REFERENCE_ONLY`)."""
 
     REFERENCE_ONLY = ("spectrogram.", "normalize.", "vat_loss.")
+    # the layers take the neighbouring ranks' frames under sequence
+    # parallelism (the flagship and UNetOnset: `nn/unet.py`,
+    # `nn/attention.py`); the other families refuse it (`_sp_frames`, and
+    # their training CLIs before any work, `train.driver.check_settings`)
+    SEQUENCE_PARALLEL = False
 
     def _init_chain(self, frontend, n_bins, log, mode, vat_cfg, seed,
                     device, vat_chain="separate"):
@@ -181,10 +187,30 @@ class TranscriptionModel:
         perturbation's per-vector L2 norm runs over the bins axis."""
         return VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=2)
 
+    def _sp_frames(self, spec, t_true):
+        """Inside a sequence-parallel step (`parallel.mesh.sp_context`),
+        this rank's frames of its rows' normalized spec: each rank
+        computes the mel of its whole rows (the audio stays whole per row)
+        and normalizes them by their own min/max, so the statistics are
+        the whole clip's with no collective, then keeps its frames.
+        Raises for a family whose layers take no halo, and for t_true (the
+        evaluation, which runs whole on every rank)."""
+        ctx = pmesh.sp_context()
+        if ctx is None:
+            return spec
+        if not self.SEQUENCE_PARALLEL:
+            pmesh.refuse_sp(ctx.sp, type(self).__name__)
+        if t_true is not None:
+            raise ValueError("a padded clip (t_true) is evaluated whole on "
+                             "every rank, not under sequence parallelism")
+        return pmesh.sp_frames(spec, ctx, dim=1)
+
     def make_spec(self, audio, t_true=None):
         """audio (B, N) float in [-1, 1] -> normalized log-spec (B,T,F,1);
-        drops the final sample (327680 samples -> 640 frames)."""
-        return make_log_norm_spec(self, audio, t_true)[..., None]
+        drops the final sample (327680 samples -> 640 frames). Inside a
+        sequence-parallel step, this rank's frames of it (`_sp_frames`)."""
+        return self._sp_frames(make_log_norm_spec(self, audio, t_true),
+                               t_true)[..., None]
 
     def _transcriber_fn(self, train: bool, stats=None):
         """The VAT target: `vat_target` with BatchNorm in `train` mode
@@ -227,8 +253,10 @@ class FrameSpecModel(TranscriptionModel):
     family, Thickstun, Prestack), with the serving path over `_rolls`."""
 
     def make_spec(self, audio, t_true=None):
-        """audio (B, N) -> normalized log-spec (B, T, F)."""
-        return make_log_norm_spec(self, audio, t_true)
+        """audio (B, N) -> normalized log-spec (B, T, F); refuses a
+        sequence-parallel step (`_sp_frames`)."""
+        return self._sp_frames(make_log_norm_spec(self, audio, t_true),
+                               t_true)
 
     def _rolls(self, spec):
         """(onset, frame) rolls of the eval-mode forward; a model with one

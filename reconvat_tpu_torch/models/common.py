@@ -197,15 +197,20 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     U-Net's total stride, which keeps every window's strided grids
     anchored like the full song's) and H at least 8 and E (the
     spectrogram's edge frames). A song of at most W + 2H frames is one
-    bucketed call padded to that span. `mesh_ctx` (sharding the windows
-    over devices) is not ported: ROADMAP §1 item 3.2.
-    """
-    if mesh_ctx is not None:
-        from ..parallel.mesh import STREAM_ITEM
+    bucketed call padded to that span.
 
-        raise NotImplementedError(
-            f"streaming over a device mesh (mesh_ctx) is not ported: "
-            f"{STREAM_ITEM}")
+    `mesh_ctx` (a `parallel.mesh.MeshContext` over the started process
+    group; every rank calls with the same song) deals pass 2's window
+    groups out to the ranks: rank r runs groups r, r + world, ... (each
+    the stack of windows one device would run). Every rank reads all of
+    pass 1's chunks (the mel is a small share of a window's work, and
+    each rank then holds the one device's statistics bit for bit, with
+    no collective), and the rolls are gathered by one zero-fill
+    all-reduce of the whole (B, t_true, P) roll on the rank's device
+    (each frame is written by one rank and zero on the others, so the sum
+    is exact): every rank returns one device's roll. A song of at most
+    W + 2H frames runs whole on every rank.
+    """
     W, H = int(window_frames), int(halo_frames)
     E = model.frontend.frame_reach + model.frontend.frame_offset
     if H < max(8, E):
@@ -248,6 +253,13 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     n_real = len(starts)
     while len(starts) % G:
         starts.append(starts[-1])
+    # the first window of each group this rank runs; a rank left without
+    # one runs the first and keeps zeros (the gather's shapes)
+    rank, world = ((mesh_ctx.rank, mesh_ctx.world) if mesh_ctx is not None
+                   else (0, 1))
+    mine = list(range(0, len(starts), G))[rank::world]
+    idle = not mine
+    mine = mine or [0]
     copy_stream = (torch.cuda.Stream(device) if device.type == "cuda"
                    else None)
 
@@ -284,10 +296,10 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
     out = None
     depth = max(1, int(pipeline_depth))
     pending, nxt = [], 0
-    while nxt < len(starts) or pending:
-        while nxt < len(starts) and len(pending) < depth:
-            pending.append(dispatch(nxt))
-            nxt += G
+    while nxt < len(mine) or pending:
+        while nxt < len(mine) and len(pending) < depth:
+            pending.append(dispatch(mine[nxt]))
+            nxt += 1
         gi, group, rolls, done = pending.pop(0)
         if done is not None:
             done.synchronize()   # the pinned buffers are read only after this
@@ -305,4 +317,18 @@ def transcribe_streaming(model, forward, audio, window_frames: int = 640,
                 dst[:, w0:w1] = r[i][:, w0 - f0:w1 - f0]
 
             tree_map(put, out, rolls)
-    return tree_map(torch.from_numpy, out)
+    if world == 1:
+        return tree_map(torch.from_numpy, out)
+    if idle:
+        out = tree_map(np.zeros_like, out)
+    return tree_map(lambda r: _gather_roll(r, mesh_ctx), out)
+
+
+def _gather_roll(roll, ctx):
+    """The sum over the ranks of `roll` (numpy, zero where this rank ran no
+    window), on the host."""
+    import torch.distributed as dist
+
+    t = torch.from_numpy(roll).to(ctx.device)
+    dist.all_reduce(t)
+    return t.cpu()

@@ -142,6 +142,7 @@ class ReconVAT(TranscriptionModel, UNet):
                          vat_chain)
 
     vat_target = UNet.transcribe_frames
+    SEQUENCE_PARALLEL = True
 
     def _supervised_losses(self, out, spec, frame_label, mask, prefix):
         """(predictions without r_adv, losses) of the full forward's
@@ -197,7 +198,19 @@ class ReconVAT(TranscriptionModel, UNet):
         In bf16 the spec and the VAT direction stay fp32 (the first
         convolution casts the perturbed spec, as the JAX package does), the
         reconstruction is bf16 and enters the MSE against the fp32 spec and
-        the second transcriber pass as it is, and every loss is fp32."""
+        the second transcriber pass as it is, and every loss is fp32.
+
+        Inside a sequence-parallel step (`parallel.mesh.sharded_step`, sp
+        > 1) the frame labels are this rank's frames, `make_spec` keeps
+        this rank's frames of the spec and the layers take their halos.
+        VAT's perturbation is normalized per frame over the bins
+        (`norm_axis=2`), so it needs no reduction over the ranks. Every
+        loss is this rank's mean over equal counts, which the step
+        averages over the ranks into the global mean. The power
+        iteration's gradient on a rank is that of the sum of the ranks'
+        means (each halo returns its rows' gradients to their owner):
+        world x the one-process gradient, whose scale the per-frame
+        normalization removes."""
         self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         prefix = "train" if train else "test"

@@ -136,6 +136,7 @@ class UNetOnset(TranscriptionModel, OnsetUNet):
                          vat_chain)
 
     vat_target = OnsetUNet.transcribe_heads
+    SEQUENCE_PARALLEL = True
 
     def run_on_batch(self, batch_l, batch_ul=None, generator=None,
                      vat: bool = False, train: bool = True, t_true=None):
@@ -144,7 +145,11 @@ class UNetOnset(TranscriptionModel, OnsetUNet):
         `ReconVAT.run_on_batch`: batch_l {"audio", "frame", "onset"},
         batch_ul {"audio"} or None, on the model's device; returns
         (predictions, losses, spec (B, T, F)). The LDS losses are per head
-        (`_LDS_l_frame`, `_LDS_l_onset`, and `_LDS_ul_*` in train mode)."""
+        (`_LDS_l_frame`, `_LDS_l_onset`, and `_LDS_ul_*` in train mode).
+        VAT's perturbation is normalized per frame over the bins
+        (`norm_axis=2` of the (B, T, F, 1) spec image, as the flagship's),
+        so a sequence-parallel step needs no reduction of it; the rest of
+        the sp contract is `ReconVAT.run_on_batch`'s."""
         self.check_batch_frames(batch_l["frame"].shape[1])
         self.train(train)
         prefix = "train" if train else "test"

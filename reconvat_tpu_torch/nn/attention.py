@@ -16,6 +16,11 @@ The attention models' options (`reconvat_tpu/nn/attention.py:215-282`):
 the JAX package's Pallas route is, and its gradient is dropped);
 `use_bias` gives the three projections biases; `return_probs=False`
 returns None in place of the probabilities.
+
+Inside a sequence-parallel step (`parallel.mesh.sharded_step` with sp >
+1) K/V are projected from this rank's frames with the (W - 1) / 2 frames
+of each neighbouring rank (`parallel.mesh.time_halo`), so the attention
+core (kernels or plain) runs as it does on the whole clip.
 """
 from __future__ import annotations
 
@@ -24,6 +29,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.banded_attention_kernel import BandedAttention, banded_attention
+from ..parallel import mesh as pmesh
 from .precision import cast
 
 __all__ = ["banded_attention", "BandedAttention", "MultiHeadAttention1D"]
@@ -64,11 +70,13 @@ class MultiHeadAttention1D(nn.Module):
         W = self.kernel_size
         hw = (W - 1) // 2
         # K/V from the zero-padded sequence (reference pads x before the
-        # bias-free projections, `model/self_attention.py:44-47`)
+        # bias-free projections, `model/self_attention.py:44-47`); inside a
+        # sequence-parallel step the pad rows between ranks are the
+        # neighbouring ranks' frames, zeros only at the clip's ends
         x, wq, wk, wv, bq, bk, bv = cast(
             self.compute_dtype, x, self.W_q.weight, self.W_k.weight,
             self.W_v.weight, self.W_q.bias, self.W_k.bias, self.W_v.bias)
-        xpad = F.pad(x, (0, 0, hw, hw))
+        xpad = pmesh.time_halo(x, hw, hw, pmesh.sp_context(), dim=1)
         q = F.linear(x, wq, bq).reshape(B, L, H, Dh)
         k = F.linear(xpad, wk, bk).reshape(B, L + 2 * hw, H, Dh)
         v = F.linear(xpad, wv, bv).reshape(B, L + 2 * hw, H, Dh)

@@ -4,9 +4,13 @@
 Activations are NCHW with time on H and frequency on W. Residual double-conv
 encoder blocks with a 1x1 skip and strided downsampling; transpose-conv
 decoder blocks whose upsampler is driven to an explicit target size
-(`output_size=`). Submodule names match the reference state_dict names. The
-frequency-folded layout of the JAX package is a TPU lane device and is not
-ported: it equals this layout.
+(`output_size=`). Inside a sequence-parallel step (time over the sp ranks)
+each 3x3 stride-1 convolution and transposed convolution takes a
+one-frame halo of the neighbouring ranks (`time_halo`); the 2x2 stride-2
+down- and upsamplers need none when a rank's frames are a multiple of 16,
+the U-Net's total stride. Submodule names match the reference state_dict
+names. The frequency-folded layout of the JAX package is a TPU lane device
+and is not ported: it equals this layout.
 
 `compute_dtype=torch.bfloat16` follows the JAX package's mixed precision:
 each convolution and transposed convolution casts its input, weight and
@@ -36,31 +40,56 @@ def _act(x):
 class Conv2d(nn.Conv2d):
     """`nn.Conv2d` computing in `compute_dtype` (the JAX package's
     `TorchConv`): input, weight and bias cast to it, output in it. None
-    is `nn.Conv2d` itself."""
+    is `nn.Conv2d` itself. `time_halo=True` (a stride-1 convolution whose
+    time padding is p) takes p frames of the neighbouring ranks on the time
+    axis (H) inside a sequence-parallel step (`parallel.mesh.time_halo`)
+    in place of its zero padding there; the frequency padding stays."""
 
-    def __init__(self, *args, compute_dtype=None, **kwargs):
+    def __init__(self, *args, compute_dtype=None, time_halo=False,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self.time_halo = time_halo
 
     def forward(self, x):
-        return self._conv_forward(*cast(self.compute_dtype, x, self.weight,
-                                        self.bias))
+        ctx = pmesh.sp_context() if self.time_halo else None
+        if ctx is None:
+            return self._conv_forward(*cast(self.compute_dtype, x,
+                                            self.weight, self.bias))
+        h = self.padding[0]
+        x, w, b = cast(self.compute_dtype,
+                       pmesh.time_halo(x, h, h, ctx, dim=2), self.weight,
+                       self.bias)
+        return F.conv2d(x, w, b, self.stride, (0, self.padding[1]),
+                        self.dilation, self.groups)
 
 
 class ConvTranspose2d(nn.ConvTranspose2d):
     """`nn.ConvTranspose2d` computing in `compute_dtype` (the JAX package's
-    `TorchConvTranspose`), with `output_size` resolved as torch does."""
+    `TorchConvTranspose`), with `output_size` resolved as torch does.
+    `time_halo=True` (stride 1, kernel k, time padding p: the convolution
+    of padding k - 1 - p) takes k - 1 - p frames of the neighbouring ranks
+    on the time axis inside a sequence-parallel step, its time padding
+    then p + that halo, so that the output keeps this rank's frames."""
 
-    def __init__(self, *args, compute_dtype=None, **kwargs):
+    def __init__(self, *args, compute_dtype=None, time_halo=False,
+                 **kwargs):
         super().__init__(*args, **kwargs)
         self.compute_dtype = compute_dtype
+        self.time_halo = time_halo
 
     def forward(self, x, output_size=None):
         output_padding = self._output_padding(
             x, output_size, self.stride, self.padding, self.kernel_size, 2,
             self.dilation)
+        padding = self.padding
+        ctx = pmesh.sp_context() if self.time_halo else None
+        if ctx is not None:
+            h = self.kernel_size[0] - 1 - self.padding[0]
+            x = pmesh.time_halo(x, h, h, ctx, dim=2)
+            padding = (self.padding[0] + h, self.padding[1])
         x, w, b = cast(self.compute_dtype, x, self.weight, self.bias)
-        return F.conv_transpose2d(x, w, b, self.stride, self.padding,
+        return F.conv_transpose2d(x, w, b, self.stride, padding,
                                   output_padding, self.groups, self.dilation)
 
 
@@ -69,12 +98,13 @@ class BatchNorm2d(nn.BatchNorm2d):
     (`reconvat_tpu/nn/unet.py:MaskedBatchNorm`): in training it normalizes
     with the biased batch variance and updates `running_var` with that
     biased variance too (torch's own layer updates it with the unbiased
-    one); momentum 0.1 on both sides. Inside a data-parallel step over
-    several ranks (`parallel.mesh.sharded_step`) the batch statistics are
-    the global batch's (`_global_batch`). `update_stats = False` (see
-    `frozen_batch_stats`) keeps the batch statistics but discards the
-    running-statistics update. Eval mode is `nn.BatchNorm2d`'s. A bf16
-    input is promoted to fp32 first, and the output is fp32."""
+    one); momentum 0.1 on both sides. Inside a sharded step over several
+    ranks (`parallel.mesh.sharded_step`) the batch statistics are the
+    global batch's over all dp x sp ranks (`_global_batch`).
+    `update_stats = False` (see `frozen_batch_stats`) keeps the batch
+    statistics but discards the running-statistics update. Eval mode is
+    `nn.BatchNorm2d`'s. A bf16 input is promoted to fp32 first, and the
+    output is fp32."""
 
     update_stats = True
 
@@ -159,9 +189,11 @@ class EncBlock(nn.Module):
                  ds_stride=2, compute_dtype=None):
         super().__init__()
         cd = dict(compute_dtype=compute_dtype)
-        self.conv1 = Conv2d(inp, out, ksize, padding=pad, **cd)
+        self.conv1 = Conv2d(inp, out, ksize, padding=pad, time_halo=True,
+                            **cd)
         self.bn1 = BatchNorm2d(out, eps=BATCHNORM_EPS)
-        self.conv2 = Conv2d(out, out, ksize, padding=pad, **cd)
+        self.conv2 = Conv2d(out, out, ksize, padding=pad, time_halo=True,
+                            **cd)
         self.bn2 = BatchNorm2d(out, eps=BATCHNORM_EPS)
         self.skip = Conv2d(inp, out, 1, **cd)
         self.ds = Conv2d(out, out, ds_ksize, stride=ds_stride, **cd)
@@ -182,9 +214,11 @@ class DBlock(nn.Module):
         cd = dict(compute_dtype=compute_dtype)
         mid = inp // 2
         self.is_last = is_last
-        self.conv2d = ConvTranspose2d(inp, mid, ksize, 1, pad, **cd)
+        self.conv2d = ConvTranspose2d(inp, mid, ksize, 1, pad,
+                                      time_halo=True, **cd)
         self.bn2d = BatchNorm2d(mid, eps=BATCHNORM_EPS)
-        self.conv1d = ConvTranspose2d(mid, out, ksize, 1, pad, **cd)
+        self.conv1d = ConvTranspose2d(mid, out, ksize, 1, pad,
+                                      time_halo=True, **cd)
         if is_last:
             us_ch = inp
         else:
@@ -213,9 +247,10 @@ class Encoder(nn.Module):
         self.block2 = EncBlock(16, 32, **kw)
         self.block3 = EncBlock(32, 64, **kw)
         self.block4 = EncBlock(64, 128, **kw)
-        self.conv1 = Conv2d(64, 64, 3, padding=1, **cd)
-        self.conv2 = Conv2d(32, 32, 3, padding=1, **cd)
-        self.conv3 = Conv2d(16, 16, 3, padding=1, **cd)
+        halo = dict(padding=1, time_halo=True, **cd)
+        self.conv1 = Conv2d(64, 64, 3, **halo)
+        self.conv2 = Conv2d(32, 32, 3, **halo)
+        self.conv3 = Conv2d(16, 16, 3, **halo)
 
     def forward(self, x):
         """x (B, 1, T, F) -> (bottleneck, pre-downsample sizes, skips)."""

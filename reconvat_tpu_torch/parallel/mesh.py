@@ -1,27 +1,37 @@
-"""Data-parallel device mesh (the port's counterpart of
-`reconvat_tpu/parallel/mesh.py`).
+"""Device mesh: data parallelism and sequence parallelism (the port's
+counterpart of `reconvat_tpu/parallel/mesh.py`).
 
 The JAX package lays a (dcn,) dp x sp mesh over its devices, shards the
 batch over dp and the time axis over sp, replicates the parameters and
-lets GSPMD insert the collectives. Here a mesh is dp processes, one rank
-per device (`parallel/distributed.py`), and the collectives are explicit:
+lets GSPMD insert the collectives. Here a mesh is dp x sp processes, one
+rank per device (`parallel/distributed.py`), rank `dp_index * sp +
+sp_index` as JAX's `reshape(dp, sp)` lays the devices out (an sp group is
+consecutive ranks), and the collectives are explicit:
 
 - `shard_batch`: each rank keeps its rows of the global batch (every rank
-  loads the same global batch from the same seeded loaders);
+  loads the same global batch from the same seeded loaders) and, along
+  the time axis of the label keys, its sp group's share of the frames;
+  audio stays whole per row, as the JAX package's `shard_batch` keeps it;
 - `replicate`: parameters, buffers and optimizer state broadcast from rank
   0;
-- inside a data-parallel step (`sharded_step`): train-mode BatchNorm takes
-  the global batch's moments (`global_moments`, a differentiable
-  all-reduce), every random draw of the step takes the global batch's
-  shape from the step's generator and keeps this rank's rows
-  (`draw_rows`), so that the step draws what the one-device step draws;
-  after the backward the gradients and the returned losses are
-  all-reduced to their means (`all_reduce_mean`).
+- inside a sharded step (`sharded_step`): train-mode BatchNorm takes the
+  global batch's moments over all dp x sp ranks (`global_moments`, a
+  differentiable all-reduce), every random draw of the step takes the
+  global batch's shape from the step's generator and keeps this rank's
+  rows and frames (`draw_rows`), so that the step draws what the
+  one-device step draws; under sp the models' `make_spec` keeps this
+  rank's frames (`sp_frames`) and each layer that reaches across frames
+  takes the neighbouring ranks' edge frames (`time_halo`: the U-Net's 3x3
+  convolutions one frame, the window-31 attention 15); after the backward
+  the gradients and the returned losses are all-reduced to their means
+  over all ranks (`all_reduce_mean`).
 
 Averaging per-rank means gives the global mean because every rank holds
-the same number of rows (the loaders' crops are equal in length; a loss
-divided by a mask's sum would need the counts reduced too, and no
-training loss is). Sequence parallelism (`sp > 1`) is not ported.
+the same number of rows and frames (the loaders' crops are equal in
+length; a loss divided by a mask's sum would need the counts reduced too,
+and no training loss is). Collectives use only what both gloo and NCCL
+take on CUDA tensors, all-reduce and broadcast: a halo is a zero-stack
+all-reduce over the sp group, as the BatchNorm moments are over all ranks.
 `spec_constraint`, GSPMD's placement hint, has no counterpart.
 """
 from __future__ import annotations
@@ -36,42 +46,82 @@ import torch.distributed as dist
 from . import distributed
 
 BATCH_KEYS = ("audio", "onset", "offset", "frame", "velocity")
-SP_ITEM = "ROADMAP §1 item 3.3, sequence parallelism"
-STREAM_ITEM = "ROADMAP §1 item 3.2, streaming over devices"
+LABEL_KEYS = ("onset", "offset", "frame", "velocity")   # (B, T, ...)
+SP_FAMILY_ITEM = ("ROADMAP §1 item 3.4, sequence parallelism in the "
+                  "families other than the flagship and UNetOnset")
+# the U-Net's total stride: the frames of each sp rank must be a multiple
+SP_FRAME_MULTIPLE = 16
 
 _ACTIVE = None          # the MeshContext of `activate`
 _STEP = None            # the MeshContext of the step in progress
 
 
-def refuse_sp(sp: int) -> None:
+def refuse_sp(sp: int, what: str) -> None:
+    """Raise NotImplementedError for `mesh_sp` > 1 in `what` (a model
+    family or CLI whose layers take no halo)."""
     if sp > 1:
         raise NotImplementedError(
-            f"mesh_sp={sp}: sequence parallelism (the time axis over ranks, "
-            f"with the 15-frame attention halo and the convolutions' halos "
-            f"exchanged) is not ported ({SP_ITEM})")
+            f"mesh_sp={sp}: sequence parallelism is ported for the flagship "
+            f"ReconVAT and UNetOnset only; {what} would need its own halos "
+            f"({SP_FAMILY_ITEM})")
+
+
+def check_sp_frames(frames: int, sp: int) -> None:
+    """Raise ValueError unless `frames` split over `sp` ranks into equal
+    shares that are multiples of SP_FRAME_MULTIPLE (the U-Net's total
+    stride, which keeps each rank's strided grids anchored like the whole
+    clip's)."""
+    if sp > 1 and (frames % sp or (frames // sp) % SP_FRAME_MULTIPLE):
+        raise ValueError(
+            f"{frames} frames do not split over mesh_sp={sp} ranks into "
+            f"multiples of {SP_FRAME_MULTIPLE} frames (the U-Net's total "
+            f"stride): adjust sequence_length or mesh_sp")
 
 
 @dataclasses.dataclass(frozen=True)
 class MeshContext:
-    """The data-parallel mesh as this rank sees it: its rank, the number
-    of ranks (each holds a shard of the batch) and its device."""
+    """The dp x sp mesh as this rank sees it: its rank, the number of
+    ranks, its device, the sp ranks of a row group (`sp`; rank = dp_rank *
+    sp + sp_rank) and the process group of this rank's sp group (None when
+    sp is 1 or the sp group is the whole world)."""
     rank: int
     world: int
     device: torch.device
+    sp: int = 1
+    sp_group: object = dataclasses.field(default=None, compare=False)
+
+    @property
+    def dp(self) -> int:
+        return self.world // self.sp
+
+    @property
+    def dp_rank(self) -> int:
+        return self.rank // self.sp
+
+    @property
+    def sp_rank(self) -> int:
+        return self.rank % self.sp
 
 
 def make_mesh(dp: int | None = None, sp: int = 1,
               device=None) -> MeshContext:
     """This rank's view of a dp x sp mesh over the process group (dp: the
-    group's size by default; sp > 1 is not ported) on `device`
-    (`distributed.initialize`'s by default)."""
-    refuse_sp(sp)
+    group's size over sp by default) on `device` (`distributed.
+    initialize`'s by default). Under sp every rank creates every sp group
+    (consecutive ranks), in the same order, as `dist.new_group` asks."""
     world = distributed.world_size()
-    if dp not in (None, world):
-        raise ValueError(f"a mesh of dp={dp} needs that many ranks; the "
-                         f"process group has {world}")
+    sp = max(int(sp or 1), 1)
+    if world % sp or dp not in (None, world // sp):
+        raise ValueError(f"a mesh of dp={dp} x sp={sp} does not fit the "
+                         f"process group's {world} ranks")
+    group = None
+    if 1 < sp < world:
+        for d in range(world // sp):
+            g = dist.new_group(list(range(d * sp, (d + 1) * sp)))
+            if d == distributed.rank() // sp:
+                group = g
     return MeshContext(distributed.rank(), world, torch.device(
-        device if device is not None else distributed.device()))
+        device if device is not None else distributed.device()), sp, group)
 
 
 @contextlib.contextmanager
@@ -91,9 +141,10 @@ def active() -> MeshContext | None:
 
 @contextlib.contextmanager
 def sharded_step(ctx: MeshContext | None):
-    """Inside, the batches are this rank's rows of the global batch: see
-    `step_context`. A module global, not a thread's: the autograd engine
-    runs a recomputed forward (`RECONVAT_VAT_REMAT`) on its own thread."""
+    """Inside, the batches are this rank's rows (and, under sp, frames) of
+    the global batch: see `step_context`. A module global, not a thread's:
+    the autograd engine runs a recomputed forward (`RECONVAT_VAT_REMAT`)
+    on its own thread."""
     global _STEP
     prev = _STEP
     _STEP = ctx
@@ -104,31 +155,60 @@ def sharded_step(ctx: MeshContext | None):
 
 
 def step_context() -> MeshContext | None:
-    """The mesh of the data-parallel step in progress over more than one
-    rank, else None."""
+    """The mesh of the sharded step in progress over more than one rank,
+    else None."""
     return _STEP if _STEP is not None and _STEP.world > 1 else None
+
+
+def sp_context() -> MeshContext | None:
+    """The mesh of the sharded step in progress when it splits the time
+    axis (sp > 1), else None."""
+    ctx = step_context()
+    return ctx if ctx is not None and ctx.sp > 1 else None
+
+
+def _time_share(n: int, ctx: MeshContext) -> slice:
+    if n % ctx.sp:
+        raise ValueError(f"{n} frames do not divide over {ctx.sp} sp ranks")
+    per = n // ctx.sp
+    return slice(ctx.sp_rank * per, (ctx.sp_rank + 1) * per)
+
+
+def sp_frames(x: torch.Tensor, ctx: MeshContext | None,
+              dim: int = 1) -> torch.Tensor:
+    """This rank's share of the frames (axis `dim`) of a whole clip's
+    tensor; x itself without sp."""
+    if ctx is None or ctx.sp == 1:
+        return x
+    return x.narrow(dim, _time_share(x.shape[dim], ctx).start,
+                    x.shape[dim] // ctx.sp)
 
 
 def batch_rows(batch: dict, ctx: MeshContext) -> dict:
     """This rank's rows of each array of `batch` (numpy or torch, on the
-    host or not); label keys split along the batch only. Other keys
-    (paths, crop offsets) pass through."""
+    host or not): every key's rows split over dp; the label keys' frames
+    (axis 1) also over sp, the audio whole per row. Other keys (paths,
+    crop offsets) pass through."""
     out = dict(batch)
     for k in BATCH_KEYS:
         if k not in batch:
             continue
         v = batch[k]
         n = v.shape[0]
-        if n % ctx.world:
+        if n % ctx.dp:
             raise ValueError(f"a batch of {n} rows does not divide over "
-                             f"{ctx.world} ranks")
-        per = n // ctx.world
-        out[k] = v[ctx.rank * per:(ctx.rank + 1) * per]
+                             f"{ctx.dp} data-parallel ranks")
+        per = n // ctx.dp
+        v = v[ctx.dp_rank * per:(ctx.dp_rank + 1) * per]
+        if k in LABEL_KEYS and ctx.sp > 1:
+            v = v[:, _time_share(v.shape[1], ctx)]
+        out[k] = v
     return out
 
 
 def shard_batch(batch: dict, ctx: MeshContext) -> dict:
-    """This rank's rows of the global batch, as tensors on its device."""
+    """This rank's share of the global batch (`batch_rows`), as tensors on
+    its device."""
     out = batch_rows(batch, ctx)
     for k in BATCH_KEYS:
         if k in out:
@@ -208,39 +288,110 @@ class _AllReduceSum(torch.autograd.Function):
         return _AllReduceSum.apply(grad)
 
 
+def _zero_stack(local: torch.Tensor, index: int, n: int) -> torch.Tensor:
+    """`local` in row `index` of an (n, ...) stack of zeros."""
+    rest = local.shape
+    return torch.cat([local.new_zeros((index,) + rest), local[None],
+                      local.new_zeros((n - index - 1,) + rest)])
+
+
 def global_moments(mean: torch.Tensor, var: torch.Tensor,
                    ctx: MeshContext):
     """The global batch's per-channel mean and biased variance from each
-    rank's own (over equal counts), differentiably. Each rank puts its
-    (mean, var) in its row of a zero (world, 2, C) stack and one all-reduce
-    sums the stacks: a sum with zeros is exact, so every rank holds the
-    same rows bit for bit and combines them in the same order, by Chan's
-    formula (the variance is the mean of the ranks' variances plus the
-    variance of their means, with no E[x^2] - E[x]^2 cancellation)."""
-    local = torch.stack([mean, var])[None]
-    rows = torch.cat([local.new_zeros((ctx.rank,) + local.shape[1:]), local,
-                      local.new_zeros((ctx.world - ctx.rank - 1,)
-                                      + local.shape[1:])])
-    rows = _AllReduceSum.apply(rows)
+    rank's own (over equal counts, all dp x sp ranks), differentiably.
+    Each rank puts its (mean, var) in its row of a zero (world, 2, C)
+    stack and one all-reduce sums the stacks: a sum with zeros is exact,
+    so every rank holds the same rows bit for bit and combines them in the
+    same order, by Chan's formula (the variance is the mean of the ranks'
+    variances plus the variance of their means, with no E[x^2] - E[x]^2
+    cancellation)."""
+    rows = _AllReduceSum.apply(
+        _zero_stack(torch.stack([mean, var]), ctx.rank, ctx.world))
     means, variances = rows[:, 0], rows[:, 1]
     mean_g = means.mean(0)
     return mean_g, variances.mean(0) + (means - mean_g).square().mean(0)
 
 
+def time_halo(x: torch.Tensor, before: int, after: int,
+              ctx: MeshContext | None, dim: int = 1) -> torch.Tensor:
+    """x (this rank's frames on axis `dim`) with `before` frames of the
+    previous sp rank in front and `after` frames of the next one behind,
+    zeros at the clip's ends: the slice of the whole clip zero-padded by
+    (before, after) that this rank's frames need, differentiably (the
+    halo rows' gradients go back to the ranks that own them and are added
+    there). One zero-stack all-reduce over the sp group each way (a
+    `halo_exchange` profiler span): each rank writes its last `before`
+    and first `after` frames into its row of an (sp, before + after, ...)
+    stack. `ctx` None (no sequence-parallel step, `sp_context`): x
+    zero-padded by (before, after)."""
+    if ctx is None:
+        pad = [0, 0] * (x.dim() - dim - 1) + [before, after]
+        return torch.nn.functional.pad(x, pad)
+    if x.shape[dim] < max(before, after):
+        raise ValueError(f"a halo of {max(before, after)} frames is longer "
+                         f"than the {x.shape[dim]} frames of a rank")
+    return _TimeHalo.apply(x, before, after, ctx, dim)
+
+
+class _TimeHalo(torch.autograd.Function):
+
+    @staticmethod
+    def forward(fctx, x, before, after, ctx, dim):
+        fctx.args = (before, after, ctx, dim)
+        n, i, t = ctx.sp, ctx.sp_rank, x.shape[dim]
+        edges = torch.cat([x.narrow(dim, t - before, before),
+                           x.narrow(dim, 0, after)], dim)
+        rows = _exchange(_zero_stack(edges, i, n), ctx)
+        head = (rows[i - 1].narrow(dim, 0, before) if i > 0
+                else torch.zeros_like(edges.narrow(dim, 0, before)))
+        tail = (rows[i + 1].narrow(dim, before, after) if i < n - 1
+                else torch.zeros_like(edges.narrow(dim, before, after)))
+        return torch.cat([head, x, tail], dim)
+
+    @staticmethod
+    def backward(fctx, grad):
+        before, after, ctx, dim = fctx.args
+        n, i = ctx.sp, ctx.sp_rank
+        t = grad.shape[dim] - before - after
+        rows = _exchange(_zero_stack(torch.cat(
+            [grad.narrow(dim, 0, before), grad.narrow(dim, before + t, after)],
+            dim), i, n), ctx)
+        dx = grad.narrow(dim, before, t).clone(
+            memory_format=torch.contiguous_format)
+        if i < n - 1:        # the next rank's halo in front: my last frames
+            dx.narrow(dim, t - before, before).add_(
+                rows[i + 1].narrow(dim, 0, before))
+        if i > 0:            # the previous rank's halo behind: my first
+            dx.narrow(dim, 0, after).add_(rows[i - 1].narrow(dim, before,
+                                                             after))
+        return dx, None, None, None, None
+
+
+def _exchange(stack: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
+    """The sum of every sp rank's zero stack (exact: one row each)."""
+    wide = stack.dtype in (torch.bfloat16, torch.float16)
+    y = stack.float() if wide else stack.contiguous()
+    with torch.profiler.record_function("halo_exchange"):
+        dist.all_reduce(y, group=ctx.sp_group)
+    return y.to(stack.dtype) if wide else y
+
+
 def draw_rows(draw, shape, split: int | None = None) -> torch.Tensor:
-    """`draw(shape)` (a seeded random tensor); inside a data-parallel step,
-    `draw` of the global batch's shape, of which this rank keeps its rows,
-    so each rank gets the rows the one-device step draws for them. With
-    `split` the batch is two stacked parts, [:split] and [split:], each
-    sharded over the ranks (VAT's batched chain), and the global draw is
-    the two global parts stacked."""
+    """`draw(shape)` (a seeded random tensor); inside a sharded step,
+    `draw` of the global batch's shape, of which this rank keeps its rows
+    and, under sp, its frames (axis 1, as in every (B, T, ...) draw of a
+    model that takes sp), so each rank gets what the one-device step draws
+    for them. With `split` the batch is two stacked parts, [:split] and
+    [split:], each sharded over the dp ranks (VAT's batched chain), and
+    the global draw is the two global parts stacked."""
     ctx = step_context()
     if ctx is None:
         return draw(tuple(shape))
     parts = [shape[0]] if split is None else [split, shape[0] - split]
-    full = draw((sum(parts) * ctx.world,) + tuple(shape[1:]))
+    full = draw((sum(parts) * ctx.dp, shape[1] * ctx.sp) + tuple(shape[2:]))
     rows, start = [], 0
     for n in parts:
-        rows.append(full[start + ctx.rank * n:start + (ctx.rank + 1) * n])
-        start += n * ctx.world
-    return torch.cat(rows) if len(rows) > 1 else rows[0]
+        rows.append(full[start + ctx.dp_rank * n:
+                         start + (ctx.dp_rank + 1) * n])
+        start += n * ctx.dp
+    return sp_frames(torch.cat(rows) if len(rows) > 1 else rows[0], ctx)

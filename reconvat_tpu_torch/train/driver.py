@@ -23,6 +23,7 @@ from ..data.loader import (DataLoader, MappedLoader, cycle, device_batch,
 from ..evaluate import (evaluate_wo_velocity, make_bucketed_runner,
                         print_metrics)
 from ..models.base import resolve_device
+from ..models.common import frames_in
 from ..parallel import distributed, launch
 from ..parallel import mesh as pmesh
 from ..utils import summary
@@ -34,13 +35,21 @@ from .prepare import prepare_VAT_dataset
 from .state import create_train_state, make_eval_step, make_train_step
 
 
+def mesh_sp(cfg) -> int:
+    """The config's sp ranks per row group (`mesh_sp` 0 or 1: one)."""
+    sp = int(cfg.get("mesh_sp") or 0)
+    if sp < 0:
+        raise ValueError(f"mesh_sp={sp}: 0 or 1 for none, N for N ranks")
+    return max(sp, 1)
+
+
 def mesh_world(cfg) -> int:
-    """The number of ranks the config asks for: `mesh_dp` 0 or 1 one,
-    N > 1 N, -1 every visible GPU; `multihost=True` the launcher's
-    `WORLD_SIZE` (required). `mesh_sp` > 1 raises (not ported). Raises
+    """The number of ranks the config asks for, dp x sp: `mesh_dp` 0 or 1
+    one row group, N > 1 N, -1 every visible GPU over `mesh_sp`;
+    `multihost=True` the launcher's `WORLD_SIZE` (required). Raises
     ValueError for a setting that cannot run, before any work."""
     dp = int(cfg.get("mesh_dp") or 0)
-    pmesh.refuse_sp(int(cfg.get("mesh_sp") or 0))
+    sp = mesh_sp(cfg)
     launched = distributed.launcher_env()
     if cfg.get("multihost", False):
         if not launched:
@@ -49,9 +58,10 @@ def mesh_world(cfg) -> int:
                 f"({', '.join(distributed.LAUNCH_ENV)}, as torchrun sets "
                 f"it) on every host")
         world = int(os.environ["WORLD_SIZE"])
-        if dp not in (0, 1, -1, world):
-            raise ValueError(f"mesh_dp={dp} under multihost: each process "
-                             f"holds one device, {world} ranks in all")
+        if world % sp or dp not in (0, 1, -1, world // sp):
+            raise ValueError(f"mesh_dp={dp} x mesh_sp={sp} under multihost: "
+                             f"each process holds one device, {world} "
+                             f"ranks in all")
         return world
     if dp < -1:
         raise ValueError(f"mesh_dp={dp}: 0 or 1 for one device, N for N "
@@ -60,36 +70,46 @@ def mesh_world(cfg) -> int:
         if torch.device(cfg.get("device", "cuda")).type != "cuda":
             raise ValueError("mesh_dp=-1 takes every visible GPU; on the "
                              "CPU give the number of ranks")
-        dp = torch.cuda.device_count() if torch.cuda.is_available() else 1
-    dp = max(dp, 1)
-    if launched and dp > 1 and int(os.environ["WORLD_SIZE"]) != dp:
-        raise ValueError(f"mesh_dp={dp} under a launcher of "
+        cards = torch.cuda.device_count() if torch.cuda.is_available() else 1
+        if cards % sp:
+            raise ValueError(f"mesh_dp=-1 with mesh_sp={sp}: {cards} "
+                             f"visible GPUs do not divide over {sp}")
+        dp = cards // sp
+    world = max(dp, 1) * sp
+    if launched and world > 1 and int(os.environ["WORLD_SIZE"]) != world:
+        raise ValueError(f"mesh_dp={dp} x mesh_sp={sp} under a launcher of "
                          f"{os.environ['WORLD_SIZE']} ranks")
-    return dp
+    return world
 
 
 def check_mesh(cfg) -> int:
-    """`mesh_world` and the JAX driver's divisibility check: each sharded
-    loader's batch (the labeled `train_batch_size`, and with VAT the
-    unlabeled `batch_size`) must divide over the ranks. Returns the
-    number of ranks."""
+    """`mesh_world` and the JAX driver's divisibility checks
+    (`reconvat_tpu/train/driver.py:111-114`): each sharded loader's batch
+    (the labeled `train_batch_size`, and with VAT the unlabeled
+    `batch_size`) must divide over the dp ranks, and a crop's frames over
+    the sp ranks into multiples of 16 (`parallel.mesh.check_sp_frames`).
+    Returns the number of ranks."""
     world = mesh_world(cfg)
+    sp = mesh_sp(cfg)
+    dp = world // sp
     sizes = {"train_batch_size": cfg.get("train_batch_size",
                                          cfg.get("batch_size"))}
     if cfg.get("VAT", False):
         sizes["batch_size"] = cfg.get("batch_size")
     for key, size in sizes.items():
-        if size is not None and int(size) % world:
+        if size is not None and int(size) % dp:
             raise ValueError(
-                f"global batch ({key}={size}) must divide over {world} "
-                f"ranks (mesh_dp): adjust the batch size or mesh_dp")
+                f"global batch ({key}={size}) must divide over {dp} "
+                f"data-parallel ranks (mesh_dp): adjust the batch size or "
+                f"mesh_dp")
+    if sp > 1:
+        pmesh.check_sp_frames(frames_in(int(cfg["sequence_length"])), sp)
     return world
 
 
 def build_mesh(cfg, device=None):
-    """This rank's view of the config's data-parallel mesh over the
-    started process group (`start_ranks`) on `device`, or None for one
-    device."""
+    """This rank's view of the config's dp x sp mesh over the started
+    process group (`start_ranks`) on `device`, or None for one device."""
     world = mesh_world(cfg)
     if world == 1:
         return None
@@ -99,7 +119,7 @@ def build_mesh(cfg, device=None):
             f"{distributed.world_size()}: run through a training CLI (which "
             f"starts them) or start the group first "
             f"(parallel.distributed.initialize)")
-    return pmesh.make_mesh(world, device=device)
+    return pmesh.make_mesh(sp=mesh_sp(cfg), device=device)
 
 
 def start_ranks(cfg, main_fn, overrides):
@@ -130,14 +150,18 @@ def check_spec(spec: str) -> None:
         raise ValueError(f"unknown spectrogram type: {spec}")
 
 
-def check_settings(cfg):
-    """Raise for the settings the training CLIs of the port do not run:
-    sequence parallelism and a mesh that cannot run (`check_mesh`), the
-    folded U-Net layout, the plain attention, the CFP frontend
-    (`check_spec`), and CUDA without a card. `attn_impl` and
+def check_settings(cfg, model):
+    """Raise for the settings the training CLIs of the port do not run: a
+    mesh that cannot run (`check_mesh`), sequence parallelism (`mesh_sp` >
+    1) for a `model` class (the one the CLI trains) whose layers take no
+    halo (`SEQUENCE_PARALLEL` False: every family but the flagship and
+    UNetOnset), the folded U-Net layout, the plain attention, the CFP
+    frontend (`check_spec`), and CUDA without a card. `attn_impl` and
     `conv_layout` are read where a CLI has them (the baselines' have
     neither). The CLIs' `Experiment` runs it before the observers write
     the run directory."""
+    if not model.SEQUENCE_PARALLEL:
+        pmesh.refuse_sp(mesh_sp(cfg), model.__name__)
     check_mesh(cfg)
     check_spec(cfg["spec"])
     attn_impl = cfg.get("attn_impl", "auto")
@@ -166,16 +190,18 @@ def run_training(model, cfg, datasets=None):
     (model, train state, metrics). `donate` is taken and has no effect
     (the updates are in place).
 
-    With `mesh_dp` N > 1 (or `multihost`) the whole run is data-parallel
-    over the N ranks of the process group (`start_ranks`), each on its own
-    device or sharing one: every rank runs the same seeded loaders and
-    keeps its rows of each global batch (`parallel.mesh.shard_batch`), the
-    parameters and optimizer state start as rank 0's
-    (`parallel.mesh.replicate`), each step is a data-parallel step
+    With `mesh_dp` x `mesh_sp` N > 1 (or `multihost`) the whole run is
+    sharded over the N ranks of the process group (`start_ranks`), each on
+    its own device or sharing one: every rank runs the same seeded loaders
+    and keeps its rows of each global batch and, under sp, its frames of
+    the labels (`parallel.mesh.shard_batch`; the audio stays whole per
+    row), the parameters and optimizer state start as rank 0's
+    (`parallel.mesh.replicate`), each step is a sharded step
     (`train.state.make_train_step`), and rank 0 alone writes the
-    artifacts. Every rank runs the same logging passes and the same final
-    evaluation (eval mode runs no collective), as the JAX package's hosts
-    do."""
+    artifacts. The logging passes and the full-song evaluation run whole,
+    unsharded, on every rank (eval mode runs no collective; the logging
+    passes' batches and the evaluation's songs are not split), as the JAX
+    package's hosts run the same computations."""
     ctx = build_mesh(cfg, model.device)
     if ctx is None:
         return _run_training(model, cfg, datasets, None)

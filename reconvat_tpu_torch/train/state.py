@@ -87,16 +87,17 @@ def make_train_step(model, alpha: float, vat: bool, use_unlabeled: bool,
     losses are detached device scalars, with "loss/total" (every loss,
     LDS terms at alpha 1) beside the reference's keys.
 
-    Under an active data-parallel mesh (`parallel.mesh.activate`) the
-    batches are this rank's rows of the global batch: the step runs as a
-    `sharded_step` (global BatchNorm moments, the global batch's random
-    draws), all-reduces the gradients to their mean after the backward and
-    before the clipping (one flat buffer per dtype, in the parameters'
-    order, a `gradient_all_reduce` profiler span), and returns the losses'
-    means over the ranks. `run_on_batch` runs the transcriber several
-    times a step and VAT differentiates with respect to its input inside
-    it, so the gradients are reduced here, once, instead of by
-    `DistributedDataParallel`'s reducer."""
+    Under an active mesh (`parallel.mesh.activate`) the batches are this
+    rank's rows of the global batch (and, under sp, its frames of them):
+    the step runs as a `sharded_step` (global BatchNorm moments, the
+    global batch's random draws, the halos of sequence parallelism),
+    all-reduces the gradients to their mean over all dp x sp ranks after
+    the backward and before the clipping (one flat buffer per dtype, in
+    the parameters' order, a `gradient_all_reduce` profiler span), and
+    returns the losses' means over the ranks. `run_on_batch` runs the
+    transcriber several times a step and VAT differentiates with respect
+    to its input inside it, so the gradients are reduced here, once,
+    instead of by `DistributedDataParallel`'s reducer."""
 
     run = (model.run_on_batch_application if application
            else model.run_on_batch)

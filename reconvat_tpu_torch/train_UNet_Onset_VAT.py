@@ -6,19 +6,25 @@
 
 Runs on CUDA unless `device=cpu`; without a card it raises before any
 work. The settings are checked as in `train_UNet_VAT` (`train.driver.
-check_settings`): `mesh_sp` > 1, `conv_layout='folded'`,
-`attn_impl='xla'` and the CFP frontend raise before the run directory is
-written; `with mesh_dp=N` trains data-parallel on N ranks.
+check_settings`): `conv_layout='folded'`, `attn_impl='xla'`, the
+CFP frontend and a crop whose frames do not split over `mesh_sp` into
+multiples of 16 raise before the run directory is written; `with
+mesh_dp=N mesh_sp=S` trains on N x S ranks, the batch over N, each crop's
+frames over S.
 Writes its run directory under `root`: `config.json`, `run.json`,
 `_sources/`, the TensorBoard event file, `model-N` checkpoints,
 `MIDI_results/` and `result_dict`.
 """
 from datetime import datetime
+from functools import partial
 
 from .config import Experiment, FileStorageObserver, print_config
+from .models.unet_onset import UNetOnset
 from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings, launch=start_ranks)
+ex = Experiment("train_original",
+                check=partial(check_settings, model=UNetOnset),
+                launch=start_ranks)
 
 ds_ksize, ds_stride = (2, 2), (2, 2)
 mode = "imagewise"
@@ -65,9 +71,9 @@ def config():
     compute_dtype = 'bfloat16'  # fp32 params/BN/heads; None = full fp32
     attn_impl = 'auto'  # 'auto'|'pallas': the kernels ('xla' is refused)
     conv_layout = 'auto'  # 'auto'|'nhwc' ('folded' is TPU-only)
-    # data parallelism over mesh_dp ranks (-1: every visible GPU),
-    # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises
+    # mesh_dp x mesh_sp ranks (mesh_dp -1: every visible GPU over mesh_sp),
+    # started from this command (train/driver.run_training): the batch over
+    # dp, each crop's frames over sp (multiples of 16 frames a rank)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False
@@ -90,7 +96,6 @@ def train(device, log, reconstruction, spec, XI, eps, KL_Div, compute_dtype,
           vat_chain, seed, **_ignored):
     cfg = ex.current_run.config
     print_config(ex.current_run)
-    from .models.unet_onset import UNetOnset
     from .train.driver import run_training
 
     model = UNetOnset(log=log, reconstruction=reconstruction, mode=mode,

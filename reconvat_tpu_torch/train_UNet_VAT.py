@@ -9,19 +9,25 @@ work. On the card the model runs the port's kernels (`attn_impl` 'auto' or
 'pallas'); 'xla', the plain attention, is refused there and here alike.
 `with mesh_dp=N` trains data-parallel on N ranks (one per GPU, or
 sharing one; gloo ranks with `device=cpu`), started from this command, or
-joins a launcher's group (`multihost=True`). `mesh_sp` > 1 (sequence
-parallelism) and `conv_layout='folded'` raise,
+joins a launcher's group (`multihost=True`); `mesh_sp=S` splits each
+crop's frames over S ranks more (sequence parallelism, mesh_dp x mesh_sp
+ranks in all; the frames must split into multiples of 16).
+`conv_layout='folded'` raises,
 `donate` has no effect (the updates are in place). Writes its run
 directory under `root`: `config.json`, `run.json`, `_sources/`, the
 TensorBoard event file, `model-N` checkpoints, `MIDI_results/` and
 `result_dict`.
 """
 from datetime import datetime
+from functools import partial
 
 from .config import Experiment, FileStorageObserver, print_config
+from .models.reconvat import ReconVAT
 from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings, launch=start_ranks)
+ex = Experiment("train_original",
+                check=partial(check_settings, model=ReconVAT),
+                launch=start_ranks)
 
 ds_ksize, ds_stride = (2, 2), (2, 2)
 mode = "imagewise"
@@ -68,9 +74,9 @@ def config():
     compute_dtype = 'bfloat16'  # fp32 params/BN/heads; None = full fp32
     attn_impl = 'auto'  # 'auto'|'pallas': the kernels ('xla' is refused)
     conv_layout = 'auto'  # 'auto'|'nhwc' ('folded' is TPU-only)
-    # data parallelism over mesh_dp ranks (-1: every visible GPU),
-    # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises
+    # mesh_dp x mesh_sp ranks (mesh_dp -1: every visible GPU over mesh_sp),
+    # started from this command (train/driver.run_training): the batch over
+    # dp, each crop's frames over sp (multiples of 16 frames a rank)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False
@@ -93,7 +99,6 @@ def train(device, log, reconstruction, spec, XI, eps, KL_Div, compute_dtype,
           vat_chain, seed, **_ignored):
     cfg = ex.current_run.config
     print_config(ex.current_run)
-    from .models.reconvat import ReconVAT
     from .train.driver import run_training
 
     model = ReconVAT(log=log, reconstruction=reconstruction, mode=mode,

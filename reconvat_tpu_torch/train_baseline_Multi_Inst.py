@@ -13,11 +13,15 @@ trains data-parallel on N ranks. Writes its run directory under
 `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
+from functools import partial
 
 from .config import Experiment, FileStorageObserver, print_config
+from .models.segmentation import SemanticSegmentation
 from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings, launch=start_ranks)
+ex = Experiment("train_original",
+                check=partial(check_settings, model=SemanticSegmentation),
+                launch=start_ranks)
 
 mode = "imagewise"
 logging_freq = 100
@@ -65,7 +69,7 @@ def config():
     conv_layout = 'auto'   # 'auto' or 'nhwc'; 'folded' (TPU) raises
     # data parallelism over mesh_dp ranks (-1: every visible GPU),
     # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises
+    # sequence parallelism, raises (ROADMAP §1 item 3.4)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False
@@ -82,7 +86,6 @@ def config():
 def train(spec, device, log, XI, eps, KL_Div, out_class, compute_dtype,
           conv_layout, seed, **_ignored):
     print_config(ex.current_run)
-    from .models.segmentation import SemanticSegmentation
     from .train.driver import run_training
 
     model = SemanticSegmentation(out_class=out_class, log=log, mode=mode,

@@ -11,11 +11,15 @@ trains data-parallel on N ranks. Writes its run
 directory under `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
+from functools import partial
 
 from .config import Experiment, FileStorageObserver, print_config
+from .models.thickstun import Thickstun
 from .train.driver import check_settings, start_ranks
 
-ex = Experiment("train_original", check=check_settings, launch=start_ranks)
+ex = Experiment("train_original",
+                check=partial(check_settings, model=Thickstun),
+                launch=start_ranks)
 
 mode = "imagewise"
 logging_freq = 100
@@ -64,7 +68,7 @@ def config():
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
     # data parallelism over mesh_dp ranks (-1: every visible GPU),
     # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises
+    # sequence parallelism, raises (ROADMAP §1 item 3.4)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False
@@ -79,7 +83,6 @@ def config():
 @ex.automain
 def train(device, log, spec, compute_dtype, seed, **_ignored):
     print_config(ex.current_run)
-    from .models.thickstun import Thickstun
     from .train.driver import run_training
 
     model = Thickstun(log=log, mode=mode, spec=spec, seed=seed,

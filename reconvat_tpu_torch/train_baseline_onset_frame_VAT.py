@@ -17,17 +17,20 @@ directory under `root` as `train_UNet_VAT` does.
 from datetime import datetime
 
 from .config import Experiment, FileStorageObserver, print_config
+from .models.onsets_frames import (FrameStackVAT, OnsetsAndFrames,
+                                   OnsetStackVAT)
 from .train.driver import check_settings, start_ranks
 
-MODEL_NAMES = ("onset_frame", "frame", "onset")
+MODELS = {"onset_frame": OnsetsAndFrames, "frame": FrameStackVAT,
+          "onset": OnsetStackVAT}
 
 
 def check(cfg):
-    if cfg["model_name"] not in MODEL_NAMES:
+    if cfg["model_name"] not in MODELS:
         raise ValueError(f"unsupported model_name {cfg['model_name']!r} "
                          f"(the reference's 'attention' branch references "
-                         f"an undefined class); one of {MODEL_NAMES}")
-    check_settings(cfg)
+                         f"an undefined class); one of {tuple(MODELS)}")
+    check_settings(cfg, MODELS[cfg["model_name"]])
 
 
 ex = Experiment("train_original", check=check, launch=start_ranks)
@@ -77,7 +80,7 @@ def config():
     compute_dtype = None   # 'bfloat16' = mixed-precision conv trunks
     # data parallelism over mesh_dp ranks (-1: every visible GPU),
     # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises
+    # sequence parallelism, raises (ROADMAP §1 item 3.4)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False
@@ -92,17 +95,12 @@ def config():
 def train(device, log, spec, model_name, model_complexity, XI, eps,
           VAT_mode, compute_dtype, seed, **_ignored):
     print_config(ex.current_run)
-    from .models.onsets_frames import (FrameStackVAT, OnsetsAndFrames,
-                                       OnsetStackVAT)
     from .train.driver import run_training
 
     kwargs = dict(model_complexity=model_complexity, log=log, mode=mode,
                   spec=spec, xi=XI, eps=eps, seed=seed, device=device,
                   compute_dtype=compute_dtype)
-    if model_name == "onset_frame":
-        model = OnsetsAndFrames(**kwargs)
-    elif model_name == "frame":
-        model = FrameStackVAT(vat_mode=VAT_mode, **kwargs)
-    else:
-        model = OnsetStackVAT(vat_mode=VAT_mode, **kwargs)
+    if model_name != "onset_frame":
+        kwargs["vat_mode"] = VAT_mode
+    model = MODELS[model_name](**kwargs)
     return run_training(model, ex.current_run.config)

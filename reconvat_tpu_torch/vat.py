@@ -81,8 +81,12 @@ def vat_loss(apply_fn: Callable, x, generator, cfg: VATConfig, init_d=None,
     apply_fn uses; the adversarial direction is detached. d is drawn from
     `generator` (on x's device) unless `init_d` gives it. y_ref: the clean
     prediction, when the caller already has it; it is detached either way.
-    Inside a data-parallel step d is this rank's rows of the global batch's
-    draw (`parallel.mesh.draw_rows`).
+    Inside a sharded step d is this rank's rows (and, under sequence
+    parallelism, frames: x's axis 1) of the global batch's draw
+    (`parallel.mesh.draw_rows`). Every collective of the layers (halos,
+    BatchNorm moments) runs inside `apply_fn`'s forward and backward, so
+    the power iteration's `torch.autograd.grad` and a recompute under
+    `RECONVAT_VAT_REMAT` issue them in the same order on every rank.
     split: x is two chains stacked on the batch axis (`[:split]` and
     `[split:]`), and the loss is the pair of their objectives."""
 

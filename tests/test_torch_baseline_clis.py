@@ -272,7 +272,7 @@ def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
     with pytest.raises(ValueError, match="attention"):
         of_cli.ex.run(of_cli.train, {"root": str(tmp_path), "device": "cpu",
                                      "model_name": "attention"})
-    with pytest.raises(NotImplementedError, match="item 3.3"):
+    with pytest.raises(NotImplementedError, match="item 3.4"):
         thickstun_cli.ex.run(thickstun_cli.train, {
             "root": str(tmp_path), "device": "cpu", "mesh_sp": 2})
     with pytest.raises(ValueError, match="T - 2"):
@@ -287,11 +287,13 @@ def test_clis_refuse_before_any_work(tmp_path, monkeypatch):
         prestack_cli.ex.run(prestack_cli.train, {"root": str(tmp_path)})
     assert os.listdir(tmp_path) == []
 
-    driver.check_settings({"spec": "Mel", "device": "cpu"})
-    driver.check_settings({"spec": "CQT", "device": "cpu"})
+    model = thickstun_cli.Thickstun
+    driver.check_settings({"spec": "Mel", "device": "cpu"}, model)
+    driver.check_settings({"spec": "CQT", "device": "cpu"}, model)
     for extra, error in (({"attn_impl": "xla"}, ValueError),
                          ({"attn_impl": "other"}, ValueError),
                          ({"conv_layout": "folded"}, NotImplementedError),
                          ({"conv_layout": "other"}, ValueError)):
         with pytest.raises(error):
-            driver.check_settings({"spec": "Mel", "device": "cpu", **extra})
+            driver.check_settings({"spec": "Mel", "device": "cpu", **extra},
+                                  model)

@@ -3,9 +3,11 @@
 CPU, in gloo ranks on localhost.
 
 - The six training CLIs resolve `mesh_dp`, `mesh_sp` and `multihost` as
-  tests/test_mesh_driver.py expects of the JAX package's; `mesh_sp=2`, an
-  indivisible batch and `mesh_dp=2` on `device=cuda` without a card raise
-  before the run directory is written.
+  tests/test_mesh_driver.py expects of the JAX package's (a world of dp x
+  sp ranks); frames that do not split over `mesh_sp=2` into multiples of
+  16, an indivisible batch and `mesh_dp=2` on `device=cuda` without a card
+  raise before the run directory is written (sequence parallelism itself:
+  tests/test_torch_sequence_parallel.py).
 - Two ranks (`tests/torch_dp_worker.py`, spawned once, each on its rows of
   the global batch) against one process on the whole batch:
   - the port's `BatchNorm2d`, and flax's `BatchNorm` on the global batch,
@@ -81,13 +83,15 @@ def test_mesh_world():
     assert driver.mesh_world({"mesh_dp": 3, "device": "cpu"}) == 3
     with pytest.raises(ValueError, match="every visible GPU"):
         driver.mesh_world({"mesh_dp": -1, "device": "cpu"})
-    with pytest.raises(NotImplementedError, match="sequence parallelism"):
-        driver.mesh_world({"mesh_sp": 2})
+    assert driver.mesh_world({"mesh_sp": 2}) == 2
+    assert driver.mesh_world({"mesh_dp": 2, "mesh_sp": 2,
+                              "device": "cpu"}) == 4
     assert driver.build_mesh({}) is None
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ({"mesh_sp": 2, "device": "cpu"}, NotImplementedError, "item 3.3"),
+    ({"mesh_sp": 2, "device": "cpu", "sequence_length": 24 * 512},
+     ValueError, "multiples of 16"),
     ({"mesh_dp": 2, "device": "cpu", "train_batch_size": 1}, ValueError,
      "batch"),
     ({"mesh_dp": 2, "device": "cpu", "train_batch_size": 2,

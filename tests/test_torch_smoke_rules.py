@@ -1,7 +1,8 @@
 """`chip_smoke.py` phase 9b's rule (bf16 train losses, the card against
 the CPU) on the CPU, where a "card" route is built to miss one bf16 cast;
-and phase 14's gradient rule (`grad_rule` with its second reading, the
-plain route's spread under further probes) on a Segmentation step where a
+and the gradient rule of `compare_routes` (`grad_rule` with its second
+reading, the plain route's spread under further probes) on a flagship, a
+Segmentation and an O&F self-attention step (phases 8, 14 and 15a) where a
 "kernel" route carries a defect.
 
 Phase 9b runs phase 9's short clip at the weights and at `BF16_9B_DRAWS`
@@ -17,6 +18,7 @@ import pytest
 import torch
 
 import chip_smoke
+from reconvat_tpu_torch.models import get_model
 from reconvat_tpu_torch.models.reconvat import ReconVAT
 from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
 from reconvat_tpu_torch.nn.unet import Conv2d, ConvTranspose2d
@@ -73,20 +75,21 @@ def test_median_rule_fails_a_route_missing_the_conv_cast(preds):
         assert upper <= 1.0 and move < 1 / chip_smoke.BF16_MOVE_FLOOR, read
 
 
-@pytest.fixture(scope="module")
-def segmentation_grads():
-    """Phase 14's readings at the CPU test size (Segmentation, fp32, seeded
-    init, 2 clips of 37 frames, the step without VAT): the plain route's
+def _readings(model, frames: int, onset=False):
+    """The readings of `compare_routes`'s step without VAT at the CPU test
+    size (2 clips of `frames` frames, seeded): the plain route's
     gradients, its move under one probe and its spread under
     R_NORM_PROBES further probes, and `run`."""
     import copy
 
-    model = SemanticSegmentation(device="cpu", seed=0)
     rng = np.random.RandomState(0)
-    batch = {"audio": torch.tensor(rng.randn(2, 37 * 512) * 0.1,
+    batch = {"audio": torch.tensor(rng.randn(2, frames * 512) * 0.1,
                                    dtype=torch.float32),
-             "frame": torch.tensor(rng.rand(2, 37, 88) < 0.03,
+             "frame": torch.tensor(rng.rand(2, frames, 88) < 0.03,
                                    dtype=torch.float32)}
+    if onset:
+        batch["onset"] = torch.tensor(rng.rand(2, frames, 88) < 0.01,
+                                      dtype=torch.float32)
     start = {k: v.clone() for k, v in model.state_dict().items()}
 
     def run(m, bl, bul, vat):
@@ -98,6 +101,13 @@ def segmentation_grads():
     gq = run(plain, chip_smoke.probed(batch, 9), None, False)[1]
     spread = chip_smoke.plain_spread(run, plain, batch, gp)
     return model, batch, run, gp, gq, spread
+
+
+@pytest.fixture(scope="module")
+def segmentation_grads():
+    """Phase 14's readings (Segmentation, fp32, seeded init, 2 clips of 37
+    frames)."""
+    return _readings(SemanticSegmentation(device="cpu", seed=0), 37)
 
 
 def _misses(gk, gp, gq, spread):
@@ -131,5 +141,77 @@ def test_segmentation_grad_rule_fails_a_lost_gradient(segmentation_grads):
     leaf on its own)."""
     _, _, _, gp, gq, spread = segmentation_grads
     for leaf in ("conv_last.weight", "conv_last.bias"):
+        gk = dict(gp, **{leaf: torch.zeros_like(gp[leaf])})
+        assert _misses(gk, gp, gq, spread) == [leaf]
+
+
+@pytest.fixture(scope="module")
+def flagship_grads():
+    """Phase 8's readings (the flagship with reconstruction, fp32, seeded
+    init, 2 clips of 32 frames). Every phase holds a leaf above its first
+    limit by the second reading (`compare_routes`; its rule over weight
+    states: `python3 chip_smoke.py --NAME-step-rule`)."""
+    return _readings(ReconVAT(device="cpu", seed=0), 32)
+
+
+def test_flagship_grad_rule_fails_a_defective_mel(flagship_grads):
+    """A mel route off by 1e-3 relative, element by element, fails phase
+    8's rule with the second reading on many leaves; the same route
+    passes it."""
+    import copy
+
+    model, batch, run, gp, gq, spread = flagship_grads
+    noisy = copy.deepcopy(model)
+    noise = 1e-3 * torch.randn((2, 32, 229),
+                               generator=torch.Generator().manual_seed(1))
+    noisy.frontend.register_forward_hook(lambda m, i, o: o * (1 + noise))
+    gk = run(noisy, batch, None, False)[1]
+    assert len(_misses(gk, gp, gq, spread)) > 20
+    same = run(copy.deepcopy(model), batch, None, False)[1]
+    assert _misses(same, gp, gq, spread) == []
+
+
+def test_flagship_grad_rule_fails_a_lost_gradient(flagship_grads):
+    """The output layers' gradients zeroed (the transcriber's roll head
+    and the reconstructor's spec head) fail the second reading."""
+    _, _, _, gp, gq, spread = flagship_grads
+    for leaf in ("transcriber.linear1.weight", "transcriber.linear1.bias",
+                 "reconstructor.linear2.weight"):
+        gk = dict(gp, **{leaf: torch.zeros_like(gp[leaf])})
+        assert _misses(gk, gp, gq, spread) == [leaf]
+
+
+@pytest.fixture(scope="module")
+def attention_grads():
+    """Phase 15a's readings of `OnsetsAndFramesSelfAttention` (fp32,
+    seeded init, 2 clips of 32 frames): its conv trunks max-pool over
+    frequency, where a rounding switches a gradient's route."""
+    return _readings(get_model("OnsetsAndFramesSelfAttention", seed=0,
+                               device="cpu"), 32, onset=True)
+
+
+def test_attention_grad_rule_fails_a_defective_mel(attention_grads):
+    """A mel route off by 1e-3 relative, element by element, fails phase
+    15a's rule with the second reading on many leaves; the same route
+    passes it."""
+    import copy
+
+    model, batch, run, gp, gq, spread = attention_grads
+    noisy = copy.deepcopy(model)
+    noise = 1e-3 * torch.randn((2, 32, 229),
+                               generator=torch.Generator().manual_seed(1))
+    noisy.frontend.register_forward_hook(lambda m, i, o: o * (1 + noise))
+    gk = run(noisy, batch, None, False)[1]
+    assert len(_misses(gk, gp, gq, spread)) > 10
+    same = run(copy.deepcopy(model), batch, None, False)[1]
+    assert _misses(same, gp, gq, spread) == []
+
+
+def test_attention_grad_rule_fails_a_lost_gradient(attention_grads):
+    """The output heads' gradients zeroed (onset, frame and combined) fail
+    the second reading."""
+    _, _, _, gp, gq, spread = attention_grads
+    for leaf in ("onset_linear.weight", "frame_linear.weight",
+                 "combined_linear.weight", "combined_linear.bias"):
         gk = dict(gp, **{leaf: torch.zeros_like(gp[leaf])})
         assert _misses(gk, gp, gq, spread) == [leaf]

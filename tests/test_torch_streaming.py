@@ -26,6 +26,7 @@ import jax.numpy as jnp
 from reconvat_tpu import constants as JC
 from reconvat_tpu.models.reconvat import ReconVAT as JaxReconVAT
 from reconvat_tpu_torch.models.reconvat import ReconVAT
+from reconvat_tpu_torch.parallel.mesh import MeshContext
 from reconvat_tpu_torch.weights import flax_to_torch
 
 from .test_torch_bf16 import _jax_variables
@@ -122,10 +123,18 @@ def test_short_clip_is_one_bucketed_call(models):
 
 
 def test_streaming_rejects_what_is_not_ported_or_misaligned(models):
+    """Misaligned windows and a halo short of the frontend's reach raise;
+    a mesh of one rank streams as no mesh does (over two ranks:
+    tests/test_torch_sequence_parallel.py)."""
     port = models[2]
     audio = torch.zeros(1, 64 * 512)
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        port.transcribe_streaming(audio, mesh_ctx=object())
+    song = torch.from_numpy(_song(3.0, seed=5))            # 94 frames
+    one = MeshContext(0, 1, torch.device("cpu"))
+    np.testing.assert_array_equal(
+        port.transcribe_streaming(song, window_frames=32, halo_frames=16,
+                                  mesh_ctx=one)["frame"].numpy(),
+        port.transcribe_streaming(song, window_frames=32,
+                                  halo_frames=16)["frame"].numpy())
     with pytest.raises(ValueError, match="multiples of 16"):
         port.transcribe_streaming(audio, window_frames=100)
     with pytest.raises(ValueError, match="halo"):

@@ -32,6 +32,7 @@ import jax.numpy as jnp
 from reconvat_tpu.models.reconvat import ReconVAT as JaxReconVAT
 from reconvat_tpu_torch import transcribe_files
 from reconvat_tpu_torch.models.reconvat import ReconVAT
+from reconvat_tpu_torch.parallel.mesh import MeshContext
 from reconvat_tpu_torch.weights import flax_to_torch
 
 from .test_torch_bf16 import _jax_variables
@@ -98,11 +99,13 @@ def test_jax_streaming_reading(streams):
 
 
 def test_depths_and_halo(streams):
-    """Depth 1 equals depth 3; a halo below the frontend's reach raises,
-    and so does a stream over devices (not ported)."""
+    """Depth 1 on a mesh of one rank equals depth 3 with no mesh (over two
+    ranks: tests/test_torch_sequence_parallel.py); a halo below the
+    frontend's reach raises."""
     port, audio = streams["port"], torch.from_numpy(streams["audio"])
-    d1 = port.transcribe_streaming(audio, window_frames=W, halo_frames=H,
-                                   pipeline_depth=1)["frame"].numpy()
+    d1 = port.transcribe_streaming(
+        audio, window_frames=W, halo_frames=H, pipeline_depth=1,
+        mesh_ctx=MeshContext(0, 1, torch.device("cpu")))["frame"].numpy()
     np.testing.assert_array_equal(d1, streams["stream"])
     reach = port.frontend.frame_reach + port.frontend.frame_offset
     assert reach == {"CQT": 32, "CFP": 5}[streams["spec"]]
@@ -110,8 +113,6 @@ def test_depths_and_halo(streams):
         with pytest.raises(ValueError, match="reaches 32 frames"):
             port.transcribe_streaming(audio, window_frames=W,
                                       halo_frames=16)
-    with pytest.raises(NotImplementedError, match="item 3.2"):
-        port.transcribe_streaming(audio, mesh_ctx=object())
 
 
 @pytest.mark.parametrize("spec", ["CQT", "CFP"])

@@ -232,6 +232,25 @@ def test_vat_train_step_two_ranks_matches_jax(reference, tmp_path):
     _assert_step_matches_jax(reference, losses, r0["grads"], r0["state"])
 
 
+def test_vat_train_step_sequence_parallel_matches_jax(reference, tmp_path):
+    """The same step sequence-parallel over 2 gloo ranks (mesh_sp=2), each
+    holding 16 of the 32 frames of both clips (the audio whole per row):
+    the spec, the labels and the pinned directions keep each rank's
+    frames, the U-Net's convolutions and the attention take their halos
+    from the other rank. The all-reduced losses and gradients and the
+    global BatchNorm statistics against the JAX step's by the one-process
+    tolerances; the ranks' new parameters and statistics bit-equal."""
+    r0, r1 = worker.run_job(tmp_path, {
+        "model": "ReconVAT", "kwargs": {"xi": XI}, "sp": 2,
+        "state": _to_f64(reference[0]), "vat": True, "seed": SEED,
+        **dict(zip(("batch_l", "batch_ul"), (
+            _torch_batch(b) for b in _batches(dtype=np.float64))))})
+    for k, v in r1["state"].items():
+        assert torch.equal(r0["state"][k], v), k
+    losses = {k: v for k, v in r0["losses"].items() if k != "loss/total"}
+    _assert_step_matches_jax(reference, losses, r0["grads"], r0["state"])
+
+
 def test_kernel_route_matches_plain_route_on_cpu():
     """The model through the attention op (its backward the plain
     backward on the CPU) and through autograd of the plain forward: same

@@ -301,14 +301,15 @@ def test_checkpoint_round_trip_and_resumed_step(tmp_path):
 
 
 @pytest.mark.parametrize("override,error,match", [
-    ({"mesh_sp": 2}, NotImplementedError, "item 3.3"),
+    ({"mesh_sp": 3}, ValueError, "mesh_sp=3"),
     ({"multihost": True}, ValueError, "launcher"),
     ({"conv_layout": "folded"}, NotImplementedError, "folded"),
     ({"attn_impl": "xla"}, ValueError, "plain attention"),
     ({}, RuntimeError, "no CUDA device"),
 ])
 def test_cli_refuses_before_any_work(tmp_path, override, error, match):
-    """Sequence parallelism, multihost without a launcher, the TPU-only
+    """Frames that do not split over mesh_sp (640 over 3), multihost
+    without a launcher, the TPU-only
     settings and, without a card, the default device raise
     before a dataset or a model is built (the root names no corpus) and
     before the run directory is written."""

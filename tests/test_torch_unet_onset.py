@@ -15,7 +15,10 @@ Tolerances:
 - VAT losses: both packages in float64, B = 1 labeled + 1 unlabeled, xi
   0.1, the directions pinned to the port's draws: rtol 1e-6, the bound of
   tests/test_torch_vat_jax.py (JAX's attention takes its softmax in
-  float32 even in x64 mode).
+  float32 even in x64 mode); the running statistics after them rtol
+  1e-7, atol 1e-8 (tests/test_torch_train.py's bound). The same bounds
+  hold the port's train step sequence-parallel over 2 gloo ranks
+  (mesh_sp=2) against the JAX package's single-device run.
 - bf16: each output within 2x JAX's own bf16-vs-fp32 gap of JAX's bf16
   output (tests/test_torch_bf16.py's rule), onset and frame included.
 - streaming against the bucketed `transcribe`: interior atol 1e-5, the last
@@ -40,6 +43,7 @@ from reconvat_tpu_torch.models.reconvat import fp32_math, init_parameters
 from reconvat_tpu_torch.models.unet_onset import UNetOnset
 from reconvat_tpu_torch.weights import flax_to_torch
 
+from . import torch_dp_worker as worker
 from .test_torch_bf16 import assert_within_jax_gap
 from .test_torch_reconvat import _audio, _perturb
 from .test_torch_streaming import _song
@@ -48,6 +52,7 @@ from .torch_threads import torch_one_thread  # noqa: F401
 ATOL = RTOL = 1e-4
 FRAMES, XI, SEED = 32, 0.1, 5
 VAT_RTOL = 1e-6
+STATS_TOL = dict(rtol=1e-7, atol=1e-8)
 
 
 def _template(jmodel):
@@ -160,15 +165,17 @@ def test_train_losses_and_running_stats_match_jax(weights_tree):
         _close(k, sd[k], v.numpy(), atol=1e-5)
 
 
-def test_vat_losses_match_jax(weights_tree):
-    """Separate VAT chains in float64 (reconstruction off), directions
-    pinned: the per-head LDS losses and every other loss."""
+@pytest.fixture(scope="module")
+def vat_reference(weights_tree):
+    """The JAX package's losses and new BatchNorm statistics of separate
+    VAT chains in float64 (reconstruction off, `_vat_batches`, xi XI), the
+    directions pinned to the port's two draws from SEED, jitted once; and
+    the same weights as the port's float64 state dict."""
     variables = _without_reconstructor(weights_tree)
     jmodel = JaxUNetOnset(conv_layout="nhwc", reconstruction=False, xi=XI)
     g = torch.Generator().manual_seed(SEED)
     dirs = [jnp.asarray(torch.randn((1, FRAMES, 229, 1), dtype=torch.float64,
                                     generator=g).numpy()) for _ in range(2)]
-    batch_l, batch_ul = _batch(1, seed=1, dtype=np.float64)
 
     real = junet_onset_mod.vat_loss
 
@@ -177,8 +184,9 @@ def test_vat_losses_match_jax(weights_tree):
                     split=split)
 
     def run(v, b_l, b_ul):
-        return jmodel.run_on_batch(v, b_l, b_ul, jax.random.PRNGKey(1),
-                                   vat=True, train=True)[1]
+        _, losses, _, stats = jmodel.run_on_batch(
+            v, b_l, b_ul, jax.random.PRNGKey(1), vat=True, train=True)
+        return losses, stats
 
     jax.config.update("jax_enable_x64", True)
     try:
@@ -186,8 +194,8 @@ def test_vat_losses_match_jax(weights_tree):
             mp.setattr(junet_onset_mod, "vat_loss", pinned)
             v64 = jax.tree_util.tree_map(
                 lambda a: jnp.asarray(a, jnp.float64), variables)
-            ref = jax.tree_util.tree_map(
-                np.asarray, jax.jit(run)(v64, batch_l, batch_ul))
+            losses, stats = jax.tree_util.tree_map(
+                np.asarray, jax.jit(run)(v64, *_vat_batches()))
     finally:
         jax.config.update("jax_enable_x64", False)
 
@@ -195,17 +203,64 @@ def test_vat_losses_match_jax(weights_tree):
         mp.setattr(weights, "_tensor",
                    lambda w: torch.tensor(np.asarray(w, np.float64)))
         sd = weights.flax_to_torch(variables)
-    port = UNetOnset(device="cpu", reconstruction=False, xi=XI).double()
-    port.load_state_dict(sd, strict=True)
-    gen = torch.Generator().manual_seed(SEED)
-    _, got, _ = port.run_on_batch(_torch(batch_l), _torch(batch_ul), gen,
-                                  vat=True, train=True)
+        new_stats = weights.flax_to_torch({"params": {},
+                                           "batch_stats": stats})
+    return losses, new_stats, sd
+
+
+def _vat_batches():
+    """B = 1 labeled + 1 unlabeled clip of FRAMES frames, float64."""
+    return _batch(1, seed=1, dtype=np.float64)
+
+
+def _assert_vat_step_matches_jax(vat_reference, got: dict, state: dict):
+    """Every loss within VAT_RTOL (the per-head LDS losses nonzero) and
+    the new running statistics within STATS_TOL of the JAX step's."""
+    ref, new_stats, _ = vat_reference
     assert set(got) == set(ref)
     for k in ("loss/train_LDS_l_frame", "loss/train_LDS_l_onset",
               "loss/train_LDS_ul_frame", "loss/train_LDS_ul_onset"):
         assert ref[k] > 0, k
     for k, v in ref.items():
-        _close(k, got[k].double(), v, rtol=VAT_RTOL, atol=1e-12)
+        _close(k, torch.as_tensor(got[k], dtype=torch.float64), v,
+               rtol=VAT_RTOL, atol=1e-12)
+    running = {k: v for k, v in new_stats.items() if "running" in k}
+    assert running and set(running) == {k for k in state if "running" in k}
+    for k, v in running.items():
+        _close(k, state[k], v.numpy(), **STATS_TOL)
+
+
+def test_vat_losses_match_jax(vat_reference):
+    """Separate VAT chains in float64 (reconstruction off), directions
+    pinned: the per-head LDS losses, every other loss and the running
+    statistics after them."""
+    port = UNetOnset(device="cpu", reconstruction=False, xi=XI).double()
+    port.load_state_dict(vat_reference[2], strict=True)
+    gen = torch.Generator().manual_seed(SEED)
+    _, got, _ = port.run_on_batch(*(_torch(b) for b in _vat_batches()), gen,
+                                  vat=True, train=True)
+    _assert_vat_step_matches_jax(vat_reference, got, port.state_dict())
+
+
+def test_vat_step_sequence_parallel_matches_jax(vat_reference, tmp_path):
+    """The same VAT losses from a train step sequence-parallel over 2 gloo
+    ranks (mesh_sp=2, tests/torch_dp_worker.py), each holding 16 of the
+    32 frames of both clips (the audio whole per row): the spec, the
+    labels and the pinned directions keep each rank's frames, the U-Net's
+    convolutions and the attention take their halos from the other rank.
+    The all-reduced losses and the global BatchNorm statistics against
+    the JAX package's single-device step by the one-process tolerances;
+    the ranks' new parameters and statistics bit-equal."""
+    r0, r1 = worker.run_job(tmp_path, {
+        "model": "UNet_Onset",
+        "kwargs": {"reconstruction": False, "xi": XI},
+        "sp": 2, "state": vat_reference[2], "vat": True, "seed": SEED,
+        **dict(zip(("batch_l", "batch_ul"),
+                   (_torch(b) for b in _vat_batches())))})
+    for k, v in r1["state"].items():
+        assert torch.equal(r0["state"][k], v), k
+    losses = {k: v for k, v in r0["losses"].items() if k != "loss/total"}
+    _assert_vat_step_matches_jax(vat_reference, losses, r0["state"])
 
 
 def test_batched_chain_runs_both_heads(weights_tree):
@@ -340,8 +395,9 @@ def test_model_registry_and_refusals(monkeypatch, tmp_path):
         UNetOnset()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.ex.run(cli.train, {"root": str(tmp_path), "train_on": "nowhere"})
-    for override, error, match in (({"mesh_sp": 2}, NotImplementedError,
-                                     "item 3.3"),
+    for override, error, match in (({"mesh_sp": 2,
+                                     "sequence_length": 24 * 512},
+                                     ValueError, "multiples of 16"),
                                     ({"attn_impl": "xla"}, ValueError,
                                      "plain attention")):
         with pytest.raises(error, match=match):

@@ -1,5 +1,6 @@
-"""One rank of the data-parallel CPU tests (tests/test_torch_parallel.py,
-and the JAX comparisons of tests/test_torch_train.py and
+"""One rank of the data-parallel and sequence-parallel CPU tests
+(tests/test_torch_parallel.py, tests/test_torch_sequence_parallel.py, and
+the JAX comparisons of tests/test_torch_train.py and
 tests/test_torch_segmentation.py), torch only:
 
     python -m tests.torch_dp_worker <rank> <world> <port> <out.pt> [job.pt]
@@ -9,8 +10,10 @@ it runs each case of `CASES` on its rows of the global batch under an
 active mesh and saves {case: result} to <out.pt>; the test builds the
 same models, inputs and single-process results with the functions below.
 With a job (`run_job`) it takes one train step of the job's model and
-weights on its rows of the job's global batches and saves `step_run`'s
-result. `spawn` starts the ranks.
+weights on its share of the job's global batches (over `job["sp"]` sp
+ranks, 1 by default) and saves `step_run`'s result; a job of `SP_CASES`
+(`{"cases": [(case, sp), ...]}`) runs each sequence-parallel case on a mesh
+of that sp (`sp_case`). `spawn` starts the ranks.
 """
 import datetime
 import os
@@ -24,6 +27,7 @@ import torch
 from reconvat_tpu_torch.models import get_model
 from reconvat_tpu_torch.models.reconvat import ReconVAT
 from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+from reconvat_tpu_torch.models.unet_onset import UNetOnset
 from reconvat_tpu_torch.nn.unet import BatchNorm2d
 from reconvat_tpu_torch.parallel import distributed
 from reconvat_tpu_torch.parallel import mesh as pmesh
@@ -164,14 +168,147 @@ def spawn(out_dir, world: int = 2, job: str | None = None):
     return wait
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism (tests/test_torch_sequence_parallel.py)
+# ---------------------------------------------------------------------------
+
+SP_CASES = ("halo", "eval", "flagship64sp", "onset64sp", "stream_Mel",
+            "stream_CQT")
+SP_B, SP_FRAMES = 2, 32         # global batch rows, frames (16 a rank at 2)
+HALO_SHAPES = ((2, 3, 4, 5), 2, 1), ((2, 16, 3), 1, 15)  # per rank, dim, h
+STREAM_W, STREAM_H, STREAM_SECONDS = 64, 32, 8.0
+
+
+def halo_inputs(sp: int) -> list:
+    """Per halo shape: (whole x, whole output weights, dim, halo), whole
+    along `dim` over sp ranks, integer-valued float64 (so every sum of
+    the gradient is exact in any order)."""
+    rng = np.random.RandomState(sp)
+    out = []
+    for shape, dim, h in HALO_SHAPES:
+        whole = list(shape)
+        whole[dim] *= sp
+        x = torch.from_numpy(rng.randint(-9, 10, whole).astype(np.float64))
+        wshape = list(shape)
+        wshape[dim] += 2 * h
+        w = torch.from_numpy(rng.randint(-9, 10, [sp] + wshape).astype(
+            np.float64))
+        out.append((x, w, dim, h))
+    return out
+
+
+def halo_reference(sp: int) -> list:
+    """Per halo shape, per rank: (its haloed slice of the whole x
+    zero-padded on `dim`, the whole x's gradient of the sum over the ranks
+    of sum(slice * w[rank]), this rank's frames of it)."""
+    out = []
+    for x, w, dim, h in halo_inputs(sp):
+        x = x.clone().requires_grad_(True)
+        per = x.shape[dim] // sp
+        pad = [0, 0] * (x.dim() - dim - 1) + [h, h]
+        xp = torch.nn.functional.pad(x, pad)
+        ys = [xp.narrow(dim, r * per, per + 2 * h) for r in range(sp)]
+        sum((y * w[r]).sum() for r, y in enumerate(ys)).backward()
+        out.append([(ys[r].detach(), x.grad.narrow(dim, r * per, per))
+                    for r in range(sp)])
+    return out
+
+
+def halo_run(ctx) -> list:
+    """Per halo shape, this rank's (time_halo of its frames, their
+    gradient of the sum over the ranks)."""
+    out = []
+    for x, w, dim, h in halo_inputs(ctx.sp):
+        mine = pmesh.sp_frames(x, ctx, dim).clone().requires_grad_(True)
+        y = pmesh.time_halo(mine, h, h, ctx, dim)
+        (y * w[ctx.sp_rank]).sum().backward()
+        out.append((y.detach(), mine.grad))
+    return out
+
+
+def sp_setup(case: str):
+    """(model, global labeled batch, global unlabeled batch) of a
+    sequence-parallel step case, float64 at xi 1e-2: the flagship, or
+    UNetOnset (its batch with onset labels), SP_B + SP_B clips of
+    SP_FRAMES frames."""
+    rng = np.random.RandomState(5)
+    if case == "onset64sp":
+        model = UNetOnset(device="cpu", seed=3, xi=1e-2).double()
+    else:
+        model = ReconVAT(device="cpu", seed=2, xi=1e-2).double()
+    n = SP_FRAMES * 512
+
+    def audio():
+        return torch.tensor(rng.randn(SP_B, n) * 0.1, dtype=torch.float64)
+
+    batch_l = {"audio": audio(), "frame": torch.tensor(
+        rng.rand(SP_B, SP_FRAMES, 88) < 0.05, dtype=torch.float64)}
+    if case == "onset64sp":
+        batch_l["onset"] = torch.tensor(rng.rand(SP_B, SP_FRAMES, 88) < 0.02,
+                                        dtype=torch.float64)
+    return model, batch_l, {"audio": audio()}
+
+
+def eval_run(ctx=None) -> dict:
+    """The flagship's eval-mode full forward (reconstruction, both
+    transcriber passes, the attention) on the labeled batch of
+    `sp_setup`, float64; under `ctx` inside a sharded step on this rank's
+    frames."""
+    model, batch_l, _ = sp_setup("eval")
+    model.eval()
+    with torch.no_grad(), pmesh.sharded_step(ctx):
+        spec = model.make_spec(batch_l["audio"])
+        out = model(spec)
+    return dict(zip(("reconstruction", "pianoroll", "pianoroll2",
+                     "attention", "spec"), out + (spec,)))
+
+
+def stream_song() -> np.ndarray:
+    rng = np.random.RandomState(8)
+    n = int(STREAM_SECONDS * 16000)
+    t = np.arange(n) / 16000
+    tone = sum(np.sin(2 * np.pi * f * t) for f in (220, 330, 523))
+    return (0.2 * tone * (t % 1 < 0.6) + 0.01 * rng.randn(n)).astype(
+        np.float32)[None]
+
+
+def stream_run(spec: str, ctx=None) -> torch.Tensor:
+    """The flagship's stream (fp32, seed 6, windows of STREAM_W frames,
+    halo STREAM_H) of `stream_song` on `spec`; over the ranks of `ctx`."""
+    model = ReconVAT(device="cpu", seed=6, spec=spec)
+    return model.transcribe_streaming(
+        torch.from_numpy(stream_song()), window_frames=STREAM_W,
+        halo_frames=STREAM_H, mesh_ctx=ctx)["frame"]
+
+
+def sp_case(case: str, ctx):
+    """This rank's result of a sequence-parallel case on mesh `ctx`."""
+    if case == "halo":
+        return halo_run(ctx)
+    if case == "eval":
+        return eval_run(ctx)
+    if case.startswith("stream_"):
+        return stream_run(case[len("stream_"):], ctx)
+    model, batch_l, batch_ul = sp_setup(case)
+    return step_run(model, pmesh.shard_batch(batch_l, ctx),
+                    pmesh.shard_batch(batch_ul, ctx), True)
+
+
 def run_rank(rank: int, world: int, port: int, job: str | None) -> dict:
     distributed.TIMEOUT = TIMEOUT
     distributed.initialize("localhost", port, world, rank, device="cpu")
     out = {}
+    job = torch.load(job) if job is not None else None
     try:
-        with pmesh.activate(pmesh.make_mesh()) as ctx:
+        if job is not None and "cases" in job:
+            for case, sp in job["cases"]:
+                with pmesh.activate(pmesh.make_mesh(sp=sp)) as ctx:
+                    out[case] = sp_case(case, ctx)
+            return out
+        with pmesh.activate(pmesh.make_mesh(
+                sp=job.get("sp", 1) if job else 1)) as ctx:
             if job is not None:
-                return job_run(torch.load(job), ctx)
+                return job_run(job, ctx)
             layer, x, w = bn_inputs()
             out["bn"] = bn_run(layer, pmesh.batch_rows({"audio": x}, ctx)[
                 "audio"], pmesh.batch_rows({"audio": w}, ctx)["audio"], ctx)
