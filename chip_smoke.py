@@ -76,7 +76,13 @@ one process, and a 60-s song
 streamed over the two ranks against one device's stream (18c), the ranks
 sharing the card over gloo (over NCCL a card each where the machine has
 two; on four cards 18a also at mesh_dp=2 x mesh_sp=2); and the training
-CLI at `mesh_sp=2` with a resume (18d).
+CLI at `mesh_sp=2` with a resume (18d). Last, phase 19, sequence
+parallelism in Segmentation and Thickstun (their TF-SAME pads, transposed
+convolutions, 17 x 17 windows and 25-frame kernel take the other rank's
+frames): Segmentation's fp32 VAT step (19a) and Thickstun's step (19b) on
+two ranks against one process, Segmentation streaming a 60-s song over
+the ranks (19c), and the Multi_Inst and Thickstun training CLIs at
+`mesh_sp=2` with a resume (19d).
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -93,8 +99,8 @@ against the plain versions (10 states by default, `step_rule`): NAME
 `flagship` (phase 8), `onset` (12a), `onsets-frames` (13),
 `segmentation` (14), `attention` (15a) or `cqt` (16c).
 `python3 chip_smoke.py --dp-rank rank world port out [sp [what]]` is one
-rank of phase 17b or 18, started by that phase; `--data-parallel` runs
-phases 17b-18d alone.
+rank of phase 17b, 18 or 19, started by that phase; `--data-parallel
+[17] [18] [19]` runs phases 17b-19d alone, or the groups named.
 """
 from __future__ import annotations
 
@@ -1654,32 +1660,58 @@ def held_draws(what, test16, ref16, test32, ref32, draws,
     return worst if spread is None else (worst, second)
 
 
-def median_rule(card16, cpu16, card32, cpu32):
+def rms_gap(x, y) -> float:
+    """The rms gap of two tensors, or the gap of two floats."""
+    if isinstance(x, torch.Tensor):
+        return (x.double() - y.double()).pow(2).mean().sqrt().item()
+    return abs(x - y)
+
+
+def median_rule(card16, cpu16, card32, cpu32, spread=None):
     """Phase 9b's rule (BF16_MOVE_FLOOR) over lists of dicts, one dict per
     input, the same inputs on all four routes, each value a tensor (its
-    largest elementwise gap is read) or a float. Returns (misses, by key
-    the upper bound's share of its limit and the ratio of the card's
-    median move to the CPU's): misses names each key that breaks either
-    bound."""
+    rms gap is read) or a float. Returns (misses, by key the upper bound's
+    share of its limit and the ratio of the card's median move to the
+    CPU's): misses names each key that breaks either bound. With `spread`
+    (by key, `bf16_spread`) a key above the upper limit is held by a
+    second reading, the limit + PROBE_FACTOR x the CPU bf16 route's own
+    spread; each key's reading then also gives its share of that."""
     def med(a, b, k):
-        return float(np.median([gap(x[k], y[k]) for x, y in zip(a, b)]))
-
-    def gap(x, y):
-        if isinstance(x, torch.Tensor):
-            return (x.double() - y.double()).pow(2).mean().sqrt().item()
-        return abs(x - y)
+        return float(np.median([rms_gap(x[k], y[k]) for x, y in zip(a, b)]))
 
     misses, read = [], {}
     for k in cpu16[0]:
         ref_gap = med(cpu16, cpu32, k)
-        fp32 = max(gap(x[k], y[k]) for x, y in zip(card32, cpu32))
+        fp32 = max(rms_gap(x[k], y[k]) for x, y in zip(card32, cpu32))
         diff, move = med(card16, cpu16, k), med(card16, card32, k)
         tol = BF16_FACTOR * ref_gap + fp32
         read[k] = (diff / tol if tol > 0 else 0.0,
                    move / ref_gap if ref_gap > 0 else 1.0)
+        if spread is not None:
+            tol += PROBE_FACTOR * spread[k]
+            read[k] += (diff / tol if tol > 0 else 0.0,)
         if not (diff <= tol and move >= ref_gap / BF16_MOVE_FLOOR):
             misses.append(k)
     return misses, read
+
+
+def bf16_spread(cpu16, states, batch) -> dict:
+    """Phase 9b's second reading's spread, by prediction: for each weight
+    state of `states` the largest rms move of the CPU bf16 route's
+    predictions (`short_step`) under R_NORM_PROBES audio probes of PROBE
+    (`probed`), which flip bf16 roundings as another summation order
+    does; the median over the states. Leaves `cpu16` at the first
+    state."""
+    moves = []
+    for weights in states:
+        cpu16.load_state_dict(weights)
+        base = short_step(cpu16, batch)[0]
+        probes = [short_step(cpu16, probed(batch, 20 + 2 * j))[0]
+                  for j in range(R_NORM_PROBES)]
+        moves.append({k: max(rms_gap(p[k], v) for p in probes)
+                      for k, v in base.items()})
+    cpu16.load_state_dict(states[0])
+    return {k: float(np.median([m[k] for m in moves])) for k in moves[0]}
 
 
 def weight_draws(state, n: int, seed: int):
@@ -1926,7 +1958,8 @@ def phase_train_bf16(rows, model, state, step, batches, gen,
               "cpu32": cpu}
     start = {k: v.clone() for k, v in model.state_dict().items()}
     runs = {name: [] for name in routes}
-    for weights in weight_draws(start, BF16_9B_DRAWS, seed=19):
+    states = weight_draws(start, BF16_9B_DRAWS, seed=19)
+    for weights in states:
         for name, m in routes.items():
             m.load_state_dict(weights)
             runs[name].append(short_step(m, short_l))
@@ -1947,6 +1980,14 @@ def phase_train_bf16(rows, model, state, step, batches, gen,
                            card32[0], c32[0], old_draws, gate=False)
     _, loss_read = median_rule(card16, c16, card32, c32)
     misses, read = median_rule(preds[0], preds[2], preds[1], preds[3])
+    second = ""
+    if misses:
+        spread = bf16_spread(cpu16, states, short_l)
+        misses, read = median_rule(preds[0], preds[2], preds[1], preds[3],
+                                   spread)
+        second = (f"; a prediction above the first limit, read again with "
+                  f"{PROBE_FACTOR} x the CPU bf16 route's spread {spread} "
+                  f"added (the third number)")
     log(f"phase 9b: predictions by the median rule (median over weight "
         f"draws of the rms |card bf16 - CPU bf16| as a share of "
         f"{BF16_FACTOR} x the CPU's median bf16-vs-fp32 gap + the largest "
@@ -1954,13 +1995,13 @@ def phase_train_bf16(rows, model, state, step, batches, gen,
         f"least 1/{BF16_MOVE_FLOOR}) {read}; not held: the losses by the "
         f"same rule {loss_read}, and by the old rule (the batch alone "
         f"against {BF16_FACTOR} x the largest of the CPU's "
-        f"{BF16_DRAWS + 1} gaps over audio copies) {old_share}")
+        f"{BF16_DRAWS + 1} gaps over audio copies) {old_share}{second}")
     if misses:
         fail(f"bf16 train step, card vs CPU: {misses} break the median "
              f"rule: {read}")
     log(f"phase 9b: held, largest upper share "
-        f"{max(u for u, _ in read.values())}, smallest move ratio "
-        f"{min(m for _, m in read.values())}")
+        f"{max(r[-1] if second else r[0] for r in read.values())}, "
+        f"smallest move ratio {min(r[1] for r in read.values())}")
 
 
 def phase_kernels_at_cli_shapes(fe) -> None:
@@ -4338,12 +4379,24 @@ DP_LOSS_TOL = dict(rtol=3e-3, atol=1e-4)
 DP_MODELS = ("flagship", "segmentation")
 SP_RANKS = 2
 SP_MODELS = ("flagship", "onset")
-# phase 18a's eval forward at mesh_sp against one process, both fp32 with
-# deterministic cuDNN: each output's largest gap over its largest
-# magnitude. The ranks run each convolution on 320 + 2 frames where one
-# process runs 640 + 2, so cuDNN may sum in another order (~1e-7 a
-# layer); a halo that is wrong or missing moves the frames beside the
-# ranks' boundary by O(1).
+# phase 19: the families that take sequence parallelism besides (19a, 19b),
+# Thickstun on a global batch of THICKSTUN_SP_B clips
+SP_FAMILIES = ("segmentation", "thickstun")
+THICKSTUN_SP_B = 4
+# the models each `--dp-rank` stream entry streams (`sp_streams`), and
+# each eval entry's model (`sp_eval`) with its outputs
+STREAMS = {"stream": ("flagship", "onset"),
+           "stream_segmentation": ("segmentation",)}
+EVALS = {"eval": "flagship", "eval_segmentation": "segmentation"}
+EVAL_OUTPUTS = {"flagship": ("reconstruction", "pianoroll", "pianoroll2",
+                             "attention"),
+                "segmentation": ("posteriogram",)}
+# phase 18a's and 19a's eval forward at mesh_sp against one process, both
+# fp32 with deterministic cuDNN: each output's largest gap over its
+# largest magnitude. The ranks run each convolution on 320 + its halo
+# frames where one process runs 640 + its pad, so cuDNN may sum in
+# another order (~1e-7 a layer); a halo that is wrong or missing moves
+# the frames beside the ranks' boundary by O(1).
 SP_EVAL_RTOL = 1e-5
 RESULTS: dict = {}      # figures an earlier phase leaves for a later one
 
@@ -4465,17 +4518,23 @@ def phase_streaming_cqt_cfp(rows) -> None:
 
 
 def dp_model(name: str):
-    """(model, VAT step's batches) of phase 17b's and 18's `name`: the
-    flagship (reconstruction, fp32), Segmentation (dropout 0.4, fp32) or
-    UNetOnset ('onset': reconstruction, fp32; `onset_batches`), seed 0, on
-    the global batch of B + B clips of 20.48 s."""
+    """(model, VAT step's batches) of phase 17b's, 18's and 19's `name`:
+    the flagship (reconstruction, fp32), Segmentation (dropout 0.4, fp32)
+    or UNetOnset ('onset': reconstruction, fp32; `onset_batches`), seed 0,
+    on the global batch of B + B clips of 20.48 s; or Thickstun (fp32,
+    supervised: no unlabeled batch) on THICKSTUN_SP_B labeled clips."""
     from reconvat_tpu_torch.models.reconvat import ReconVAT
     from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+    from reconvat_tpu_torch.models.thickstun import Thickstun
     from reconvat_tpu_torch.models.unet_onset import UNetOnset
 
     if name == "onset":
         return (UNetOnset(seed=0, reconstruction=True),
                 [onset_batches(seed) for seed in range(2)])
+    if name == "thickstun":
+        return Thickstun(seed=0), [
+            ({k: v[:THICKSTUN_SP_B] for k, v in
+              train_batches(seed)[0].items()}, None) for seed in range(2)]
     model = (ReconVAT(seed=0) if name == "flagship"
              else SemanticSegmentation(seed=0))
     return model, [train_batches(seed) for seed in range(2)]
@@ -4555,8 +4614,9 @@ def dp_rank(rank: int, world: int, port: int, out: str, sp: int = 1,
     0), the ms/step of the later steps, the `gradient_all_reduce` span's
     ms of a profiled step, the step's split (`step_split`), peak GB and
     the launches to `out`. 'stream' in `what` streams phase 18c's song
-    over the mesh (`sp_streams`), 'eval' runs phase 18a's eval forward on
-    it (`sp_eval`)."""
+    over the mesh (`sp_streams`), 'stream_segmentation' phase 19c's,
+    'eval' and 'eval_segmentation' run phase 18a's and 19a's eval forward
+    on it (`sp_eval`)."""
     import torch.distributed as dist
 
     from reconvat_tpu_torch.kernels import _build
@@ -4574,13 +4634,15 @@ def dp_rank(rank: int, world: int, port: int, out: str, sp: int = 1,
         with pmesh.activate(pmesh.make_mesh(world // sp, sp,
                                             device=device)) as ctx:
             for name in what:
-                if name in ("stream", "eval"):
-                    result[name] = (sp_streams if name == "stream"
-                                    else sp_eval)(ctx)
+                if name in STREAMS:
+                    result[name] = sp_streams(ctx, STREAMS[name])
+                    continue
+                if name in EVALS:
+                    result[name] = sp_eval(ctx, EVALS[name])
                     continue
                 model, batches = dp_model(name)
-                batches = [tuple(pmesh.shard_batch(b, ctx) for b in pair)
-                           for pair in batches]
+                batches = [tuple(b if b is None else pmesh.shard_batch(b, ctx)
+                                 for b in pair) for pair in batches]
                 state = create_train_state(model)
                 step = make_train_step(model, 1.0, vat=True,
                                        use_unlabeled=True)
@@ -4661,7 +4723,8 @@ def one_process_reference(name: str):
     key = f"one_process_{name}"
     if key not in RESULTS:
         ref = one_process_step(name)
-        probes = [one_process_step(name, j)[0] for j in range(R_NORM_PROBES)]
+        probes = ([one_process_step(name, j)[0] for j in range(R_NORM_PROBES)]
+                  if any("_r_norm_" in k for k in ref[0]) else [])
         RESULTS[key] = (ref, {k: max(abs(p[k] - v) for p in probes)
                               for k, v in ref[0].items() if "_r_norm_" in k})
     return RESULTS[key]
@@ -4700,19 +4763,20 @@ def run_ranks(label: str, visible: str, world: int, args=()) -> list:
 
 
 def hold_sharded_step(what: str, name: str, ranks: list, misses: list):
-    """Phase 17b's and 18's criterion on `ranks`' results for `name`
+    """Phase 17b's, 18's and 19's criterion on `ranks`' results for `name`
     against one process (`one_process_reference`): every rank's
     parameters and statistics bit-equal to rank 0's after each step; each
     rank launches the path's rows (the flagship's and UNetOnset's rows
-    1-4, Segmentation's row 1) and no other; losses within DP_LOSS_TOL
-    (the `r_norm` entries + PROBE_FACTOR x the one process's spread);
+    1-4, Segmentation's and Thickstun's row 1) and no other; losses
+    within DP_LOSS_TOL (the `r_norm` entries + PROBE_FACTOR x the one
+    process's spread);
     parameter deltas at most 2.05 x lr, the median under 1e-6, over 85 %
     under 1e-4. Failures of the comparison with one process go to
     `misses`; returns (the largest relative loss gap, the deltas)."""
     (ref_losses, ref_state, params, _), spread = one_process_reference(name)
     got = ranks[0][name]
-    expect = ({"mel_power"} if name == "segmentation"
-              else {"mel_power"} | set(ATTENTION_ROWS))
+    expect = ({"mel_power"} | set(ATTENTION_ROWS) if name in SP_MODELS
+              else {"mel_power"})
     for r, res in enumerate(ranks):
         mine = res[name]
         if not all(mine["equal"]):
@@ -4741,16 +4805,17 @@ def hold_sharded_step(what: str, name: str, ranks: list, misses: list):
 
 
 def sharded_read(name: str, ranks: list, gap: float, d) -> str:
-    """What phases 17b and 18 print of `name`'s sharded steps."""
+    """What phases 17b, 18 and 19 print of `name`'s sharded steps."""
     _, spread = one_process_reference(name)
-    got = ranks[0][name]
+    launches = [{k: v for k, v in res[name]["launches"].items() if v}
+                for res in ranks]
     return (f"ms/step per rank {[res[name]['ms'] for res in ranks]} (one "
             f"process, first step {one_process_reference(name)[0][3]}); "
             f"gradient all-reduce ms "
             f"{[res[name]['all_reduce_ms'] for res in ranks]}; peak GB per "
             f"rank {[res[name]['peak_gb'] for res in ranks]}; launches per "
-            f"step rank 0 { {k: v for k, v in got['launches'].items() if v} }"
-            f"; losses max rel gap {gap}; deltas max {d.max()} median "
+            f"step per rank {launches}; losses max rel gap {gap}; deltas "
+            f"max {d.max()} median "
             f"{np.median(d)} share under 1e-4 {np.mean(d < 1e-4)}; the one "
             f"process's r_norm spread under {R_NORM_PROBES} probes {spread}; "
             f"ranks bit-equal after each of {DP_STEPS} steps; a step's split "
@@ -4830,25 +4895,29 @@ def phase_data_parallel_steps(rows) -> None:
         fail(f"phase 17b: {misses}")
 
 
-def sp_streams(ctx=None) -> dict:
-    """Phase 18c: the flagship and UNetOnset (seed 0, fp32, random
-    weights) stream a song of STREAM_SONG_SECONDS (`tone_song`) at their
-    default windows (W 640, H 128) with deterministic cuDNN, over the
-    ranks of mesh `ctx` (`transcribe_streaming(mesh_ctx=ctx)`) or on one
-    device: {model: (the frame roll, the onset roll or None, seconds, the
+def sp_streams(ctx=None, names=STREAMS["stream"]) -> dict:
+    """Phases 18c and 19c: the flagship and UNetOnset, or Segmentation
+    (`names`; seed 0, fp32, random weights) stream a song of
+    STREAM_SONG_SECONDS (`tone_song`) at their default windows (W 640, H
+    128; Segmentation's H 256) with deterministic cuDNN, over the ranks of
+    mesh `ctx` (`transcribe_streaming(mesh_ctx=ctx)`) or on one device:
+    {model: (the frame roll, the onset roll or None, seconds, the
     launches)}."""
     from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
     from reconvat_tpu_torch.models.unet_onset import UNetOnset
     from reconvat_tpu_torch.parallel import distributed
 
+    makers = {"flagship": ReconVAT, "onset": UNetOnset,
+              "segmentation": SemanticSegmentation}
     counters = kernel_counters()
     cudnn = torch.backends.cudnn
     song = tone_song(STREAM_SONG_SECONDS, seed=18)
     out = {}
     cudnn.deterministic = True
     try:
-        for name, make in (("flagship", ReconVAT), ("onset", UNetOnset)):
-            model = make(seed=0)
+        for name in names:
+            model = makers[name](seed=0)
             model.transcribe_streaming(song[:, :SAMPLES], mesh_ctx=ctx)
             for f, c in counters.values():
                 setattr(f, c, 0)
@@ -4868,17 +4937,20 @@ def sp_streams(ctx=None) -> dict:
     return out
 
 
-def sp_eval(ctx=None) -> dict:
-    """Phase 18a's forward: the flagship (seed 0, fp32, random weights,
-    reconstruction) in eval mode on the labeled audio of
-    `train_batches(0)`, with deterministic cuDNN; under mesh `ctx` on this
-    rank's rows, inside a sharded step (so on its frames of the spec):
-    {output: this rank's share of it, on the CPU}."""
+def sp_eval(ctx=None, name: str = "flagship") -> dict:
+    """Phase 18a's and 19a's forward: the flagship (reconstruction) or
+    Segmentation (`name`; seed 0, fp32, random weights) in eval mode on
+    the labeled audio of `train_batches(0)`, with deterministic cuDNN;
+    under mesh `ctx` on this rank's rows, inside a sharded step (so on its
+    frames of the spec): {output (EVAL_OUTPUTS, the spec): this rank's
+    share of it, on the CPU}."""
     from reconvat_tpu_torch.models.base import fp32_math
     from reconvat_tpu_torch.models.reconvat import ReconVAT
+    from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
     from reconvat_tpu_torch.parallel import mesh as pmesh
 
-    model = ReconVAT(seed=0).eval()
+    model = (ReconVAT(seed=0) if name == "flagship"
+             else SemanticSegmentation(seed=0)).eval()
     audio = train_batches(0)[0]["audio"]
     if ctx is not None:
         audio = pmesh.shard_batch({"audio": audio}, ctx)["audio"]
@@ -4890,9 +4962,32 @@ def sp_eval(ctx=None) -> dict:
             out = model(spec)
     finally:
         cudnn.deterministic = False
-    names = ("reconstruction", "pianoroll", "pianoroll2", "attention",
-             "spec")
-    return {k: v.float().cpu() for k, v in zip(names, out + (spec,))}
+    out = out if isinstance(out, tuple) else (out,)
+    return {k: v.float().cpu()
+            for k, v in zip(EVAL_OUTPUTS[name] + ("spec",), out + (spec,))}
+
+
+def hold_sp_eval(phase: str, label: str, ranks: list, key: str, one: dict,
+                 dp: int, misses: list) -> dict:
+    """Each output of the ranks' `sp_eval` (`ranks[r][key]`), their
+    frames put together, against one process's (`one`): the largest gap
+    over the largest magnitude by output; one past SP_EVAL_RTOL goes to
+    `misses`."""
+    gaps = {}
+    for k, v in one.items():
+        whole = torch.cat([torch.cat(
+            [ranks[i * SP_RANKS + j][key][k] for j in range(SP_RANKS)],
+            dim=1) for i in range(dp)])
+        gaps[k] = ((whole - v).abs().max().item()
+                   / max(v.abs().max().item(), 1e-30)
+                   if whole.shape == v.shape else float("inf"))
+        if not gaps[k] <= SP_EVAL_RTOL:
+            misses.append(f"{phase} eval forward ({label}): {k} "
+                          f"{tuple(whole.shape)} on the ranks, "
+                          f"{tuple(v.shape)} in one process, largest gap "
+                          f"{gaps[k]} of its largest magnitude (tolerance "
+                          f"{SP_EVAL_RTOL})")
+    return gaps
 
 
 def phase_sequence_parallel(rows) -> None:
@@ -4933,20 +5028,7 @@ def phase_sequence_parallel(rows) -> None:
                             else ("flagship",))
         ranks = run_ranks(f"phase 18, {label}", visible, dp * SP_RANKS,
                           (str(SP_RANKS), ",".join(what)))
-        gaps = {}
-        for k, v in one_eval.items():
-            whole = torch.cat([torch.cat(
-                [ranks[i * SP_RANKS + j]["eval"][k] for j in range(SP_RANKS)],
-                dim=1) for i in range(dp)])
-            gaps[k] = ((whole - v).abs().max().item()
-                       / max(v.abs().max().item(), 1e-30)
-                       if whole.shape == v.shape else float("inf"))
-            if not gaps[k] <= SP_EVAL_RTOL:
-                misses.append(f"18a eval forward ({label}): {k} "
-                              f"{tuple(whole.shape)} on the ranks, "
-                              f"{tuple(v.shape)} in one process, largest "
-                              f"gap {gaps[k]} of its largest magnitude "
-                              f"(tolerance {SP_EVAL_RTOL})")
+        gaps = hold_sp_eval("18a", label, ranks, "eval", one_eval, dp, misses)
         read.append(f"18a eval forward ({label}, dp {dp} x sp {SP_RANKS}): "
                     f"largest gap over largest magnitude {gaps}")
         for name in what:
@@ -4999,7 +5081,99 @@ def phase_sequence_parallel(rows) -> None:
         fail(f"phase 18: {misses}")
 
 
-def phase_sharded_cli(rows, tmp: str, phase: str, mesh: dict) -> None:
+def phase_sequence_parallel_families(rows) -> None:
+    """Phase 19a-19c, sequence parallelism in Segmentation and Thickstun
+    (their TF-SAME pads, transposed convolutions, 17 x 17 windows and
+    25-frame kernel take the other rank's frames) against one process on
+    the card. 19a: Segmentation's eval-mode forward on the B x 640
+    labeled batch at mesh_sp=SP_RANKS (`sp_eval`), its posteriogram and
+    spec within SP_EVAL_RTOL of one process's, which holds every frame
+    beside the ranks' boundaries (the interior TF-SAME pads, the
+    transposed convolutions' front frames, the attention's windows); and
+    its fp32 VAT step (dropout 0.4) on SP_RANKS ranks of
+    mesh_sp=SP_RANKS, each holding B + B clips x 640 / SP_RANKS frames of
+    the global B + B x 640; 19b: Thickstun's fp32 step on
+    THICKSTUN_SP_B x 640 global; both held by phase 17b's criterion
+    (`hold_sharded_step`: DP_LOSS_TOL, deltas within 2.05 x lr, the ranks
+    bit-equal after every step, each rank launching row 1 and nothing
+    else: 2 a Segmentation step, 1 a Thickstun step), with ms/step, peak
+    GB, launches and the `halo_exchange` and `batchnorm_moments` spans'
+    counts and host ms per rank (`step_split`). 19c: a 60-s song streamed
+    by Segmentation over the ranks against one device's stream, within
+    1e-6 (deterministic cuDNN). The ranks share the card over gloo; over
+    NCCL a card each on a machine with as many cards, and on four 19a
+    also at mesh_dp=2 x mesh_sp=2."""
+    for name in SP_FAMILIES:
+        one_process_reference(name)
+    one = sp_streams(names=STREAMS["stream_segmentation"])
+    one_eval = sp_eval(name="segmentation")
+    layouts = [("gloo, ranks share a card", "0", 1)]
+    if torch.cuda.device_count() >= SP_RANKS:
+        layouts.append(("NCCL, a card per rank", ",".join(
+            str(i) for i in range(SP_RANKS)), 1))
+    if torch.cuda.device_count() >= 2 * SP_RANKS:
+        layouts.append(("NCCL, mesh_dp=2 x mesh_sp=2", ",".join(
+            str(i) for i in range(2 * SP_RANKS)), 2))
+    read, misses = [], []
+    for label, visible, dp in layouts:
+        what = ("eval_segmentation",) + (
+            SP_FAMILIES + ("stream_segmentation",) if dp == 1
+            else ("segmentation",))
+        ranks = run_ranks(f"phase 19, {label}", visible, dp * SP_RANKS,
+                          (str(SP_RANKS), ",".join(what)))
+        gaps = hold_sp_eval("19a", label, ranks, "eval_segmentation",
+                            one_eval, dp, misses)
+        read.append(f"19a segmentation eval forward ({label}, dp {dp} x sp "
+                    f"{SP_RANKS}): largest gap over largest magnitude {gaps}")
+        for name in what:
+            if name in STREAMS or name in EVALS:
+                continue
+            gap, d = hold_sharded_step(f"phase 19 ({label})", name, ranks,
+                                       misses)
+            halos = [res[name]["split"]["halo_calls"] for res in ranks]
+            if min(halos) == 0:
+                fail(f"phase 19 {name} ({label}): a rank ran no halo "
+                     f"exchange {halos}")
+            if label.startswith("gloo"):
+                for row in rows:
+                    row[f"launches_sp_{name}_step"] = \
+                        ranks[0][name]["launches"][row["name"]]
+            read.append(f"19{'ab'[SP_FAMILIES.index(name)]} {name} ({label}; "
+                        f"{ranks[0]['backend']}, dp {dp} x sp {SP_RANKS}): "
+                        f"{sharded_read(name, ranks, gap, d)}")
+        if "stream_segmentation" not in what:
+            continue
+        frame, _, sec, launches = one["segmentation"]
+        streams = [res["stream_segmentation"]["segmentation"]
+                   for res in ranks]
+        gaps = []
+        for r, st in enumerate(streams):
+            got = st[0]
+            if got.shape != frame.shape or not torch.isfinite(got).all():
+                fail(f"phase 19c ({label}): rank {r}'s roll "
+                     f"{tuple(got.shape)}, one device's {tuple(frame.shape)}")
+            gaps.append((got - frame).abs().max().item())
+        if max(gaps) > 1e-6:
+            misses.append(f"19c ({label}): streamed over {SP_RANKS} ranks "
+                          f"{max(gaps)} from one device's roll")
+        read.append(
+            f"19c segmentation ({label}): {STREAM_SONG_SECONDS}-s song, "
+            f"{frame.shape[1]} frames, largest gap to one device's roll "
+            f"{max(gaps)}; audio-s/s per rank "
+            f"{[STREAM_SONG_SECONDS / st[2] for st in streams]} (one device "
+            f"{STREAM_SONG_SECONDS / sec}); launches per rank "
+            f"{[st[3] for st in streams]} (one device {launches})")
+    log(f"phase 19 sequence-parallel Segmentation and Thickstun (fp32, "
+        f"{SP_RANKS} ranks of {B} + {B} and {THICKSTUN_SP_B} x "
+        f"{640 // SP_RANKS} frames against one process of {B} + {B} and "
+        f"{THICKSTUN_SP_B} x 640) and Segmentation streaming: "
+        f"{'; '.join(read)}")
+    if misses:
+        fail(f"phase 19: {misses}")
+
+
+def phase_sharded_cli(rows, tmp: str, phase: str, mesh: dict,
+                      cli=None, resume: bool = True) -> None:
     """Phase 17c (`mesh` {mesh_dp: DP_RANKS, train_batch_size: DP_RANKS,
     supersmall: False}: the batch must divide over the ranks, so the four
     labeled songs of phase 11's corpus) or 18d (`mesh` {mesh_sp:
@@ -5009,34 +5183,44 @@ def phase_sharded_cli(rows, tmp: str, phase: str, mesh: dict) -> None:
     epoch with one checkpoint: rank 0's launches (rows 1, 2b, 3b, 4b),
     only rank 0's artifacts in the run directory, ms/step against phase
     11's one-process figure; then a resume on the same mesh restoring
-    every tensor bit-equal."""
+    every tensor bit-equal. 19d: the same of `cli` (`train_baseline_
+    Multi_Inst` or `train_baseline_Thickstun`, fp32 at their defaults, on
+    phase 12b's corpus of B labeled songs), which launches row 1 alone;
+    with `resume` False, no resume."""
     import datetime
 
     from reconvat_tpu_torch.parallel import distributed
     from reconvat_tpu_torch.train import checkpoint as ckpt
 
-    corpus = os.path.join(tmp, "corpus")
-    env = {"RECONVAT_MAPS_ROOT": os.path.join(corpus, "MAPS"),
-           "RECONVAT_MAESTRO_ROOT": os.path.join(corpus, "MAESTRO")}
+    flagship = cli is None
+    if flagship:
+        corpus = os.path.join(tmp, "corpus")
+        env = {"RECONVAT_MAPS_ROOT": os.path.join(corpus, "MAPS"),
+               "RECONVAT_MAESTRO_ROOT": os.path.join(corpus, "MAESTRO")}
+    else:
+        env = _corpus_env(tmp)
+    cli_name = ("train_UNet_VAT" if flagship
+                else cli.__name__.rsplit(".", 1)[1])
     args = dict(TRAIN_CLI, epoches=1, saving_freq=1, **mesh)
     world = int(mesh.get("mesh_dp", 1)) * int(mesh.get("mesh_sp", 1))
-    root = os.path.join(tmp, f"runs_{phase}")
+    root = os.path.join(tmp, f"runs_{phase}_{cli_name}")
     backend = distributed.choose_backend("cuda", world)
     # a rank that waits longer than this at a collective fails the phase
     # (and rank 0 then stops the others) inside the script's time limit
     timeout = distributed.TIMEOUT
     distributed.TIMEOUT = datetime.timedelta(minutes=5)
     try:
-        rec = train_cli(dict(args, root=root), env)
-        resumed = train_cli(dict(args, root=os.path.join(tmp, f"resumed_"
-                                                              f"{phase}"),
-                                 epoches=0, resume_iteration="latest",
-                                 trained_dir=rec["logdir"]), env)
+        rec = train_cli(dict(args, root=root), env, cli)
+        resumed = resume and train_cli(dict(
+            args, root=os.path.join(tmp, f"resumed_{phase}_{cli_name}"),
+            epoches=0, resume_iteration="latest", trained_dir=rec["logdir"]),
+            env, cli)
     finally:
         distributed.TIMEOUT = timeout
     for name, n in rec["launches"].items():
-        if (n > 0) != (name == "mel_power" or name.endswith("_bf16")):
-            fail(f"phase {phase}, the sharded CLI (bf16) launched {name} "
+        if (n > 0) != (name == "mel_power"
+                       or flagship and name.endswith("_bf16")):
+            fail(f"phase {phase}, the sharded {cli_name} launched {name} "
                  f"{n} times on rank 0")
     logdir, steps = rec["logdir"], rec["steps"]
     names = sorted(os.listdir(logdir))
@@ -5048,31 +5232,37 @@ def phase_sharded_cli(rows, tmp: str, phase: str, mesh: dict) -> None:
              f"{names}")
     saved = ckpt.load_state(os.path.join(logdir, "model-1"))
     n_tensors = 0
-    for k, v in resumed["model"].state_dict().items():
+    for k, v in (resumed["model"].state_dict().items() if resume else ()):
         if not torch.equal(v.cpu(), saved["model"][k]):
             fail(f"phase {phase} resume: tensor {k} differs from the saved")
         n_tensors += 1
-    opt = resumed["state"].optimizer.state_dict()["state"]
-    for i, slots in saved["optimizer"]["state"].items():
+    opt = resumed and resumed["state"].optimizer.state_dict()["state"]
+    for i, slots in (saved["optimizer"]["state"].items() if resume else ()):
         for name, v in slots.items():
             if not torch.equal(opt[i][name].cpu(), v):
                 fail(f"phase {phase} resume: optimizer state {i}.{name}")
             n_tensors += 1
-    key = "launches_dp_cli" if "mesh_dp" in mesh else "launches_sp_cli"
+    key = ("launches_dp_cli" if "mesh_dp" in mesh else "launches_sp_cli"
+           + ("" if flagship else f"_{cli_name}"))
     for row in rows:
         row[key] = rec["step_launches"][row["name"]] / steps
-    ms = step_ms(rec)
-    log(f"phase {phase} the training CLI at {mesh} (bf16, VAT, "
+    # a full-epoch sweep takes one step per labeled song
+    ms = step_ms(rec, iteration=min(steps, 10))
+    log(f"phase {phase} {cli_name} at {mesh} "
+        f"({'bf16, VAT' if flagship else 'fp32, its defaults'}, "
         f"{world} ranks on {backend}, "
         f"{'a card each' if backend == 'nccl' else 'sharing the card'}, "
         f"{steps} steps): ms/step "
         f"(rank 0's StepTimer) median {np.median(ms)} min {min(ms)} max "
-        f"{max(ms)}, against phase 11's one process (1 + 8) median "
-        f"{RESULTS.get('phase11_ms')}; rank 0's launches per step "
+        f"{max(ms)}"
+        + (f", against phase 11's one process (1 + 8) median "
+           f"{RESULTS.get('phase11_ms')}" if flagship else "")
+        + f"; rank 0's launches per step "
         f"{ {k: n / steps for k, n in rec['step_launches'].items() if n} }; "
         f"rank 0's peak GB {rec['peak_gb']}; run wall {rec['wall_s']} s; "
-        f"artifacts (rank 0 alone) {names}; resumed on the same mesh "
-        f"with {n_tensors} tensors bit-equal to the saved ones")
+        f"artifacts (rank 0 alone) {names}; "
+        + (f"resumed on the same mesh with {n_tensors} tensors bit-equal to "
+           f"the saved ones" if resume else "no resume"))
 
 
 DP_CLI = {"mesh_dp": DP_RANKS, "train_batch_size": DP_RANKS,
@@ -5080,13 +5270,26 @@ DP_CLI = {"mesh_dp": DP_RANKS, "train_batch_size": DP_RANKS,
 SP_CLI = {"mesh_sp": SP_RANKS}
 
 
-def data_parallel_phases() -> None:
-    """`python3 chip_smoke.py --data-parallel`: phases 17b, 17c and 18a-18d
-    alone (with the kernels built and phase 11's corpus written first),
-    for a machine with two or more cards, where they run over NCCL with a
-    card per rank too (17b and 18a-18c also over gloo on one card; on
-    four cards 18a also at mesh_dp=2 x mesh_sp=2). Runs no other phase
-    and prints no kernels line."""
+def phase_sharded_family_clis(rows, tmp: str) -> None:
+    """Phase 19d: `train_baseline_Multi_Inst` and `train_baseline_
+    Thickstun` at mesh_sp=SP_RANKS (`phase_sharded_cli`), Multi_Inst with
+    a resume (its 943 tensors; Thickstun's resume runs the same driver
+    code on 20, and is left out to keep the phase short)."""
+    from reconvat_tpu_torch import train_baseline_Multi_Inst as multi_cli
+    from reconvat_tpu_torch import train_baseline_Thickstun as thickstun_cli
+
+    phase_sharded_cli(rows, tmp, "19d", SP_CLI, multi_cli)
+    phase_sharded_cli(rows, tmp, "19d", SP_CLI, thickstun_cli, resume=False)
+
+
+def data_parallel_phases(groups=("17", "18", "19")) -> None:
+    """`python3 chip_smoke.py --data-parallel [17] [18] [19]`: phases
+    17b-17c, 18a-18d and 19a-19d alone, or the groups named (with the
+    kernels built and phases 11's and 12b's corpora written first), for a
+    machine with two or more cards, where they run over NCCL with a card
+    per rank too (17b, 18a-18c and 19a-19c also over gloo on one card; on
+    four cards 18a and 19a also at mesh_dp=2 x mesh_sp=2). Runs no other
+    phase and prints no kernels line."""
     import shutil
     import tempfile
 
@@ -5100,11 +5303,16 @@ def data_parallel_phases() -> None:
     tmp = tempfile.mkdtemp(dir=os.path.join(HERE, "build"))
     try:
         write_corpus(os.path.join(tmp, "corpus"))
+        write_corpus(os.path.join(tmp, "corpus_onset"), seed=1, labeled=B)
         for label, phase, args in (
                 ("17b", phase_data_parallel_steps, (rows,)),
                 ("17c", phase_sharded_cli, (rows, tmp, "17c", DP_CLI)),
                 ("18a-18c", phase_sequence_parallel, (rows,)),
-                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI))):
+                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI)),
+                ("19a-19c", phase_sequence_parallel_families, (rows,)),
+                ("19d", phase_sharded_family_clis, (rows, tmp))):
+            if label[:2] not in groups:
+                continue
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()
@@ -5142,7 +5350,7 @@ def main(argv: list) -> int:
                   int(argv[1]) if len(argv) > 1 else 10)
         return 0
     if argv[:1] == ["--data-parallel"]:
-        data_parallel_phases()
+        data_parallel_phases(tuple(argv[1:]) or ("17", "18", "19"))
         return 0
     log(f"torch {torch.__version__} cuda {torch.version.cuda}; "
         f"cudnn.allow_tf32={torch.backends.cudnn.allow_tf32} "
@@ -5202,7 +5410,9 @@ def main(argv: list) -> int:
                 ("17b", phase_data_parallel_steps, (rows,)),
                 ("17c", phase_sharded_cli, (rows, tmp, "17c", DP_CLI)),
                 ("18a-18c", phase_sequence_parallel, (rows,)),
-                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI))):
+                ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI)),
+                ("19a-19c", phase_sequence_parallel_families, (rows,)),
+                ("19d", phase_sharded_family_clis, (rows, tmp))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()

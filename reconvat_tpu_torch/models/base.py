@@ -116,10 +116,14 @@ class TranscriptionModel:
 
     REFERENCE_ONLY = ("spectrogram.", "normalize.", "vat_loss.")
     # the layers take the neighbouring ranks' frames under sequence
-    # parallelism (the flagship and UNetOnset: `nn/unet.py`,
-    # `nn/attention.py`); the other families refuse it (`_sp_frames`, and
-    # their training CLIs before any work, `train.driver.check_settings`)
+    # parallelism (the flagship, UNetOnset, Segmentation, Thickstun); the
+    # families that the JAX package runs data-parallel only refuse it
+    # (`_sp_frames`, and their training CLIs before any work,
+    # `train.driver.check_settings`)
     SEQUENCE_PARALLEL = False
+    # each sp rank's frames must be a multiple of this (the model's total
+    # time stride; `parallel.mesh.check_sp_frames`)
+    SP_FRAME_MULTIPLE = pmesh.SP_FRAME_MULTIPLE
 
     def _init_chain(self, frontend, n_bins, log, mode, vat_cfg, seed,
                     device, vat_chain="separate"):
@@ -193,8 +197,9 @@ class TranscriptionModel:
         computes the mel of its whole rows (the audio stays whole per row)
         and normalizes them by their own min/max, so the statistics are
         the whole clip's with no collective, then keeps its frames.
-        Raises for a family whose layers take no halo, and for t_true (the
-        evaluation, which runs whole on every rank)."""
+        Raises for a family whose layers take no halo, for frames that do
+        not split into multiples of the model's `SP_FRAME_MULTIPLE`, and
+        for t_true (the evaluation, which runs whole on every rank)."""
         ctx = pmesh.sp_context()
         if ctx is None:
             return spec
@@ -203,6 +208,7 @@ class TranscriptionModel:
         if t_true is not None:
             raise ValueError("a padded clip (t_true) is evaluated whole on "
                              "every rank, not under sequence parallelism")
+        pmesh.check_sp_frames(spec.shape[1], ctx.sp, self.SP_FRAME_MULTIPLE)
         return pmesh.sp_frames(spec, ctx, dim=1)
 
     def make_spec(self, audio, t_true=None):
@@ -253,8 +259,8 @@ class FrameSpecModel(TranscriptionModel):
     family, Thickstun, Prestack), with the serving path over `_rolls`."""
 
     def make_spec(self, audio, t_true=None):
-        """audio (B, N) -> normalized log-spec (B, T, F); refuses a
-        sequence-parallel step (`_sp_frames`)."""
+        """audio (B, N) -> normalized log-spec (B, T, F); inside a
+        sequence-parallel step, this rank's frames of it (`_sp_frames`)."""
         return self._sp_frames(make_log_norm_spec(self, audio, t_true),
                                t_true)
 

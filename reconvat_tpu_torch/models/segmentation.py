@@ -12,6 +12,14 @@ trims are pixel-exact on odd sizes (frequency 229 -> 115 -> 58 -> 29 -> 15;
 time any length). The JAX package's frequency-folded layout is a TPU
 lane-tiling device equal to this one and is not ported.
 
+Inside a sequence-parallel step (`parallel.mesh.sp_context`: this rank's
+frames of the time axis, H) every time padding is the neighbouring
+ranks' frames (`parallel.mesh.time_halo`, zeros at the clip's ends): the
+TF-SAME pads of the convolutions, the stride-2 transposed convolution's
+front frame and the attention's 8-frame windows; the frequency padding
+stays. A rank's frames are a multiple of 16, the net's total time
+stride, so its strided grids and trims are the whole clip's.
+
 Submodule names are the reference's, so its state_dict loads by name (its
 stride-1 blocks' unused `conv_skip` weights are dropped). Dropout draws
 its masks once per `run_on_batch` (`nn/layers.SharedDropout`), as the JAX
@@ -31,6 +39,7 @@ from ..nn.layers import Linear, SharedDropout
 from ..nn.precision import promote_fp32, resolve_compute_dtype
 from ..nn.unet import BatchNorm2d, Conv2d, ConvTranspose2d
 from ..ops.spectrogram import make_frontend
+from ..parallel import mesh as pmesh
 from ..vat import VATConfig, vat_loss
 from .base import (TranscriptionModel, fp32_math, read_state_dict,
                    resolve_device)
@@ -44,12 +53,22 @@ def _pad_amount(size: int, k: int, s: int) -> int:
     return max(k - (size % s), 0)
 
 
+# the time axis of the NCHW activations (the dropout masks' too)
+TIME_DIM = 2
+
+
 def tf_same_pad(x, ksize, stride):
     """TF 'SAME' padding of an NCHW tensor, the extra pixel at the end
     (reference `calculate_padding` + `SAME_padding`, `model/Segmentation.
-    py:76-133`)."""
+    py:76-133`). Inside a sequence-parallel step the time padding is a
+    halo: an interior rank's extra frame at the end of a stride-2
+    convolution is the next rank's first frame."""
     ph = _pad_amount(x.shape[2], ksize[0], stride[0])
     pw = _pad_amount(x.shape[3], ksize[1], stride[1])
+    ctx = pmesh.sp_context()
+    if ctx is not None and ph:
+        x = pmesh.time_halo(x, ph // 2, ph - ph // 2, ctx, dim=TIME_DIM)
+        ph = 0
     return F.pad(x, (pw // 2, pw - pw // 2, ph // 2, ph - ph // 2))
 
 
@@ -84,10 +103,10 @@ class ConvBlockSeg(nn.Module):
         self.ksize, self.stride = tuple(ksize), tuple(stride)
         self.conv1 = Conv2d(inp, out, ksize, stride, **cd)
         self.bn1 = BatchNorm2d(inp)
-        self.dropout1 = SharedDropout(dropout_rate)
+        self.dropout1 = SharedDropout(dropout_rate, TIME_DIM)
         self.conv2 = Conv2d(out, out, ksize, 1, **cd)
         self.bn2 = BatchNorm2d(out)
-        self.dropout2 = SharedDropout(dropout_rate)
+        self.dropout2 = SharedDropout(dropout_rate, TIME_DIM)
         if self.stride != (1, 1):
             self.conv_skip = Conv2d(inp, out, 1, stride, **cd)
 
@@ -107,7 +126,11 @@ class TransposeConvBlock(nn.Module):
     a pre-activated convolution, then a pre-activated strided transposed
     convolution cropped to input x stride and trimmed to the encoder's
     size; the skip is a 1 x 1 strided transposed convolution driven to
-    that size (`output_size`)."""
+    that size (`output_size`). Inside a sequence-parallel step the
+    transposed convolution's first output frames take the previous
+    rank's last input frames ((k - 1) // stride of them, one here): it
+    runs on them and this rank's, and its output's first frames past this
+    rank's grid are cropped."""
 
     def __init__(self, inp: int, out: int, ksize=(3, 3), stride=(2, 2),
                  dropout_rate: float = 0.4, compute_dtype=None):
@@ -116,10 +139,10 @@ class TransposeConvBlock(nn.Module):
         self.ksize, self.stride = tuple(ksize), tuple(stride)
         self.conv1 = Conv2d(inp, out, ksize, 1, **cd)
         self.bn1 = BatchNorm2d(inp)
-        self.dropout1 = SharedDropout(dropout_rate)
+        self.dropout1 = SharedDropout(dropout_rate, TIME_DIM)
         self.conv2 = ConvTranspose2d(out, out, ksize, stride, **cd)
         self.bn2 = BatchNorm2d(out)
-        self.dropout2 = SharedDropout(dropout_rate)
+        self.dropout2 = SharedDropout(dropout_rate, TIME_DIM)
         self.conv_skip = ConvTranspose2d(inp, out, 1, stride, **cd)
 
     def forward(self, x, target_hw):
@@ -128,7 +151,14 @@ class TransposeConvBlock(nn.Module):
         x = self.conv1(tf_same_pad(x, self.ksize, (1, 1)))
         x = _pre_act(self.bn2, self.dropout2, x)
         input_hw = x.shape[2:]
-        x = transpose_padding_same(self.conv2(x), input_hw, self.stride)
+        ctx = pmesh.sp_context()
+        if ctx is None:
+            x = self.conv2(x)
+        else:
+            h = (self.ksize[0] - 1) // self.stride[0]
+            x = self.conv2(pmesh.time_halo(x, h, 0, ctx, dim=TIME_DIM))[
+                :, :, h * self.stride[0]:]
+        x = transpose_padding_same(x, input_hw, self.stride)
         # the extra-pixel trim to the encoder's size (`model/Segmentation.
         # py:223-226`)
         if x.shape[2] > target_hw[0]:
@@ -147,7 +177,9 @@ class MultiHeadAttention2D(nn.Module):
     stacked over the channel halves, are added to the key windows.
     Energies unscaled, the softmax and the output in fp32 (or float64).
     (B, in, H, W) -> (out (B, C, H, W), probabilities (B, H, W, groups,
-    kh * kw)). The windows are
+    kh * kw)). Inside a sequence-parallel step the windows' time padding
+    is the neighbouring ranks' frames (`parallel.mesh.time_halo`, as many
+    ranks as (kh - 1) / 2 frames span). The windows are
     materialised (`Tensor.unfold`), as the JAX package's are: it runs on
     the bottleneck, or on a few channels."""
 
@@ -170,7 +202,8 @@ class MultiHeadAttention2D(nn.Module):
         ph, pw = (kh - 1) // 2, (kw - 1) // 2
         Co, G = self.out_channels, self.groups
         q = self.query_conv(x)
-        xpad = F.pad(x, (pw, pw, ph, ph))
+        xpad = F.pad(pmesh.time_halo(x, ph, ph, pmesh.sp_context(),
+                                     dim=TIME_DIM), (pw, pw))
         # (B, C, H, W, kh, kw) windows
         k = self.key_conv(xpad).unfold(2, kh, 1).unfold(3, kw, 1)
         v = self.value_conv(xpad).unfold(2, kh, 1).unfold(3, kw, 1)
@@ -236,7 +269,7 @@ class DecoderBlockSeg(nn.Module):
                               compute_dtype=compute_dtype)
         self.bn = BatchNorm2d(input_channels)
         self.bn_en = BatchNorm2d(encoder_channels)
-        self.dropout1 = SharedDropout(dropout_rate)
+        self.dropout1 = SharedDropout(dropout_rate, TIME_DIM)
         self.layer1b = TransposeConvBlock(input_channels, output_channels,
                                           (3, 3), (2, 2), dropout_rate,
                                           compute_dtype)
@@ -285,7 +318,7 @@ class SegmentationModule(nn.Module):
                                           dropout_rate, **kw)
         self.decoder = SegDecoder(dropout_rate, **kw)
         self.bn_last = BatchNorm2d(64)
-        self.dropout_last = SharedDropout(dropout_rate)
+        self.dropout_last = SharedDropout(dropout_rate, TIME_DIM)
         self.conv_last = Conv2d(64, out_class, 1)
         self.inference_model = Linear(n_bins, C.N_KEYS)
 
@@ -310,7 +343,10 @@ class SemanticSegmentation(TranscriptionModel, SegmentationModule):
     `conv_layout` 'auto' is the NHWC-equivalent layout, 'folded' (the JAX
     package's TPU layout) raises; `n_heads` and `reconstruction` are taken
     and unused, as in the JAX package. VAT perturbs the (B, T, F, 1) spec
-    image with its norm over the bins, one power iteration."""
+    image with its norm over the bins, one power iteration. Takes
+    sequence parallelism (the layers' halos above)."""
+
+    SEQUENCE_PARALLEL = True
 
     def __init__(self, out_class: int = 1, dropout_rate: float = 0.4,
                  log: bool = True, mode: str = "imagewise",

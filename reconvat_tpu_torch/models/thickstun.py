@@ -10,7 +10,10 @@ convolutional pass over the spectrogram padded by 12 frames each side, as
 the JAX package runs it. The convolutions run on (B, 1, freq, time) with
 the reference's weight layout (O, I, freq, time), so its state_dict loads
 as it is. `compute_dtype='bfloat16'` runs both convolutions and the linear
-layer (most of the FLOPs) in bf16; the sigmoid is fp32.
+layer (most of the FLOPs) in bf16; the sigmoid is fp32. Inside a
+sequence-parallel step the 12 frames each side are the neighbouring
+ranks' (`parallel.mesh.time_halo`, as many ranks as they span; zeros at
+the clip's ends), and a rank's frames need only divide the crop.
 """
 from __future__ import annotations
 
@@ -23,6 +26,7 @@ from ..nn.layers import Linear
 from ..nn.precision import promote_fp32, resolve_compute_dtype
 from ..nn.unet import Conv2d
 from ..ops.spectrogram import make_frontend
+from ..parallel import mesh as pmesh
 from .base import FrameSpecModel, resolve_device
 from .common import frame_mask
 from .losses import binary_cross_entropy
@@ -46,7 +50,8 @@ class ThickstunNet(nn.Module):
 
     def forward(self, spec):
         pad = TIME_KERNEL // 2
-        x = F.pad(spec, (0, 0, pad, pad)).transpose(1, 2)[:, None]
+        x = pmesh.time_halo(spec, pad, pad, pmesh.sp_context()).transpose(
+            1, 2)[:, None]
         z2 = F.relu(self.CNN_freq(x))           # (B, 128, 51, T + 24)
         z3 = F.relu(self.CNN_time(z2))          # (B, 4096, 51, T)
         # channel-major flatten per frame (`Thickstun_model.py:34`)
@@ -59,7 +64,11 @@ class Thickstun(FrameSpecModel, ThickstunNet):
     `model/Thickstun_model.py:37-73`): supervised only, no VAT. The loss
     key is 'loss/train_frame' in training and evaluation alike, as in the
     reference. Constructor keys as `ReconVAT`'s; `reconstruction` is taken
-    and has no effect."""
+    and has no effect. Takes sequence parallelism at any frames that
+    divide over the ranks (no time stride)."""
+
+    SEQUENCE_PARALLEL = True
+    SP_FRAME_MULTIPLE = 1
 
     def __init__(self, log: bool = True, mode: str = "imagewise",
                  spec: str = "Mel", reconstruction: bool = False,

@@ -52,13 +52,15 @@ class SharedDropout(nn.Module):
     """Dropout whose mask is drawn once per input shape and step: kept
     elements are scaled by 1/(1 - p), as Flax's `Dropout` does. The masks
     come from `generator` (seed 0 when it is None, as the JAX package's
-    default key) and hold until `new_masks`. Inside a data-parallel step
-    each rank keeps its rows of the global batch's mask
-    (`parallel.mesh.draw_rows`)."""
+    default key) and hold until `new_masks`. Inside a sharded step each
+    rank keeps its rows of the global batch's mask and, under sequence
+    parallelism, its frames on axis `time_dim` (`parallel.mesh.
+    draw_rows`: 1 for a (B, T, ...) input, 2 for an NCHW one)."""
 
-    def __init__(self, p: float):
+    def __init__(self, p: float, time_dim: int = 1):
         super().__init__()
         self.p = p
+        self.time_dim = time_dim
         self.new_masks(None)
 
     def new_masks(self, generator) -> None:
@@ -74,7 +76,8 @@ class SharedDropout(nn.Module):
             if g is None:
                 g = self.generator = torch.Generator(x.device).manual_seed(0)
             keep = pmesh.draw_rows(lambda shape: torch.rand(
-                shape, generator=g, device=g.device), x.shape) < 1.0 - self.p
+                shape, generator=g, device=g.device), x.shape,
+                time_dim=self.time_dim) < 1.0 - self.p
             keep = self.masks[tuple(x.shape)] = keep.to(x.device)
         return torch.where(keep, x / (1.0 - self.p), 0.0)
 

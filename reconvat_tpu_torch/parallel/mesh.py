@@ -21,8 +21,10 @@ consecutive ranks), and the collectives are explicit:
   rows and frames (`draw_rows`), so that the step draws what the
   one-device step draws; under sp the models' `make_spec` keeps this
   rank's frames (`sp_frames`) and each layer that reaches across frames
-  takes the neighbouring ranks' edge frames (`time_halo`: the U-Net's 3x3
-  convolutions one frame, the window-31 attention 15); after the backward
+  takes the neighbouring ranks' frames (`time_halo`, as many ranks' as
+  the halo spans: the U-Nets' 3x3 convolutions one frame, the window-31
+  attention 15, Segmentation's TF-SAME pads, transposed convolutions and
+  17 x 17 windows, Thickstun's 25-frame kernel 12); after the backward
   the gradients and the returned losses are all-reduced to their means
   over all ranks (`all_reduce_mean`).
 
@@ -47,9 +49,8 @@ from . import distributed
 
 BATCH_KEYS = ("audio", "onset", "offset", "frame", "velocity")
 LABEL_KEYS = ("onset", "offset", "frame", "velocity")   # (B, T, ...)
-SP_FAMILY_ITEM = ("ROADMAP §1 item 3.4, sequence parallelism in the "
-                  "families other than the flagship and UNetOnset")
-# the U-Net's total stride: the frames of each sp rank must be a multiple
+# the U-Nets' and Segmentation's total time stride: by default the frames
+# of each sp rank must be a multiple (a model's `SP_FRAME_MULTIPLE`)
 SP_FRAME_MULTIPLE = 16
 
 _ACTIVE = None          # the MeshContext of `activate`
@@ -58,23 +59,27 @@ _STEP = None            # the MeshContext of the step in progress
 
 def refuse_sp(sp: int, what: str) -> None:
     """Raise NotImplementedError for `mesh_sp` > 1 in `what` (a model
-    family or CLI whose layers take no halo)."""
+    family or CLI that runs data-parallel only)."""
     if sp > 1:
         raise NotImplementedError(
-            f"mesh_sp={sp}: sequence parallelism is ported for the flagship "
-            f"ReconVAT and UNetOnset only; {what} would need its own halos "
-            f"({SP_FAMILY_ITEM})")
+            f"mesh_sp={sp}: {what} runs data-parallel only (mesh_dp). The "
+            f"JAX package runs the Onsets-and-Frames family and the "
+            f"attention models (BiLSTMs scanned over time) and Prestack (a "
+            f"patch per frame) data-parallel only by design; sequence "
+            f"parallelism takes the flagship, UNetOnset, Segmentation and "
+            f"Thickstun")
 
 
-def check_sp_frames(frames: int, sp: int) -> None:
+def check_sp_frames(frames: int, sp: int,
+                    multiple: int = SP_FRAME_MULTIPLE) -> None:
     """Raise ValueError unless `frames` split over `sp` ranks into equal
-    shares that are multiples of SP_FRAME_MULTIPLE (the U-Net's total
+    shares that are multiples of `multiple` (the model's total time
     stride, which keeps each rank's strided grids anchored like the whole
-    clip's)."""
-    if sp > 1 and (frames % sp or (frames // sp) % SP_FRAME_MULTIPLE):
+    clip's; 1 for a model without one)."""
+    if sp > 1 and (frames % sp or (frames // sp) % multiple):
         raise ValueError(
             f"{frames} frames do not split over mesh_sp={sp} ranks into "
-            f"multiples of {SP_FRAME_MULTIPLE} frames (the U-Net's total "
+            f"multiples of {multiple} frames (the model's total time "
             f"stride): adjust sequence_length or mesh_sp")
 
 
@@ -314,23 +319,28 @@ def global_moments(mean: torch.Tensor, var: torch.Tensor,
 
 def time_halo(x: torch.Tensor, before: int, after: int,
               ctx: MeshContext | None, dim: int = 1) -> torch.Tensor:
-    """x (this rank's frames on axis `dim`) with `before` frames of the
-    previous sp rank in front and `after` frames of the next one behind,
-    zeros at the clip's ends: the slice of the whole clip zero-padded by
-    (before, after) that this rank's frames need, differentiably (the
-    halo rows' gradients go back to the ranks that own them and are added
-    there). One zero-stack all-reduce over the sp group each way (a
-    `halo_exchange` profiler span): each rank writes its last `before`
-    and first `after` frames into its row of an (sp, before + after, ...)
-    stack. `ctx` None (no sequence-parallel step, `sp_context`): x
+    """x (this rank's frames on axis `dim`) with the `before` frames of the
+    whole clip that precede them in front and the `after` that follow
+    them behind, zeros past the clip's ends: the slice of the whole clip
+    zero-padded by (before, after) that this rank's frames need,
+    differentiably (the halo rows' gradients go back to the ranks that
+    own them and are added there). A halo longer than a rank's t frames
+    reads as many ranks as it spans. One zero-stack all-reduce over the
+    sp group each way (a `halo_exchange` profiler span): each rank
+    writes its last min(before, t) and first min(after, t) frames into
+    its row of an (sp, ...) stack (in the backward, its halo rows'
+    gradients). `ctx` None (no sequence-parallel step, `sp_context`): x
     zero-padded by (before, after)."""
     if ctx is None:
         pad = [0, 0] * (x.dim() - dim - 1) + [before, after]
         return torch.nn.functional.pad(x, pad)
-    if x.shape[dim] < max(before, after):
-        raise ValueError(f"a halo of {max(before, after)} frames is longer "
-                         f"than the {x.shape[dim]} frames of a rank")
     return _TimeHalo.apply(x, before, after, ctx, dim)
+
+
+def _span(halo: int, t: int) -> int:
+    """The number of ranks of t frames that a halo of `halo` frames
+    reads."""
+    return -(-halo // t)
 
 
 class _TimeHalo(torch.autograd.Function):
@@ -339,14 +349,23 @@ class _TimeHalo(torch.autograd.Function):
     def forward(fctx, x, before, after, ctx, dim):
         fctx.args = (before, after, ctx, dim)
         n, i, t = ctx.sp, ctx.sp_rank, x.shape[dim]
-        edges = torch.cat([x.narrow(dim, t - before, before),
-                           x.narrow(dim, 0, after)], dim)
+        nb, na = min(before, t), min(after, t)
+        edges = torch.cat([x.narrow(dim, t - nb, nb), x.narrow(dim, 0, na)],
+                          dim)
         rows = _exchange(_zero_stack(edges, i, n), ctx)
-        head = (rows[i - 1].narrow(dim, 0, before) if i > 0
-                else torch.zeros_like(edges.narrow(dim, 0, before)))
-        tail = (rows[i + 1].narrow(dim, before, after) if i < n - 1
-                else torch.zeros_like(edges.narrow(dim, before, after)))
-        return torch.cat([head, x, tail], dim)
+
+        def part(j, start, length):      # rank j's edge frames, or zeros
+            if 0 <= j < n:
+                return rows[j].narrow(dim, start, length)
+            return torch.zeros_like(edges.narrow(dim, start, length))
+
+        head = [part(j, 0, nb) for j in range(i - _span(before, t), i)]
+        tail = [part(j, nb, na)
+                for j in range(i + 1, i + 1 + _span(after, t))]
+        head = torch.cat(head, dim) if head else edges.narrow(dim, 0, 0)
+        tail = torch.cat(tail, dim) if tail else edges.narrow(dim, 0, 0)
+        return torch.cat([head.narrow(dim, head.shape[dim] - before, before),
+                          x, tail.narrow(dim, 0, after)], dim)
 
     @staticmethod
     def backward(fctx, grad):
@@ -358,12 +377,20 @@ class _TimeHalo(torch.autograd.Function):
             dim), i, n), ctx)
         dx = grad.narrow(dim, before, t).clone(
             memory_format=torch.contiguous_format)
-        if i < n - 1:        # the next rank's halo in front: my last frames
-            dx.narrow(dim, t - before, before).add_(
-                rows[i + 1].narrow(dim, 0, before))
-        if i > 0:            # the previous rank's halo behind: my first
-            dx.narrow(dim, 0, after).add_(rows[i - 1].narrow(dim, before,
-                                                             after))
+        # the next ranks' halos in front cover my last frames: rank i + k's
+        # front halo starts k * t - before frames past my first frame
+        for k in range(1, min(_span(before, t), n - 1 - i) + 1):
+            start = k * t - before
+            lo = max(start, 0)
+            dx.narrow(dim, lo, t - lo).add_(
+                rows[i + k].narrow(dim, lo - start, t - lo))
+        # the previous ranks' halos behind cover my first frames: rank
+        # i - k's back halo starts (k - 1) * t frames before my first frame
+        for k in range(1, min(_span(after, t), i) + 1):
+            skip = (k - 1) * t
+            m = min(after - skip, t)
+            dx.narrow(dim, 0, m).add_(
+                rows[i - k].narrow(dim, before + skip, m))
         return dx, None, None, None, None
 
 
@@ -376,22 +403,27 @@ def _exchange(stack: torch.Tensor, ctx: MeshContext) -> torch.Tensor:
     return y.to(stack.dtype) if wide else y
 
 
-def draw_rows(draw, shape, split: int | None = None) -> torch.Tensor:
+def draw_rows(draw, shape, split: int | None = None,
+              time_dim: int = 1) -> torch.Tensor:
     """`draw(shape)` (a seeded random tensor); inside a sharded step,
     `draw` of the global batch's shape, of which this rank keeps its rows
-    and, under sp, its frames (axis 1, as in every (B, T, ...) draw of a
-    model that takes sp), so each rank gets what the one-device step draws
-    for them. With `split` the batch is two stacked parts, [:split] and
+    and, under sp, its frames (axis `time_dim`: 1 in a (B, T, ...) draw, 2
+    in an NCHW one), so each rank gets what the one-device step draws for
+    them. With `split` the batch is two stacked parts, [:split] and
     [split:], each sharded over the dp ranks (VAT's batched chain), and
     the global draw is the two global parts stacked."""
     ctx = step_context()
     if ctx is None:
         return draw(tuple(shape))
     parts = [shape[0]] if split is None else [split, shape[0] - split]
-    full = draw((sum(parts) * ctx.dp, shape[1] * ctx.sp) + tuple(shape[2:]))
+    whole = list(shape)
+    whole[0] = sum(parts) * ctx.dp
+    whole[time_dim] *= ctx.sp
+    full = draw(tuple(whole))
     rows, start = [], 0
     for n in parts:
         rows.append(full[start + ctx.dp_rank * n:
                          start + (ctx.dp_rank + 1) * n])
         start += n * ctx.dp
-    return sp_frames(torch.cat(rows) if len(rows) > 1 else rows[0], ctx)
+    return sp_frames(torch.cat(rows) if len(rows) > 1 else rows[0], ctx,
+                     time_dim)

@@ -9,8 +9,11 @@ frames, no VAT), the card against the CPU, by `chip_smoke.median_rule`
 over two kinds of draws: `BF16_9B_DRAWS` weight draws
 (`chip_smoke.weight_draws`, phase 9b's), and as many audio copies
 (`chip_smoke.probe_batches`) at the present weights. Prints, per state
-and per prediction, the upper bound's share of its limit and the card's
-move over the CPU's. Needs one CUDA device and nvcc.
+and per prediction, the upper bound's share of its limit, the card's
+move over the CPU's and, over the weight draws, the share of the second
+reading's limit (+ `PROBE_FACTOR` x the CPU bf16 route's spread,
+`chip_smoke.bf16_spread`), with the spread. Needs one CUDA device and
+nvcc.
 """
 from __future__ import annotations
 
@@ -53,7 +56,8 @@ def main(n_states: int = 8) -> None:
             step(state, *batches[i % 2], gen)
         start = {n: v.clone() for n, v in model.state_dict().items()}
         by_weights = {n: [] for n in routes}
-        for weights in cs.weight_draws(start, cs.BF16_9B_DRAWS, seed=19):
+        states = cs.weight_draws(start, cs.BF16_9B_DRAWS, seed=19)
+        for weights in states:
             for name, m in routes.items():
                 m.load_state_dict(weights)
                 by_weights[name].append(cs.short_step(m, short_l)[0])
@@ -61,12 +65,15 @@ def main(n_states: int = 8) -> None:
         for name, m in routes.items():
             m.load_state_dict(start)
             by_audio[name] = [cs.short_step(m, x)[0] for x in copies]
-        for label, runs in (("weight draws", by_weights),
-                            ("audio copies", by_audio)):
+        spread = cs.bf16_spread(routes["cpu16"], states, short_l)
+        for label, runs, sp in (("weight draws", by_weights, spread),
+                                ("audio copies", by_audio, None)):
             misses, read = cs.median_rule(runs["card16"], runs["cpu16"],
-                                          runs["card32"], runs["cpu32"])
+                                          runs["card32"], runs["cpu32"], sp)
             print(f"after {4 * (k + 1)} steps, {label}: (upper share, "
-                  f"move) {read}; misses {misses}", flush=True)
+                  f"move{'' if sp is None else ', second share'}) {read}; "
+                  f"misses {misses}"
+                  + ("" if sp is None else f"; spread {sp}"), flush=True)
 
 
 if __name__ == "__main__":

@@ -82,13 +82,14 @@ def mesh_world(cfg) -> int:
     return world
 
 
-def check_mesh(cfg) -> int:
+def check_mesh(cfg, frame_multiple: int = pmesh.SP_FRAME_MULTIPLE) -> int:
     """`mesh_world` and the JAX driver's divisibility checks
     (`reconvat_tpu/train/driver.py:111-114`): each sharded loader's batch
     (the labeled `train_batch_size`, and with VAT the unlabeled
     `batch_size`) must divide over the dp ranks, and a crop's frames over
-    the sp ranks into multiples of 16 (`parallel.mesh.check_sp_frames`).
-    Returns the number of ranks."""
+    the sp ranks into multiples of `frame_multiple`, the model's
+    (`SP_FRAME_MULTIPLE`: 16, Thickstun's 1; `parallel.mesh.
+    check_sp_frames`). Returns the number of ranks."""
     world = mesh_world(cfg)
     sp = mesh_sp(cfg)
     dp = world // sp
@@ -103,7 +104,8 @@ def check_mesh(cfg) -> int:
                 f"data-parallel ranks (mesh_dp): adjust the batch size or "
                 f"mesh_dp")
     if sp > 1:
-        pmesh.check_sp_frames(frames_in(int(cfg["sequence_length"])), sp)
+        pmesh.check_sp_frames(frames_in(int(cfg["sequence_length"])), sp,
+                              frame_multiple)
     return world
 
 
@@ -152,17 +154,18 @@ def check_spec(spec: str) -> None:
 
 def check_settings(cfg, model):
     """Raise for the settings the training CLIs of the port do not run: a
-    mesh that cannot run (`check_mesh`), sequence parallelism (`mesh_sp` >
-    1) for a `model` class (the one the CLI trains) whose layers take no
-    halo (`SEQUENCE_PARALLEL` False: every family but the flagship and
-    UNetOnset), the folded U-Net layout, the plain attention, the CFP
+    mesh that cannot run (`check_mesh`, at the frame multiple of `model`,
+    the class the CLI trains), sequence parallelism (`mesh_sp` > 1) for a
+    `model` that runs data-parallel only (`SEQUENCE_PARALLEL` False: the
+    O&F family, the attention models, Prestack), the folded U-Net
+    layout, the plain attention, the CFP
     frontend (`check_spec`), and CUDA without a card. `attn_impl` and
     `conv_layout` are read where a CLI has them (the baselines' have
     neither). The CLIs' `Experiment` runs it before the observers write
     the run directory."""
     if not model.SEQUENCE_PARALLEL:
         pmesh.refuse_sp(mesh_sp(cfg), model.__name__)
-    check_mesh(cfg)
+    check_mesh(cfg, model.SP_FRAME_MULTIPLE)
     check_spec(cfg["spec"])
     attn_impl = cfg.get("attn_impl", "auto")
     if attn_impl == "xla":

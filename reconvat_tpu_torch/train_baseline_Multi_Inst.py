@@ -6,11 +6,14 @@ defaults):
 
 `SemanticSegmentation` over `train.driver.run_training`: 8 labeled clips a
 step, VAT off by default (`VAT=True` adds 8 unlabeled ones). Runs on CUDA
-unless `device=cpu`; without a card, for `mesh_sp` > 1,
-`conv_layout=folded` or the CFP frontend it raises before the run
-directory is written (`train.driver.check_settings`); `with mesh_dp=N`
-trains data-parallel on N ranks. Writes its run directory under
-`root` as `train_UNet_VAT` does.
+unless `device=cpu`; without a card, for `conv_layout=folded`, the CFP
+frontend or a crop whose frames do not split over `mesh_sp` into
+multiples of 16 it raises before the run directory is written
+(`train.driver.check_settings`). `with mesh_dp=N mesh_sp=S` trains on N x
+S ranks, started from this command: the batch over N, each crop's frames
+over S (sequence parallelism: the layers take the neighbouring ranks'
+frames, `models/segmentation.py`); rank 0 alone writes. Writes its run
+directory under `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
 from functools import partial
@@ -67,9 +70,9 @@ def config():
     seed = 42
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
     conv_layout = 'auto'   # 'auto' or 'nhwc'; 'folded' (TPU) raises
-    # data parallelism over mesh_dp ranks (-1: every visible GPU),
-    # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises (ROADMAP §1 item 3.4)
+    # mesh_dp x mesh_sp ranks (mesh_dp -1: every visible GPU over mesh_sp),
+    # started from this command (train/driver.run_training): the batch over
+    # dp, each crop's frames over sp (multiples of 16 frames a rank)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

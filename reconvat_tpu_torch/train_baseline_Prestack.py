@@ -65,8 +65,8 @@ def config():
     train_loop = "full_epoch"
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
     # data parallelism over mesh_dp ranks (-1: every visible GPU),
-    # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises (ROADMAP §1 item 3.4)
+    # started from this command (train/driver.run_training); mesh_sp > 1
+    # raises: data-parallel only, as the JAX package runs it
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

@@ -5,9 +5,12 @@ counterpart of `train_baseline_Thickstun.py`, with its keys and defaults):
 
 Supervised full-epoch sweeps at batch 1 (`train_loop='full_epoch'`,
 `train.driver.run_training`). Runs on CUDA unless `device=cpu`; without a
-card, for `mesh_sp` > 1 or the CFP frontend it raises before the run
-directory is written (`train.driver.check_settings`); `with mesh_dp=N`
-trains data-parallel on N ranks. Writes its run
+card, for the CFP frontend or a crop whose frames do not divide over
+`mesh_sp` it raises before the run directory is written
+(`train.driver.check_settings`). `with mesh_dp=N mesh_sp=S` trains on N x
+S ranks, started from this command: the batch over N, each crop's frames
+over S (sequence parallelism: the 25-frame kernel takes 12 frames of the
+neighbouring ranks each side); rank 0 alone writes. Writes its run
 directory under `root` as `train_UNet_VAT` does.
 """
 from datetime import datetime
@@ -66,9 +69,9 @@ def config():
     # 10-iteration VAT loop (`train_baseline_Thickstun.py:122`)
     train_loop = "full_epoch"
     compute_dtype = None   # 'bfloat16' = mixed-precision compute
-    # data parallelism over mesh_dp ranks (-1: every visible GPU),
-    # started from this command (train/driver.run_training); mesh_sp > 1,
-    # sequence parallelism, raises (ROADMAP §1 item 3.4)
+    # mesh_dp x mesh_sp ranks (mesh_dp -1: every visible GPU over mesh_sp),
+    # started from this command (train/driver.run_training): the batch over
+    # dp, each crop's frames over sp (any frames that divide)
     mesh_dp = 0
     mesh_sp = 0
     multihost = False

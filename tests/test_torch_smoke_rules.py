@@ -37,18 +37,28 @@ def preds():
     for mod in routes["no_conv_cast"].modules():
         if isinstance(mod, (Conv2d, ConvTranspose2d)):
             mod.compute_dtype = None
-    rng = np.random.RandomState(0)
-    batch = {"audio": torch.tensor(rng.randn(2, 32 * 512) * 0.1,
-                                   dtype=torch.float32),
-             "frame": torch.tensor(rng.rand(2, 32, 88) < 0.03,
-                                   dtype=torch.float32)}
+    batch = _short_batch()
     out = {name: [] for name in routes}
-    for weights in chip_smoke.weight_draws(routes["cpu32"].state_dict(),
-                                           chip_smoke.BF16_9B_DRAWS, 19):
+    for weights in _states():
         for name, m in routes.items():
             m.load_state_dict(weights)
             out[name].append(chip_smoke.short_step(m, batch)[0])
     return out
+
+
+def _short_batch():
+    rng = np.random.RandomState(0)
+    return {"audio": torch.tensor(rng.randn(2, 32 * 512) * 0.1,
+                                  dtype=torch.float32),
+            "frame": torch.tensor(rng.rand(2, 32, 88) < 0.03,
+                                  dtype=torch.float32)}
+
+
+def _states():
+    """The seeded init and BF16_9B_DRAWS perturbed copies of it."""
+    return chip_smoke.weight_draws(
+        ReconVAT(seed=0, device="cpu").state_dict(),
+        chip_smoke.BF16_9B_DRAWS, 19)
 
 
 def test_median_rule_passes_the_cpu_bf16_route(preds):
@@ -73,6 +83,27 @@ def test_median_rule_fails_a_route_missing_the_conv_cast(preds):
     for k in misses:
         upper, move = read[k]
         assert upper <= 1.0 and move < 1 / chip_smoke.BF16_MOVE_FLOOR, read
+
+
+def test_median_rule_second_reading_keeps_the_lower_bound(preds):
+    """Phase 9b's second reading (`chip_smoke.bf16_spread`: the CPU bf16
+    route's own rms move under 1e-6 audio probes, median over the weight
+    draws; PROBE_FACTOR x it added to the upper limit): the spread is
+    nonzero for every prediction, the CPU's bf16 route holds it with each
+    share no larger than the first reading's, and the route that misses
+    the convolutions' cast still breaks the lower bound it breaks
+    without the spread."""
+    cpu16 = ReconVAT(seed=0, device="cpu", compute_dtype="bfloat16")
+    spread = chip_smoke.bf16_spread(cpu16, _states(), _short_batch())
+    assert all(v > 0 for v in spread.values()), spread
+    misses, read = chip_smoke.median_rule(preds["cpu16"], preds["cpu16"],
+                                          preds["cpu32"], preds["cpu32"],
+                                          spread)
+    assert misses == [] and all(r[2] <= r[0] for r in read.values()), read
+    misses, read = chip_smoke.median_rule(
+        preds["no_conv_cast"], preds["cpu16"], preds["cpu32"],
+        preds["cpu32"], spread)
+    assert misses == ["reconstruction", "frame"], read
 
 
 def _readings(model, frames: int, onset=False):

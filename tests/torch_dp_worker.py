@@ -1,7 +1,8 @@
 """One rank of the data-parallel and sequence-parallel CPU tests
-(tests/test_torch_parallel.py, tests/test_torch_sequence_parallel.py, and
-the JAX comparisons of tests/test_torch_train.py and
-tests/test_torch_segmentation.py), torch only:
+(tests/test_torch_parallel.py, tests/test_torch_sequence_parallel.py,
+tests/test_torch_sequence_parallel_families.py, and the JAX comparisons
+of tests/test_torch_train.py and tests/test_torch_segmentation.py), torch
+only:
 
     python -m tests.torch_dp_worker <rank> <world> <port> <out.pt> [job.pt]
 
@@ -13,8 +14,10 @@ With a job (`run_job`) it takes one train step of the job's model and
 weights on its share of the job's global batches (over `job["sp"]` sp
 ranks, 1 by default) and saves `step_run`'s result; a job of `SP_CASES`
 (`{"cases": [(case, sp), ...]}`) runs each sequence-parallel case on a mesh
-of that sp (`sp_case`). `spawn` starts the ranks.
+of that sp (`sp_case`; a case named in the job's `jobs` dict is that
+job's step, `job_run`). `spawn` starts the ranks.
 """
+import contextlib
 import datetime
 import os
 import socket
@@ -27,7 +30,9 @@ import torch
 from reconvat_tpu_torch.models import get_model
 from reconvat_tpu_torch.models.reconvat import ReconVAT
 from reconvat_tpu_torch.models.segmentation import SemanticSegmentation
+from reconvat_tpu_torch.models.thickstun import Thickstun
 from reconvat_tpu_torch.models.unet_onset import UNetOnset
+from reconvat_tpu_torch.nn.layers import SharedDropout
 from reconvat_tpu_torch.nn.unet import BatchNorm2d
 from reconvat_tpu_torch.parallel import distributed
 from reconvat_tpu_torch.parallel import mesh as pmesh
@@ -118,18 +123,43 @@ def step_run(model, batch_l, batch_ul, vat: bool, seed: int = SEED,
             "state": {k: v.clone() for k, v in model.state_dict().items()}}
 
 
+@contextlib.contextmanager
+def jax_attention_casts():
+    """Inside, Segmentation's `MultiHeadAttention2D` rounds as the JAX
+    package's does in float64 (x64) mode (`reconvat_tpu/models/
+    segmentation.py:312-314`): the energies cast to fp32 and the softmax
+    taken in fp32, the output rounded to fp32, each cotangent rounded the
+    same way in the backward. The port's `promote_fp32` there meets the
+    (B, G, H, W, k) energies and the (B, C, H, W) output."""
+    from reconvat_tpu_torch.models import segmentation
+
+    promote = segmentation.promote_fp32
+
+    def jax_rounding(x):
+        return x.float() if x.dim() == 5 else x.float().to(x.dtype)
+
+    segmentation.promote_fp32 = jax_rounding
+    try:
+        yield
+    finally:
+        segmentation.promote_fp32 = promote
+
+
 def job_run(job: dict, ctx) -> dict:
     """A job's step on this rank's rows: `job` holds the model's registry
     name (`model`) and keyword arguments, its float64 `state`, the global
-    `batch_l` and `batch_ul` (None without VAT), `vat` and `seed`; the
+    `batch_l` and `batch_ul` (None without VAT), `vat` and `seed`, and
+    optionally `jax_casts` (the step under `jax_attention_casts`); the
     gradient is not clipped."""
     model = get_model(job["model"], device="cpu", **job["kwargs"]).double()
     model.load_state_dict(job["state"], strict=True)
     batch_ul = job["batch_ul"]
-    return step_run(model, pmesh.shard_batch(job["batch_l"], ctx),
-                    None if batch_ul is None
-                    else pmesh.shard_batch(batch_ul, ctx),
-                    job["vat"], job["seed"], clip=0.0)
+    with (jax_attention_casts() if job.get("jax_casts")
+          else contextlib.nullcontext()):
+        return step_run(model, pmesh.shard_batch(job["batch_l"], ctx),
+                        None if batch_ul is None
+                        else pmesh.shard_batch(batch_ul, ctx),
+                        job["vat"], job["seed"], clip=0.0)
 
 
 def run_job(tmp_path, job: dict, world: int = 2) -> list:
@@ -173,54 +203,64 @@ def spawn(out_dir, world: int = 2, job: str | None = None):
 # ---------------------------------------------------------------------------
 
 SP_CASES = ("halo", "eval", "flagship64sp", "onset64sp", "stream_Mel",
-            "stream_CQT")
+            "stream_CQT", "halo_long", "draw", "seg64sp", "seg64sp_novat",
+            "seg64sp_zero_strided_pads", "seg64sp_no_halos", "thick64sp",
+            "thick64sp_narrow")
 SP_B, SP_FRAMES = 2, 32         # global batch rows, frames (16 a rank at 2)
-HALO_SHAPES = ((2, 3, 4, 5), 2, 1), ((2, 16, 3), 1, 15)  # per rank, dim, h
+# per rank shape, dim, halo before, after: the U-Nets' 1 and 15 ("halo");
+# halos of 1.5x and 3x a rank's frames, one-sided ones (a strided
+# convolution's (0, 1), a transposed one's (1, 0)) and long one-sided ones
+# ("halo_long")
+HALO_SHAPES = (((2, 3, 4, 5), 2, 1, 1), ((2, 16, 3), 1, 15, 15))
+LONG_HALO_SHAPES = (((2, 4, 3), 1, 6, 6), ((1, 2, 3, 4), 2, 9, 9),
+                    ((2, 2, 4, 3), 2, 0, 1), ((2, 2, 4, 3), 2, 1, 0),
+                    ((2, 4, 3), 1, 0, 10), ((2, 4, 3), 1, 7, 0))
 STREAM_W, STREAM_H, STREAM_SECONDS = 64, 32, 8.0
 
 
-def halo_inputs(sp: int) -> list:
-    """Per halo shape: (whole x, whole output weights, dim, halo), whole
-    along `dim` over sp ranks, integer-valued float64 (so every sum of
-    the gradient is exact in any order)."""
+def halo_inputs(sp: int, shapes=HALO_SHAPES) -> list:
+    """Per halo shape: (whole x, whole output weights, dim, halo before,
+    after), whole along `dim` over sp ranks, integer-valued float64 (so
+    every sum of the gradient is exact in any order)."""
     rng = np.random.RandomState(sp)
     out = []
-    for shape, dim, h in HALO_SHAPES:
+    for shape, dim, before, after in shapes:
         whole = list(shape)
         whole[dim] *= sp
         x = torch.from_numpy(rng.randint(-9, 10, whole).astype(np.float64))
         wshape = list(shape)
-        wshape[dim] += 2 * h
+        wshape[dim] += before + after
         w = torch.from_numpy(rng.randint(-9, 10, [sp] + wshape).astype(
             np.float64))
-        out.append((x, w, dim, h))
+        out.append((x, w, dim, before, after))
     return out
 
 
-def halo_reference(sp: int) -> list:
+def halo_reference(sp: int, shapes=HALO_SHAPES) -> list:
     """Per halo shape, per rank: (its haloed slice of the whole x
     zero-padded on `dim`, the whole x's gradient of the sum over the ranks
     of sum(slice * w[rank]), this rank's frames of it)."""
     out = []
-    for x, w, dim, h in halo_inputs(sp):
+    for x, w, dim, before, after in halo_inputs(sp, shapes):
         x = x.clone().requires_grad_(True)
         per = x.shape[dim] // sp
-        pad = [0, 0] * (x.dim() - dim - 1) + [h, h]
+        pad = [0, 0] * (x.dim() - dim - 1) + [before, after]
         xp = torch.nn.functional.pad(x, pad)
-        ys = [xp.narrow(dim, r * per, per + 2 * h) for r in range(sp)]
+        ys = [xp.narrow(dim, r * per, per + before + after)
+              for r in range(sp)]
         sum((y * w[r]).sum() for r, y in enumerate(ys)).backward()
         out.append([(ys[r].detach(), x.grad.narrow(dim, r * per, per))
                     for r in range(sp)])
     return out
 
 
-def halo_run(ctx) -> list:
+def halo_run(ctx, shapes=HALO_SHAPES) -> list:
     """Per halo shape, this rank's (time_halo of its frames, their
     gradient of the sum over the ranks)."""
     out = []
-    for x, w, dim, h in halo_inputs(ctx.sp):
+    for x, w, dim, before, after in halo_inputs(ctx.sp, shapes):
         mine = pmesh.sp_frames(x, ctx, dim).clone().requires_grad_(True)
-        y = pmesh.time_halo(mine, h, h, ctx, dim)
+        y = pmesh.time_halo(mine, before, after, ctx, dim)
         (y * w[ctx.sp_rank]).sum().backward()
         out.append((y.detach(), mine.grad))
     return out
@@ -281,10 +321,128 @@ def stream_run(spec: str, ctx=None) -> torch.Tensor:
         halo_frames=STREAM_H, mesh_ctx=ctx)["frame"]
 
 
+# ---------------------------------------------------------------------------
+# sequence parallelism in Segmentation and Thickstun
+# (tests/test_torch_sequence_parallel_families.py)
+# ---------------------------------------------------------------------------
+
+SEG_FRAMES, THICK_FRAMES = 64, 20   # 32 a rank at sp 2; 10 (< 12, the halo)
+# the time convolution's channels of the narrow Thickstun ('thick64sp_narrow',
+# the JAX comparison's: XLA's float64 convolution on the CPU takes 113 s for
+# a step at the reference's 4096)
+NARROW_K2_OUT = 64
+# global shapes and their time axes: a (B, T, F) draw and an NCHW one
+DRAW_SHAPES = (((4, 8, 3), 1), ((4, 3, 8, 5), 2))
+DRAW_SEED, DROPOUT = 9, 0.4
+
+
+def local_shape(shape, dim: int, ctx) -> tuple:
+    """This rank's share of a global shape: rows over dp, axis dim over
+    sp."""
+    shape = list(shape)
+    shape[0] //= ctx.dp
+    shape[dim] //= ctx.sp
+    return tuple(shape)
+
+
+def draw_run(ctx=None) -> list:
+    """Per DRAW_SHAPES entry, `draw_rows` of a uniform draw (seed
+    DRAW_SEED) and a `SharedDropout(DROPOUT, time_dim)` of ones in
+    training mode (its generator seeded DRAW_SEED), inside a sharded step
+    on this rank's share of the shape (the whole shape without ctx)."""
+    out = []
+    for shape, dim in DRAW_SHAPES:
+        mine = shape if ctx is None else local_shape(shape, dim, ctx)
+        g = torch.Generator().manual_seed(DRAW_SEED)
+        drop = SharedDropout(DROPOUT, dim).train()
+        drop.new_masks(torch.Generator().manual_seed(DRAW_SEED))
+        with pmesh.sharded_step(ctx):
+            u = pmesh.draw_rows(lambda s: torch.rand(s, generator=g,
+                                                     dtype=torch.float64),
+                                mine, time_dim=dim)
+            out.append((u, drop(torch.ones(mine, dtype=torch.float64))))
+    return out
+
+
+def thickstun(narrow: bool = False) -> Thickstun:
+    """Thickstun (seed 1) at the reference's widths, or narrow: its time
+    convolution's channels (`models/thickstun.py:K2_OUT`) NARROW_K2_OUT."""
+    from reconvat_tpu_torch.models import thickstun as module
+
+    wide = module.K2_OUT
+    module.K2_OUT = NARROW_K2_OUT if narrow else wide
+    try:
+        return Thickstun(device="cpu", seed=1)
+    finally:
+        module.K2_OUT = wide
+
+
+def family_setup(case: str):
+    """(model, global labeled batch, global unlabeled batch or None, vat)
+    of a family case, float64: Segmentation (seed 1, dropout 0.4) on 2
+    clips of SEG_FRAMES, with VAT at xi 1e-2 on 2 + 2 ('seg64sp') or
+    supervised ('seg64sp_novat' and the negative controls); Thickstun
+    (seed 1, supervised) on 2 clips of THICK_FRAMES ('thick64sp'; with
+    NARROW_K2_OUT time-convolution channels 'thick64sp_narrow')."""
+    rng = np.random.RandomState(6)
+    thick = case.startswith("thick64sp")
+    frames = THICK_FRAMES if thick else SEG_FRAMES
+    model = (thickstun(case == "thick64sp_narrow") if thick else
+             SemanticSegmentation(device="cpu", seed=1, xi=1e-2))
+
+    def audio():
+        return torch.tensor(rng.randn(SP_B, frames * 512) * 0.1,
+                            dtype=torch.float64)
+
+    batch_l = {"audio": audio(), "frame": torch.tensor(
+        rng.rand(SP_B, frames, 88) < 0.05, dtype=torch.float64)}
+    vat = case == "seg64sp"
+    return model.double(), batch_l, {"audio": audio()} if vat else None, vat
+
+
+def broken_halos(which: str):
+    """A stand-in for `parallel.mesh.time_halo` that zero-pads (as one
+    clip's edge would) where a rank needs its neighbours' frames: every
+    halo ('no_halos'), or the strided convolutions' end frame, the TF-SAME
+    (0, 1) pad ('zero_strided_pads')."""
+    halo = pmesh.time_halo
+
+    def broken(x, before, after, ctx, dim=1):
+        if which == "no_halos" or (before, after) == (0, 1):
+            ctx = None
+        return halo(x, before, after, ctx, dim)
+    return broken
+
+
+def family_run(case: str, ctx=None) -> dict:
+    """`step_run` of a family case (`family_setup`) on this rank's share
+    of the global batches under `ctx` (the whole batches without);
+    'seg64sp_zero_strided_pads' and 'seg64sp_no_halos' take the
+    supervised step with `broken_halos`."""
+    model, batch_l, batch_ul, vat = family_setup(case)
+    if ctx is not None:
+        batch_l = pmesh.shard_batch(batch_l, ctx)
+        batch_ul = None if batch_ul is None else pmesh.shard_batch(
+            batch_ul, ctx)
+    halo = pmesh.time_halo
+    if case.startswith("seg64sp_") and case != "seg64sp_novat":
+        pmesh.time_halo = broken_halos(case[len("seg64sp_"):])
+    try:
+        return step_run(model, batch_l, batch_ul, vat)
+    finally:
+        pmesh.time_halo = halo
+
+
 def sp_case(case: str, ctx):
     """This rank's result of a sequence-parallel case on mesh `ctx`."""
     if case == "halo":
         return halo_run(ctx)
+    if case == "halo_long":
+        return halo_run(ctx, LONG_HALO_SHAPES)
+    if case == "draw":
+        return draw_run(ctx)
+    if case.startswith(("seg64sp", "thick64sp")):
+        return family_run(case, ctx)
     if case == "eval":
         return eval_run(ctx)
     if case.startswith("stream_"):
@@ -301,9 +459,11 @@ def run_rank(rank: int, world: int, port: int, job: str | None) -> dict:
     job = torch.load(job) if job is not None else None
     try:
         if job is not None and "cases" in job:
+            jobs = job.get("jobs", {})
             for case, sp in job["cases"]:
                 with pmesh.activate(pmesh.make_mesh(sp=sp)) as ctx:
-                    out[case] = sp_case(case, ctx)
+                    out[case] = (job_run(jobs[case], ctx) if case in jobs
+                                 else sp_case(case, ctx))
             return out
         with pmesh.activate(pmesh.make_mesh(
                 sp=job.get("sp", 1) if job else 1)) as ctx:
