@@ -82,7 +82,11 @@ convolutions, 17 x 17 windows and 25-frame kernel take the other rank's
 frames): Segmentation's fp32 VAT step (19a) and Thickstun's step (19b) on
 two ranks against one process, Segmentation streaming a 60-s song over
 the ranks (19c), and the Multi_Inst and Thickstun training CLIs at
-`mesh_sp=2` with a resume (19d).
+`mesh_sp=2` with a resume (19d). Last, phase 20: the library frontends
+(`ops/extra_frontends.py`: MFCC, Gammatonegram, DFT, ISTFT, GriffinLim,
+CQT1992, CQT2010, CQT2010v2) at their defaults on 4 clips of 3 s against
+float64 on the CPU, with MFCC's launch of the mel kernel counted and held
+against its plain route.
 
 Prints one line per phase, then a `{"kernels": [...]}` JSON line, the
 card's name and power limit, and as its last line
@@ -5282,6 +5286,183 @@ def phase_sharded_family_clis(rows, tmp: str) -> None:
     phase_sharded_cli(rows, tmp, "19d", SP_CLI, thickstun_cli, resume=False)
 
 
+# ---------------------------------------------------------------------------
+# phase 20: the library frontends (ops/extra_frontends.py)
+# ---------------------------------------------------------------------------
+
+# phase 20's audio: XF_CLIPS clips of XF_SAMPLES samples (2.97 s at the
+# classes' default 22.05 kHz), noise of rms 0.1 from a seed
+XF_CLIPS, XF_SAMPLES = 4, 65536
+# an output is held when its largest error over max|truth| (float64 on the
+# CPU) is at most XF_FACTOR x the CPU fp32 route's + XF_FLOOR; a round trip
+# (DFT -> inverse, rfft -> ISTFT) within XF_ROUND_TRIP of max|audio|
+XF_FACTOR, XF_FLOOR, XF_ROUND_TRIP = 2.0, 1e-6, 1e-5
+# Griffin-Lim is held elementwise at XF_GL_ITERS iterations (each momentum
+# step amplifies the rounding) and by the JAX package's tone criterion at
+# its default 32 (tests/test_extra_frontends.py:77-86)
+XF_GL_ITERS, XF_GL_TONE_ERR = 4, 0.15
+
+
+def frontend_held(got, cpu32, truth) -> tuple:
+    """(error, the CPU fp32 route's error, held) of one output: the
+    largest error over max|truth| of `got` (on any device) and of `cpu32`
+    against the float64 `truth`; held when `got` has the truth's shape, is
+    finite, and its error is at most XF_FACTOR x the CPU's + XF_FLOOR."""
+    truth = truth.detach().double().cpu()
+    got = got.detach().double().cpu()
+    top = truth.abs().max().item()
+    err_cpu = (cpu32.detach().double() - truth).abs().max().item() / top
+    if got.shape != truth.shape or not torch.isfinite(got).all():
+        return float("inf"), err_cpu, False
+    err = (got - truth).abs().max().item() / top
+    return err, err_cpu, err <= XF_FACTOR * err_cpu + XF_FLOOR
+
+
+def stft_parts(window, x):
+    """(real, imag) of the rfft of x's centre reflect-padded frames
+    (n_fft = len(window), hop n_fft // 4) times `window`: the ISTFT's
+    input."""
+    from reconvat_tpu_torch.ops.mel_kernel import frame_audio
+
+    spec = torch.fft.rfft(frame_audio(x, len(window), len(window) // 4)
+                          * window, dim=-1)
+    return spec.real, spec.imag
+
+
+def extra_frontend_cases(audio):
+    """(name, module, input, call) of each class of `ops/extra_frontends`
+    at its JAX defaults (CQT1992 at 60 bins: its default 84 from 220 Hz
+    pass 22.05 kHz's Nyquist frequency, which both packages refuse);
+    Griffin-Lim at XF_GL_ITERS iterations on the magnitude of the audio's
+    STFT, with its initial phase drawn from a generator seeded 0."""
+    from reconvat_tpu_torch.ops import extra_frontends as xf
+
+    gl = xf.GriffinLim(n_iter=XF_GL_ITERS)
+    mag = gl._stft_complex(audio).abs()
+    n = audio.shape[1]
+    return [
+        ("MFCC", xf.MFCC(), audio, lambda m, a: m(a)),
+        ("Gammatonegram", xf.Gammatonegram(), audio, lambda m, a: m(a)),
+        ("DFT", xf.DFT(), audio, lambda m, a: m(a)),
+        ("ISTFT", xf.ISTFT(), audio,
+         lambda m, a: m(*stft_parts(m.window, a), length=n)),
+        ("GriffinLim", gl, mag,
+         lambda m, a: m(a, torch.Generator().manual_seed(0), length=n)),
+        ("CQT1992", xf.CQT1992(n_bins=60), audio, lambda m, a: m(a)),
+        ("CQT2010", xf.CQT2010(), audio, lambda m, a: m(a)),
+        ("CQT2010v2", xf.CQT2010v2(), audio, lambda m, a: m(a))]
+
+
+def phase_extra_frontends(rows) -> None:
+    """Phase 20: each class of `ops/extra_frontends.py` on XF_CLIPS x
+    XF_SAMPLES samples at fp32, TF32 off, on the card against a float64
+    run on the CPU (`frontend_held`, beside the CPU's fp32 route), timed;
+    DFT -> inverse and ISTFT round trips; Griffin-Lim's tone criterion.
+    MFCC, the one class on a hand-written kernel (row 1, `mel_power`, at
+    128 mels and 22.05 kHz): one call is a main path with every count set
+    to 0 just before and read just after (one `mel_power` launch and no
+    other; each further call one more), its kernel route is held against
+    its plain route (`use_kernel = False`), timed beside it, and an MFCC
+    at n_fft 1024, which the kernel does not compute, launches nothing."""
+    from reconvat_tpu_torch.models.base import fp32_math
+    from reconvat_tpu_torch.ops import extra_frontends as xf
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power
+
+    audio = torch.tensor(np.random.RandomState(20).randn(
+        XF_CLIPS, XF_SAMPLES) * 0.1, dtype=torch.float32)
+    x = audio.cuda()
+    counters = kernel_counters()
+    mel_row = next(row for row in rows if row["name"] == "mel_power")
+
+    def counted(fn):
+        torch.cuda.synchronize()
+        for f, c in counters.values():
+            setattr(f, c, 0)
+        out = fn()
+        torch.cuda.synchronize()
+        return out, {k: getattr(f, c) for k, (f, c) in counters.items()}
+
+    read = []
+    for name, module, inp, call in extra_frontend_cases(audio):
+        truth = call(module.double(), inp.double())
+        cpu32 = call(module.float(), inp)
+        module = module.cuda()
+        xin = inp.cuda()
+        with fp32_math():
+            if name == "MFCC":
+                got, launches = counted(lambda: call(module, xin))
+                if launches != {**{k: 0 for k in launches}, "mel_power": 1}:
+                    fail(f"phase 20 MFCC: one call launched {launches}, "
+                         f"not mel_power once")
+                _, again = counted(lambda: [call(module, xin)
+                                            for _ in range(3)])
+                if again["mel_power"] != 3:
+                    fail(f"phase 20 MFCC: 3 calls launched mel_power "
+                         f"{again['mel_power']} times")
+                mel_row["launches_mfcc"] = launches["mel_power"]
+            else:
+                got = call(module, xin)
+            ms = time_ms(lambda: call(module, xin),
+                         iters=5 if name == "GriffinLim" else 10)
+        outs = got if isinstance(got, tuple) else (got,)
+        cpus = cpu32 if isinstance(cpu32, tuple) else (cpu32,)
+        truths = truth if isinstance(truth, tuple) else (truth,)
+        held = [frontend_held(*o) for o in zip(outs, cpus, truths)]
+        if not all(ok for _, _, ok in held):
+            fail(f"phase 20 {name}: errors against float64 "
+                 f"{[(e, c) for e, c, _ in held]} (the card's, the CPU's "
+                 f"fp32; at most {XF_FACTOR}x the CPU's + {XF_FLOOR}), "
+                 f"shapes {[tuple(o.shape) for o in outs]} against "
+                 f"{[tuple(t.shape) for t in truths]}")
+        line = (f"{name} {[tuple(o.shape) for o in outs]}: error "
+                f"{max(e for e, _, _ in held)} (CPU fp32 "
+                f"{max(c for _, c, _ in held)}), ms {ms}")
+        if name == "MFCC":
+            module.melspec.use_kernel = False
+            with fp32_math():
+                plain, plain_counts = counted(lambda: call(module, xin))
+                plain_ms = time_ms(lambda: call(module, xin), iters=10)
+            top = truth.abs().max().item()
+            diff = (got - plain).abs().max().item() / top
+            allowed = 2 * XF_FACTOR * held[0][1] + XF_FLOOR
+            if diff > allowed or plain_counts["mel_power"]:
+                fail(f"phase 20 MFCC: kernel route {diff} of max|truth| "
+                     f"from the plain route (at most {allowed}), plain "
+                     f"route launches {plain_counts}")
+            short = xf.MFCC(n_fft=1024).cuda()
+            _, short_counts = counted(lambda: short(x))
+            if any(short_counts.values()):
+                fail(f"phase 20 MFCC n_fft=1024 launched {short_counts}")
+            line += (f", plain route ms {plain_ms} ({diff} from the kernel "
+                     f"route); n_fft=1024 launched nothing")
+        if name in ("DFT", "ISTFT"):
+            rec = module.inverse(*got, length=XF_SAMPLES) if name == "DFT" \
+                else got
+            trip = (rec - x).abs().max().item() / x.abs().max().item()
+            if trip > XF_ROUND_TRIP:
+                fail(f"phase 20 {name}: round trip {trip} of max|audio| "
+                     f"(at most {XF_ROUND_TRIP})")
+            line += f", round trip {trip}"
+        read.append(line)
+        del module, truth, cpu32, got
+    # Griffin-Lim at its default 32 iterations on a tone (the JAX test's)
+    t = np.arange(8192) / 16000
+    tone = torch.tensor(0.5 * np.sin(2 * np.pi * 523.25 * t),
+                        dtype=torch.float32)[None].cuda()
+    gl = xf.GriffinLim(n_fft=1024, hop_length=256).cuda()
+    with fp32_math():
+        mag = gl._stft_complex(tone).abs()
+        rec = gl(mag, torch.Generator().manual_seed(3), length=8192)
+        err = ((gl._stft_complex(rec).abs() - mag).norm() / mag.norm()).item()
+    if not err < XF_GL_TONE_ERR:
+        fail(f"phase 20 GriffinLim: tone magnitude error {err} (under "
+             f"{XF_GL_TONE_ERR})")
+    log(f"phase 20 the library frontends on {XF_CLIPS} x {XF_SAMPLES} "
+        f"samples (fp32, TF32 off, against float64 on the CPU; MFCC's "
+        f"launches per call {mel_row['launches_mfcc']}): "
+        f"{'; '.join(read)}; Griffin-Lim tone error at 32 iterations {err}")
+
+
 def data_parallel_phases(groups=("17", "18", "19")) -> None:
     """`python3 chip_smoke.py --data-parallel [17] [18] [19]`: phases
     17b-17c, 18a-18d and 19a-19d alone, or the groups named (with the
@@ -5412,7 +5593,8 @@ def main(argv: list) -> int:
                 ("18a-18c", phase_sequence_parallel, (rows,)),
                 ("18d", phase_sharded_cli, (rows, tmp, "18d", SP_CLI)),
                 ("19a-19c", phase_sequence_parallel_families, (rows,)),
-                ("19d", phase_sharded_family_clis, (rows, tmp))):
+                ("19d", phase_sharded_family_clis, (rows, tmp)),
+                ("20", phase_extra_frontends, (rows,))):
             t0 = time.perf_counter()
             phase(*args)
             torch.cuda.empty_cache()

@@ -1,5 +1,5 @@
-"""Audio decode on the host (the port's copy of
-`reconvat_tpu/data/audio_io.py:20-96`).
+"""Audio decode and wav write on the host (the port's copy of
+`reconvat_tpu/data/audio_io.py`).
 
 The reference reads audio through libsndfile (SoundFile,
 `model/dataset.py:110`); neither is a dependency here. WAV decodes through
@@ -63,3 +63,10 @@ def read_audio(path: str):
     if lower.endswith(".flac"):
         return read_flac(path)
     raise ValueError(f"unsupported audio format: {path}")
+
+
+def write_wav(path: str, pcm_int16: np.ndarray, sr: int):
+    """16-bit PCM wav of `pcm_int16` at `sr` Hz (scipy)."""
+    from scipy.io import wavfile
+
+    wavfile.write(path, sr, np.asarray(pcm_int16, dtype=np.int16))

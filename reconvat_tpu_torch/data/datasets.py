@@ -1,6 +1,6 @@
-"""Datasets: MAPS, MAESTRO, MusicNet and Guqin for training, and the
-unlabeled input folder of the transcription CLI (the port's copy of
-`reconvat_tpu/data/datasets.py:1-292, 379-404`, reference
+"""Datasets: MAPS, MAESTRO, MusicNet, Guqin, Corelli and ApplicationWind
+for training, and the unlabeled input folder of the transcription CLI (the
+port's copy of `reconvat_tpu/data/datasets.py`, reference
 `model/dataset.py`).
 
 Same group tables, split logic, crop math (a `np.random.RandomState(seed)`
@@ -349,6 +349,56 @@ class Guqin(PianoRollAudioDataset):
         return list(zip(sorted(flacs), sorted(tsvs)))
 
 
+class Corelli(PianoRollAudioDataset):
+    """Corelli's string concertos (op. 6 nos. 1-3), one folder of .flac
+    and .tsv files per group."""
+
+    def __init__(self, path="./Application_String", groups=None,
+                 sequence_length=None, overlap=True, seed=42, refresh=False,
+                 supersmall=False, **kw):
+        self.overlap = overlap
+        self.supersmall = supersmall
+        super().__init__(path, groups, sequence_length, seed, refresh, **kw)
+
+    @classmethod
+    def available_groups(cls):
+        return ["op6_no1", "op6_no2", "op6_no3"]
+
+    def files(self, group):
+        flacs = glob(os.path.join(self.path, group, "*.flac"))
+        if not self.overlap:
+            flacs = _filter_overlap(flacs, self.path, self.supersmall)
+        tsvs = [f.replace("/flac/", "/tsvs/").replace(".flac", ".tsv")
+                for f in flacs]
+        _check_files(flacs, tsvs)
+        return sorted(zip(flacs, tsvs))
+
+
+class ApplicationWind(PianoRollAudioDataset):
+    """A wind-ensemble corpus: the folder's .flac files and a .tsv beside
+    each (placeholder labels where the corpus is unlabeled, as
+    `preprocess_audio --dummy-tsv` writes them), one group 'dummy'."""
+
+    def __init__(self, path="./Application_Wind", groups=None,
+                 sequence_length=None, overlap=True, seed=42, refresh=False,
+                 supersmall=False, **kw):
+        self.overlap = overlap
+        self.supersmall = supersmall
+        super().__init__(path, groups or ["dummy"], sequence_length, seed,
+                         refresh, **kw)
+
+    @classmethod
+    def available_groups(cls):
+        return ["dummy"]
+
+    def files(self, group):
+        flacs = glob(os.path.join(self.path, "*.flac"))
+        if not self.overlap:
+            flacs = _filter_overlap(flacs, self.path, self.supersmall)
+        tsvs = [f.replace("/flac/", "/tsvs/").replace(".flac", ".tsv")
+                for f in flacs]
+        _check_files(flacs, tsvs)
+        return sorted(zip(flacs, tsvs))
 
 
 class ApplicationDataset:

@@ -1,5 +1,5 @@
-"""MIDI read and write (the port's copy of
-`reconvat_tpu/data/midi_io.py:27-233`; pure Python, no mido).
+"""MIDI read and write (the port's copy of `reconvat_tpu/data/midi_io.py`;
+pure Python, no mido).
 
 `parse_midi` reproduces the reference label-extraction semantics
 (reference `model/midi.py:12-50`): tempo-aware tick->second conversion over
@@ -9,6 +9,14 @@ velocity) rows.
 `save_midi` reproduces the reference MIDI export math (reference
 `model/midi.py:53-84`): 480 ticks/beat at 120 bpm => 960 ticks/second,
 `int(time * 960)` truncation, velocity `int(v * 127)` clamped to 127.
+`write_midi_events` writes any tracks of (tick, event bytes).
+
+`midi_files_to_tsv` converts MIDI files to the label .tsv files the
+datasets read (reference `model/midi.py:87-106`):
+
+    python -m reconvat_tpu_torch.data.midi_io a.mid b.midi ...
+
+writes `a.tsv`, `b.tsv`, ... beside them and prints their paths.
 """
 from __future__ import annotations
 
@@ -228,3 +236,49 @@ def save_midi(path: str, pitches, intervals, velocities):
         f.write(b"MThd" + struct.pack(">IHHH", 6, 1, 1,
                                       DEFAULT_TICKS_PER_BEAT))
         f.write(b"MTrk" + struct.pack(">I", len(track)) + bytes(track))
+
+
+def midi_files_to_tsv(paths, n_jobs: int | None = None):
+    """Batch midi -> tsv conversion (reference `model/midi.py:87-106` CLI)."""
+    import concurrent.futures
+    import os
+
+    def process(input_file):
+        if input_file.endswith(".mid"):
+            output_file = input_file[:-4] + ".tsv"
+        elif input_file.endswith(".midi"):
+            output_file = input_file[:-5] + ".tsv"
+        else:
+            print(f"ignoring non-MIDI file {input_file}")
+            return None
+        midi_data = parse_midi(input_file)
+        np.savetxt(output_file, midi_data, "%.6f", "\t",
+                   header="onset\toffset\tnote\tvelocity")
+        return output_file
+
+    with concurrent.futures.ThreadPoolExecutor(
+            max_workers=n_jobs or os.cpu_count()) as ex:
+        return [r for r in ex.map(process, paths) if r]
+
+
+def write_midi_events(path: str, tracks,
+                      ticks_per_beat=DEFAULT_TICKS_PER_BEAT):
+    """General multi-track writer; tracks = list of [(tick, status_bytes)]."""
+    with open(path, "wb") as f:
+        f.write(b"MThd" + struct.pack(">IHHH", 6, 1, len(tracks),
+                                      ticks_per_beat))
+        for events in tracks:
+            track = bytearray()
+            last = 0
+            for tick, payload in sorted(events, key=lambda e: e[0]):
+                track += _write_varint(tick - last) + bytes(payload)
+                last = tick
+            track += _write_varint(0) + bytes([0xFF, 0x2F, 0x00])
+            f.write(b"MTrk" + struct.pack(">I", len(track)) + bytes(track))
+
+
+if __name__ == "__main__":
+    import sys
+
+    for out in midi_files_to_tsv(sys.argv[1:]):
+        print(out)

@@ -11,6 +11,9 @@ call adds one to the function's `calls`.
 The `*_plain` functions are the port's copy of the numpy path of
 `reconvat_tpu/decode.py` (reference `model/decoding.py:4-55`): the plain
 versions the tests and `chip_smoke.py` hold the native decoder against.
+`extract_notes` (notes with their mean onset-channel velocity),
+`notes_to_roll` and `notes_to_frames` are numpy copies of the JAX
+package's (reference `model/decoding.py:58-130`).
 Both keep the reference semantics: strict `>` thresholds, rising-edge
 onsets (the first frame counts as an edge), rule1 additionally requires the
 frame channel at the onset, a note extends while onset | frame stays
@@ -195,6 +198,45 @@ def extract_notes_wo_velocity_plain(onsets, frames, onset_threshold=0.5,
     return pitches, intervals
 
 
+def extract_notes(onsets, frames, velocity, onset_threshold=0.5,
+                  frame_threshold=0.5):
+    """Note events + mean onset-channel velocity per note.
+
+    Matches reference `extract_notes` (`model/decoding.py:58-106`): velocity
+    samples are collected at steps where the onset channel stays active
+    within [onset, offset).
+    """
+    on = _as_bool(onsets, onset_threshold)
+    fr = _as_bool(frames, frame_threshold)
+    velocity = np.asarray(velocity)
+
+    onset_diff = np.concatenate([on[:1], on[1:] & ~on[:-1]], axis=0)
+    starts = np.argwhere(onset_diff)
+    if len(starts) == 0:
+        return np.array([]), np.array([]), np.array([])
+
+    active = on | fr
+    nz = _next_inactive(active)
+    t, p = starts[:, 0], starts[:, 1]
+    offsets = nz[t, p]
+
+    # cumulative sums for velocity averaging over active-onset steps
+    onf = on.astype(np.float64)
+    cs_v = np.concatenate([np.zeros((1,) + on.shape[1:]),
+                           np.cumsum(velocity * onf, axis=0)], axis=0)
+    cs_n = np.concatenate([np.zeros((1,) + on.shape[1:]),
+                           np.cumsum(onf, axis=0)], axis=0)
+
+    keep = offsets > t
+    t, p, offsets = t[keep], p[keep], offsets[keep]
+    vsum = cs_v[offsets, p] - cs_v[t, p]
+    vcnt = cs_n[offsets, p] - cs_n[t, p]
+    vels = np.where(vcnt > 0, vsum / np.maximum(vcnt, 1), 0.0)
+
+    intervals = np.stack([t, offsets], axis=1)
+    return p, intervals, vels
+
+
 def notes_to_roll(pitches, intervals, shape):
     """Note list -> binary pianoroll (the dense half of notes_to_frames;
     `metrics.evaluate_multipitch_rolls` consumes it directly).
@@ -213,3 +255,14 @@ def notes_to_roll(pitches, intervals, shape):
     np.add.at(diff, (on, pitches), 1)
     np.add.at(diff, (off, pitches), -1)
     return (np.cumsum(diff[:-1], axis=0) > 0).astype(float)
+
+
+def notes_to_frames(pitches, intervals, shape):
+    """Note list -> per-frame active-pitch lists for multipitch metrics.
+
+    Matches reference `notes_to_frames` (`model/decoding.py:109-130`).
+    """
+    roll = notes_to_roll(pitches, intervals, shape)
+    time = np.arange(roll.shape[0])
+    freqs = [roll[t, :].nonzero()[0] for t in time]
+    return time, freqs

@@ -1,8 +1,8 @@
 """Host-side (numpy) filterbank builders for the frontends.
 
-The port's own copy of the window, windowed-DFT, slaney mel and CQT kernel
-helpers of `reconvat_tpu/ops/filterbanks.py` (the port imports nothing of
-the JAX package). They reproduce the kernels the reference builds through
+The port's own copy of the window, windowed-DFT, slaney mel, gammatone and
+CQT kernel helpers of `reconvat_tpu/ops/filterbanks.py` (the port imports
+nothing of the JAX package). They reproduce the kernels the reference builds through
 nnAudio 0.2.0 (`create_fourier_kernels` / librosa `mel` /
 `create_cqt_kernels`, reference `model/Spectrogram.py:133,421,1266`) and
 run once at model build.
@@ -131,6 +131,72 @@ def mel_filterbank(sr: int, n_fft: int, n_mels: int, fmin: float = 0.0,
         enorm = 2.0 / (mel_f[2:n_mels + 2] - mel_f[:n_mels])
         weights *= enorm[:, np.newaxis]
     return weights.astype(np.float32)
+
+
+def erb_centre_freqs(fmin: float, fmax: float, n: int) -> np.ndarray:
+    """ERB-spaced centre frequencies, ascending (Glasberg & Moore)."""
+    ear_q, min_bw = 9.26449, 24.7
+    i = np.arange(1, n + 1)
+    cfs = (-(ear_q * min_bw)
+           + np.exp(i * (-np.log(fmax + ear_q * min_bw)
+                         + np.log(fmin + ear_q * min_bw)) / n)
+           * (fmax + ear_q * min_bw))
+    return cfs[::-1]
+
+
+def gammatone_filterbank(sr: int, n_fft: int, n_bins: int = 64,
+                         fmin: float = 20.0, fmax: float | None = None,
+                         width: float = 1.0) -> np.ndarray:
+    """4th-order gammatone frequency-domain weights, (n_bins, n_fft//2+1).
+
+    Port of the published gammatonegram `fft_weights` math (Ellis 2009 /
+    Slaney MakeERBFilters), the basis behind nnAudio's Gammatonegram
+    (reference `model/Spectrogram.py:594-709`).
+    """
+    if fmax is None:
+        fmax = sr / 2
+    ear_q, min_bw = 9.26449, 24.7
+    cfs = erb_centre_freqs(fmin, fmax, n_bins)
+    gt_ord = 4
+    n_freqs = n_fft // 2 + 1
+    ucirc = np.exp(1j * 2 * np.pi * np.arange(n_freqs) / n_fft)
+
+    wts = np.zeros((n_bins, n_freqs))
+    T = 1.0 / sr
+    for i, cf in enumerate(cfs):
+        erb = width * ((cf / ear_q) ** 1 + min_bw ** 1) ** 1
+        B = 1.019 * 2 * np.pi * erb
+        r = np.exp(-B * T)
+        theta = 2 * np.pi * cf * T
+        pole = r * np.exp(1j * theta)
+
+        ebt = np.exp(B * T)
+        cn = np.cos(2 * cf * np.pi * T)
+        sn = np.sin(2 * cf * np.pi * T)
+        sq_p = np.sqrt(3 + 2 ** 1.5)
+        sq_m = np.sqrt(3 - 2 ** 1.5)
+        a11 = -(2 * T * cn / ebt + 2 * sq_p * T * sn / ebt) / 2
+        a12 = -(2 * T * cn / ebt - 2 * sq_p * T * sn / ebt) / 2
+        a13 = -(2 * T * cn / ebt + 2 * sq_m * T * sn / ebt) / 2
+        a14 = -(2 * T * cn / ebt - 2 * sq_m * T * sn / ebt) / 2
+        zros = -np.array([a11, a12, a13, a14]) / T
+
+        t1 = -2 * np.exp(4j * cf * np.pi * T) * T
+        t2 = 2 * np.exp(-(B * T) + 2j * cf * np.pi * T) * T
+        gain = np.abs(
+            (t1 + t2 * (cn - sq_m * sn))
+            * (t1 + t2 * (cn + sq_m * sn))
+            * (t1 + t2 * (cn - sq_p * sn))
+            * (t1 + t2 * (cn + sq_p * sn))
+            / (-2 / np.exp(2 * B * T) - 2 * np.exp(4j * cf * np.pi * T)
+               + 2 * (1 + np.exp(4j * cf * np.pi * T)) / np.exp(B * T))
+            ** 4)
+        wts[i] = ((T ** 4) / gain
+                  * np.abs(ucirc - zros[0]) * np.abs(ucirc - zros[1])
+                  * np.abs(ucirc - zros[2]) * np.abs(ucirc - zros[3])
+                  * (np.abs((pole - ucirc) * (pole.conj() - ucirc))
+                     ** -gt_ord))
+    return wts.astype(np.float32)
 
 
 def cqt_kernels(q: float, fs: float, fmin: float, n_bins: int = 84,

@@ -28,14 +28,17 @@ FFT_RADICES = (4,) * 5 + (2,)
 KERNEL_N_FFT = math.prod(FFT_RADICES)   # the length csrc/mel.cu is built for
 
 
-def frame_audio(audio: torch.Tensor, n_fft: int, hop: int) -> torch.Tensor:
-    """(B, N) -> (B, T, n_fft) frames of the centre reflect-padded signal,
-    T = N // hop + 1 (pad n_fft // 2 per side)."""
-    pad = n_fft // 2
-    if audio.shape[-1] <= pad:
-        raise ValueError("signal shorter than reflect padding length")
-    x = F.pad(audio[:, None], (pad, pad), mode="reflect")[:, 0]
-    return x.unfold(-1, n_fft, hop)
+def frame_audio(audio: torch.Tensor, n_fft: int, hop: int,
+                center: bool = True, pad_mode: str = "reflect"):
+    """(B, N) -> (B, T, n_fft) frames every `hop` samples; with `center`
+    (T = N // hop + 1) the signal is first padded by n_fft // 2 per side,
+    reflected or with zeros (`pad_mode` 'reflect' or 'constant')."""
+    if center:
+        pad = n_fft // 2
+        if pad_mode == "reflect" and audio.shape[-1] <= pad:
+            raise ValueError("signal shorter than reflect padding length")
+        audio = F.pad(audio[:, None], (pad, pad), mode=pad_mode)[:, 0]
+    return audio.unfold(-1, n_fft, hop)
 
 
 def mel_power_plain(audio, wcos, wsin, mel_basis, hop: int):

@@ -40,15 +40,18 @@ from .mel_kernel import (fft_twiddles, frame_audio, mel_band, mel_power,
 
 
 class STFT(nn.Module):
-    """Power STFT, centre reflect padding, `freq_scale='no'` (reference
-    `model/Spectrogram.py:104-231`)."""
+    """Power STFT, `freq_scale='no'` (reference
+    `model/Spectrogram.py:104-231`); centre reflect padding by default,
+    `center` and `pad_mode` as `frame_audio` takes them."""
 
     def __init__(self, n_fft: int = 2048, win_length: int | None = None,
-                 hop_length: int | None = None, window: str = "hann"):
+                 hop_length: int | None = None, window: str = "hann",
+                 center: bool = True, pad_mode: str = "reflect"):
         super().__init__()
         win_length = win_length or n_fft
         self.n_fft = n_fft
         self.hop_length = hop_length or win_length // 4
+        self.center, self.pad_mode = center, pad_mode
         wcos, wsin = fb.fourier_kernels(n_fft, win_length, None, window)
         # (n_fft, bins) for right-multiplication of frames
         self.register_buffer("wcos", torch.from_numpy(wcos.T.copy()),
@@ -61,7 +64,8 @@ class STFT(nn.Module):
 
     def power(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, T, bins) power spectrogram |STFT|^2."""
-        frames = frame_audio(x, self.n_fft, self.hop_length)
+        frames = frame_audio(x, self.n_fft, self.hop_length, self.center,
+                             self.pad_mode)
         real = frames @ self.wcos
         imag = frames @ self.wsin
         return real * real + imag * imag

@@ -1,10 +1,9 @@
-"""Dataset preparation for the VAT training CLI (the port's copy of
-`reconvat_tpu/train/prepare.py:1-92`, reference `prepare_VAT_dataset`,
-`model/helper_functions.py:52-117`): the same split tables; dataset roots
+"""Dataset preparation (the port's copy of `reconvat_tpu/train/prepare.py`,
+reference `prepare_dataset` and `prepare_VAT_dataset`,
+`model/helper_functions.py:23-117`): the same split tables; dataset roots
 default to the reference's (`./MAPS`, `../../public_data/MAESTRO/`,
 `./MusicNet`, `./Guqin`) and are overridden by `data_roots` or the
-`RECONVAT_<NAME>_ROOT` environment variables. The supervised baselines'
-`prepare_dataset` is not ported (ROADMAP §1).
+`RECONVAT_<NAME>_ROOT` environment variables.
 """
 from __future__ import annotations
 
@@ -89,3 +88,43 @@ def prepare_VAT_dataset(sequence_length, validation_length, refresh,
         raise ValueError(f"Please choose the correct dataset: {dataset!r}")
 
     return l_set, ul_set, validation_dataset, full_validation
+
+
+def prepare_dataset(train_on, sequence_length, validation_length,
+                    leave_one_out, refresh, small=False, data_roots=None):
+    """Supervised-only preparation (`model/helper_functions.py:23-49`)."""
+    roots = _roots(data_roots)
+    train_groups, validation_groups = ["train"], ["validation"]
+
+    if leave_one_out is not None:
+        all_years = {"2004", "2006", "2008", "2009", "2011", "2013", "2014",
+                     "2015", "2017"}
+        train_groups = list(all_years - {str(leave_one_out)})
+        validation_groups = [str(leave_one_out)]
+
+    if train_on == "MAESTRO":
+        dataset = MAESTRO(roots["MAESTRO"], groups=train_groups,
+                          sequence_length=sequence_length)
+        validation_dataset = MAESTRO(roots["MAESTRO"],
+                                     groups=validation_groups,
+                                     sequence_length=sequence_length)
+    elif train_on == "MusicNet":
+        dataset = MusicNet(roots["MusicNet"], groups=["train"],
+                           sequence_length=sequence_length, refresh=refresh)
+        validation_dataset = MusicNet(roots["MusicNet"], groups=["test"],
+                                      sequence_length=sequence_length,
+                                      refresh=refresh)
+    else:
+        dataset = MAPS(roots["MAPS"],
+                       groups=["AkPnBcht", "AkPnBsdf", "AkPnCGdD", "AkPnStgb",
+                               "SptkBGAm", "SptkBGCl", "StbgTGd2"],
+                       sequence_length=sequence_length, overlap=False,
+                       refresh=refresh)
+        validation_dataset = MAPS(roots["MAPS"],
+                                  groups=["ENSTDkAm", "ENSTDkCl"],
+                                  sequence_length=validation_length,
+                                  overlap=True, refresh=refresh)
+
+    full_validation = MAPS(roots["MAPS"], groups=["ENSTDkAm", "ENSTDkCl"],
+                           sequence_length=None, refresh=refresh)
+    return dataset, validation_dataset, full_validation

@@ -251,6 +251,8 @@ PORT_MODULES = [
     "reconvat_tpu_torch.train_baseline_Multi_Inst",
     "reconvat_tpu_torch.parallel", "reconvat_tpu_torch.parallel.distributed",
     "reconvat_tpu_torch.parallel.mesh", "reconvat_tpu_torch.parallel.launch",
+    "reconvat_tpu_torch.ops.extra_frontends",
+    "reconvat_tpu_torch.preprocess_audio",
     "chip_smoke",
 ]
 

@@ -3,7 +3,8 @@ the CPU) on the CPU, where a "card" route is built to miss one bf16 cast;
 and the gradient rule of `compare_routes` (`grad_rule` with its second
 reading, the plain route's spread under further probes) on a flagship, a
 Segmentation and an O&F self-attention step (phases 8, 14 and 15a) where a
-"kernel" route carries a defect.
+"kernel" route carries a defect; and phase 20's place in `main` and its
+rule for the library frontends (`frontend_held`) against defective routes.
 
 Phase 9b runs phase 9's short clip at the weights and at `BF16_9B_DRAWS`
 perturbed copies of them (`chip_smoke.weight_draws`) through the card and
@@ -246,3 +247,51 @@ def test_attention_grad_rule_fails_a_lost_gradient(attention_grads):
                  "combined_linear.weight", "combined_linear.bias"):
         gk = dict(gp, **{leaf: torch.zeros_like(gp[leaf])})
         assert _misses(gk, gp, gq, spread) == [leaf]
+
+
+def test_phase_20_runs_in_main_and_counts_mel_power():
+    """Phase 20 is in `main`'s phase list, after 19d, and reads MFCC's
+    launches of the mel kernel with every count reset just before."""
+    import inspect
+
+    main = inspect.getsource(chip_smoke.main)
+    assert main.index('("19d", phase_sharded_family_clis') < \
+        main.index('("20", phase_extra_frontends, (rows,))')
+    phase = inspect.getsource(chip_smoke.phase_extra_frontends)
+    assert '"mel_power": 1' in phase and 'again["mel_power"] != 3' in phase
+    assert 'mel_row["launches_mfcc"]' in phase
+    assert "use_kernel = False" in phase
+
+
+def test_phase_20_rule_fails_a_defective_frontend():
+    """`frontend_held` on phase 20's cases at a short clip on the CPU: the
+    CPU's own fp32 route is held; a CQT1992 whose basis misses one bin,
+    an MFCC whose DFT basis is one sample off, and an output shifted by
+    one frame are not."""
+    from reconvat_tpu_torch.ops import extra_frontends as xf
+
+    audio = torch.tensor(np.random.RandomState(20).randn(2, 16384) * 0.1,
+                         dtype=torch.float32)
+    for name, module, inp, call in chip_smoke.extra_frontend_cases(audio):
+        truth = call(module.double(), inp.double())
+        cpu32 = call(module.float(), inp)
+        outs = cpu32 if isinstance(cpu32, tuple) else (cpu32,)
+        truths = truth if isinstance(truth, tuple) else (truth,)
+        for o, t in zip(outs, truths):
+            assert chip_smoke.frontend_held(o, o, t)[2], name
+            if o.dim() == 3 and o.shape[1] > 1:
+                shifted = torch.roll(o, 1, dims=1)
+                assert not chip_smoke.frontend_held(shifted, o, t)[2], name
+    cqt = xf.CQT1992(n_bins=60)
+    truth = cqt.double()(audio.double())
+    good = cqt.float()(audio)
+    with torch.no_grad():
+        cqt.kernel_spec_real[:, 30] = 0
+        cqt.kernel_spec_imag[:, 30] = 0
+    assert not chip_smoke.frontend_held(cqt(audio), good, truth)[2]
+    mfcc = xf.MFCC()
+    truth = mfcc.double()(audio.double())
+    good = mfcc.float()(audio)
+    with torch.no_grad():
+        mfcc.melspec.stft.wcos.copy_(torch.roll(mfcc.melspec.stft.wcos, 1, 0))
+    assert not chip_smoke.frontend_held(mfcc(audio), good, truth)[2]

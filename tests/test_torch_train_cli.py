@@ -16,7 +16,12 @@ Tolerances:
   losses rtol 1e-4.
 - notes and metrics: equal (1e-12) once the pitches with a JAX
   posteriogram element within 1e-4 of the 0.5 threshold are set aside in
-  both packages' predictions (the rule of `chip_smoke.py:same_notes`).
+  both packages' predictions (the rule of `chip_smoke.py:same_notes`);
+  both packages' metric code equal (1e-12) on one and the same masked
+  posteriogram; on each package's own, the ranking metric
+  (`micro_avg_P`, average precision over the raw posteriogram) within
+  the least and largest value that a posteriogram within 1e-4 of the
+  JAX package's can score (`_ap_bounds`), the others equal (1e-12).
 - checkpoints: bit-equal tensors; a step after a save and a restore into a
   fresh model equals the step taken straight on (fp32, the same CPU
   kernels on the same values).
@@ -38,7 +43,7 @@ from reconvat_tpu import evaluate as jevaluate
 from reconvat_tpu.data.datasets import MAPS as JaxMAPS
 from reconvat_tpu.models.reconvat import ReconVAT as JaxReconVAT
 from reconvat_tpu.train.torch_convert import torch_to_flax
-from reconvat_tpu_torch import decode, evaluate
+from reconvat_tpu_torch import decode, evaluate, metrics
 from reconvat_tpu_torch import train_UNet_VAT as cli
 from reconvat_tpu_torch.data.datasets import MAPS
 from reconvat_tpu_torch.models.reconvat import ReconVAT
@@ -167,6 +172,36 @@ def _masked(runner, near, to_array):
     return run
 
 
+# the ranking metric of `evaluate_wo_velocity` (reconstruction=False)
+RANKING_METRICS = ("metric/MusicNet/micro_avg_P",)
+
+
+def _ap_bounds(label, scores, near):
+    """The least and the largest micro average precision of any
+    posteriogram within POST_ATOL of `scores` (the JAX package's masked
+    (1, T, 88) posteriogram), elementwise, that keeps the `near` pitches
+    at 0, scored as `evaluate_wo_velocity` scores it (clamped at 0,
+    against the label roll). Average precision depends only on how the
+    positive and negative frames are ordered, and never falls when a
+    positive moves above a negative; so the least is reached with every
+    positive lowered by POST_ATOL and every negative raised by it, the
+    largest with the opposite. A posteriogram that passes the test's
+    POST_ATOL check scores within [least, largest]. On the two test songs
+    this range is 0.0751-0.0924 and 0.0225-0.0256 about the JAX package's
+    0.0820 and 0.0239: stricter than the share of positive-negative frame
+    pairs whose JAX scores lie within POST_ATOL of each other (0.027 and
+    0.033), which no range of average precision need respect. The two
+    posteriograms differed by 6e-8 at most (one fp32 ulp near 1), which
+    reorders nearly equal scores: the port's 0.08202364 against
+    0.08202354."""
+    y = np.asarray(label).reshape(-1, 88) == 1
+    s = np.asarray(scores)[0].astype(np.float64)
+    step = np.where(near, 0.0, POST_ATOL)[None, :]
+    return tuple(metrics.average_precision_score(
+        y.ravel(), np.maximum(s + sign * np.where(y, step, -step), 0)
+        .ravel()) for sign in (-1, 1))
+
+
 def test_result_dict_matches_jax_evaluation(run, jax_side, corpus):
     """The port's result_dict against the JAX package's evaluation of the
     same final weights on the same test songs: posteriograms and losses
@@ -212,17 +247,37 @@ def test_result_dict_matches_jax_evaluation(run, jax_side, corpus):
         np.testing.assert_allclose(result[k], mine[k], rtol=0, atol=1e-12)
 
     to_t = torch.from_numpy
-    port_m = evaluate.evaluate_wo_velocity(
-        songs, _masked(port_runner, near, to_t), reconstruction=False)
-    jax_m = jevaluate.evaluate_wo_velocity(
-        jsongs, _masked(jax_runner, near, np.asarray), reconstruction=False)
+    port_masked = _masked(port_runner, near, to_t)
+    jax_masked = _masked(jax_runner, near, np.asarray)
+    port_m = evaluate.evaluate_wo_velocity(songs, port_masked,
+                                           reconstruction=False)
+    jax_m = jevaluate.evaluate_wo_velocity(jsongs, jax_masked,
+                                           reconstruction=False)
     # the JAX package's result_dict holds what its evaluate_wo_velocity
     # returns: the same keys (its losses come back from a jit, sorted)
     assert set(result) == set(port_m) == set(jax_m)
+
+    # the metric code: both packages score one and the same (the JAX
+    # package's masked) posteriogram alike
+    shared = evaluate.evaluate_wo_velocity(songs, jax_masked,
+                                           reconstruction=False)
     for k in jax_m:
         if k.startswith("metric/"):
+            np.testing.assert_allclose(shared[k], jax_m[k], rtol=0,
+                                       atol=1e-12, err_msg=k)
+
+    # each package's own posteriogram: every thresholding metric equal;
+    # the ranking metric within the bound that POST_ATOL allows
+    for k in jax_m:
+        if k.startswith("metric/") and k not in RANKING_METRICS:
             np.testing.assert_allclose(port_m[k], jax_m[k], rtol=0,
                                        atol=1e-12, err_msg=k)
+    for k in RANKING_METRICS:
+        for song, got_ap, item in zip(songs, port_m[k], jsongs):
+            low, high = _ap_bounds(song["frame"],
+                                   jax_masked(item)[0]["frame"], near)
+            assert low - 1e-12 <= got_ap <= high + 1e-12, (k, low, got_ap,
+                                                           high)
 
 
 def test_bucketed_runner_matches_jax(run, jax_side, corpus):

@@ -8,8 +8,10 @@ only:
 
 Joins a gloo group of `world` CPU ranks on localhost:<port>. Without a job
 it runs each case of `CASES` on its rows of the global batch under an
-active mesh and saves {case: result} to <out.pt>; the test builds the
-same models, inputs and single-process results with the functions below.
+active mesh and saves {case: result} to <out.pt> (rank 0 also the fp32
+case in one process on SPREAD_THREADS threads, 'flagship32_threads'); the
+test builds the same models, inputs and single-process results with the
+functions below.
 With a job (`run_job`) it takes one train step of the job's model and
 weights on its share of the job's global batches (over `job["sp"]` sp
 ranks, 1 by default) and saves `step_run`'s result; a job of `SP_CASES`
@@ -46,6 +48,8 @@ CASES = ("bn", "flagship64", "segmentation64", "flagship32")
 # Segmentation's step without VAT: in float64 its VAT step's gradients move
 # by 9e-9 of the largest between 1 and 4 CPU threads of one process
 VAT = {"flagship64": True, "segmentation64": False, "flagship32": True}
+# threads of rank 0's one-process fp32 step beside the test's one thread
+SPREAD_THREADS = 4
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 # a collective that waits longer fails the rank (a skipped call hangs)
 TIMEOUT = datetime.timedelta(seconds=120)
@@ -477,6 +481,13 @@ def run_rank(rank: int, world: int, port: int, job: str | None) -> dict:
                 out[case] = step_run(model, pmesh.shard_batch(batch_l, ctx),
                                      pmesh.shard_batch(batch_ul, ctx),
                                      VAT[case])
+        if rank == 0:
+            # the fp32 step in one process on SPREAD_THREADS threads: the
+            # test's second reading of its rounding-driven VAT losses
+            torch.set_num_threads(SPREAD_THREADS)
+            out["flagship32_threads"] = step_run(*step_setup("flagship32"),
+                                                 VAT["flagship32"])
+            torch.set_num_threads(1)
     finally:
         distributed.shutdown()
     return out
