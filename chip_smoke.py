@@ -5301,6 +5301,14 @@ XF_FACTOR, XF_FLOOR, XF_ROUND_TRIP = 2.0, 1e-6, 1e-5
 # step amplifies the rounding) and by the JAX package's tone criterion at
 # its default 32 (tests/test_extra_frontends.py:77-86)
 XF_GL_ITERS, XF_GL_TONE_ERR = 4, 0.15
+# phase 20b: `MelSpectrogram` settings off its defaults, each with whether
+# the mel_power kernel computes it (`htk` and `norm` change the basis
+# alone, which the kernel reads with its band) and its key in the mel row
+XF_MEL_SETTINGS = (({"center": False}, False, None),
+                   ({"pad_mode": "constant"}, False, None),
+                   ({"power": 1.0}, False, None),
+                   ({"htk": True}, True, "htk"),
+                   ({"norm": None}, True, "norm_none"))
 
 
 def frontend_held(got, cpu32, truth) -> tuple:
@@ -5363,7 +5371,8 @@ def phase_extra_frontends(rows) -> None:
     to 0 just before and read just after (one `mel_power` launch and no
     other; each further call one more), its kernel route is held against
     its plain route (`use_kernel = False`), timed beside it, and an MFCC
-    at n_fft 1024, which the kernel does not compute, launches nothing."""
+    at n_fft 1024, which the kernel does not compute, launches nothing.
+    Then phase 20b (`phase_mel_settings`) on the same audio."""
     from reconvat_tpu_torch.models.base import fp32_math
     from reconvat_tpu_torch.ops import extra_frontends as xf
     from reconvat_tpu_torch.ops.mel_kernel import mel_power
@@ -5461,6 +5470,79 @@ def phase_extra_frontends(rows) -> None:
         f"samples (fp32, TF32 off, against float64 on the CPU; MFCC's "
         f"launches per call {mel_row['launches_mfcc']}): "
         f"{'; '.join(read)}; Griffin-Lim tone error at 32 iterations {err}")
+    phase_mel_settings(mel_row, audio, counted)
+
+
+def phase_mel_settings(mel_row, audio, counted) -> None:
+    """Phase 20b: `MelSpectrogram` at each of XF_MEL_SETTINGS on phase
+    20's audio (22.05 kHz, 128 mels), fp32 with TF32 off, on the card
+    against float64 on the CPU by `frontend_held`, beside the CPU's fp32
+    route, timed. Its route is the one fixed when it was built: where the
+    kernel computes the settings (an htk basis, norm=None) a call is a
+    main path (`counted`: every count 0 just before, read just after)
+    that launches `mel_power` once and nothing else, held against
+    `mel_power_plain` on the same inputs within MEL_TOL and timed beside
+    it, the launches, times and error going into the mel row under the
+    setting's key; elsewhere a call launches nothing and `use_kernel =
+    True` raises ValueError."""
+    from reconvat_tpu_torch.models.base import fp32_math
+    from reconvat_tpu_torch.ops.mel_kernel import mel_power_plain
+    from reconvat_tpu_torch.ops.spectrogram import MelSpectrogram
+
+    x = audio.cuda()
+    read = []
+    for kw, kernel, key in XF_MEL_SETTINGS:
+        module = MelSpectrogram(**kw)
+        if module.use_kernel is not kernel:
+            fail(f"phase 20b MelSpectrogram({kw}) built with use_kernel "
+                 f"{module.use_kernel}, not {kernel}")
+        truth = module.double()(audio.double())
+        cpu32 = module.float()(audio)
+        module = module.cuda()
+        with fp32_math():
+            got, launches = counted(lambda: module(x))
+            ms = time_ms(lambda: module(x))
+        want = {**{k: 0 for k in launches}, "mel_power": int(kernel)}
+        if launches != want:
+            fail(f"phase 20b MelSpectrogram({kw}): one call launched "
+                 f"{launches}, not {want}")
+        err, err_cpu, ok = frontend_held(got, cpu32, truth)
+        if not ok:
+            fail(f"phase 20b MelSpectrogram({kw}): error against float64 "
+                 f"{err}, the CPU fp32 route's {err_cpu} (at most "
+                 f"{XF_FACTOR}x + {XF_FLOOR}), shape {tuple(got.shape)} "
+                 f"against {tuple(truth.shape)}")
+        line = (f"{kw} {'kernel' if kernel else 'plain'} route "
+                f"{tuple(got.shape)}: error {err} (CPU fp32 {err_cpu}), "
+                f"ms {ms}, launches {launches['mel_power']}")
+        if kernel:
+            args = (module.stft.wcos, module.stft.wsin, module.mel_basis,
+                    module.stft.hop_length)
+            with fp32_math():
+                plain = mel_power_plain(x, *args)
+                plain_ms = time_ms(lambda: mel_power_plain(x, *args))
+            diff = check_close(f"phase 20b mel_power at {kw}", got, plain,
+                               MEL_TOL)
+            band = module.band.double()
+            mel_row.update({f"launches_{key}": launches["mel_power"],
+                            f"ms_{key}": ms, f"plain_ms_{key}": plain_ms,
+                            f"max_abs_err_{key}": diff})
+            line += (f", plain ms {plain_ms}, max abs diff {diff} (tol "
+                     f"{MEL_TOL}), band mean width "
+                     f"{(band[:, 1] - band[:, 0]).mean().item()}")
+        else:
+            try:
+                module.use_kernel = True
+            except ValueError:
+                pass
+            else:
+                fail(f"phase 20b MelSpectrogram({kw}) took use_kernel = "
+                     f"True where the kernel does not compute it")
+        read.append(line)
+        del module, truth, cpu32, got
+    log(f"phase 20b MelSpectrogram settings on {XF_CLIPS} x {XF_SAMPLES} "
+        f"samples (fp32, TF32 off, against float64 on the CPU): "
+        f"{'; '.join(read)}")
 
 
 def data_parallel_phases(groups=("17", "18", "19")) -> None:

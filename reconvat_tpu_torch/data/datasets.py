@@ -403,9 +403,10 @@ class ApplicationWind(PianoRollAudioDataset):
 
 class ApplicationDataset:
     """Inference-only corpus: the folder's .flac and .wav files, 16 kHz,
-    no labels."""
+    no labels. `seed` is taken and unused, as in the JAX package and the
+    reference (`model/dataset.py:446-511`): nothing here is drawn."""
 
-    def __init__(self, path):
+    def __init__(self, path, seed=42):
         self.path = path
         self.data = []
         for audio_path in self.files(path):

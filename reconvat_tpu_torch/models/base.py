@@ -77,6 +77,8 @@ def init_parameters(module: nn.Module, generator: torch.Generator) -> None:
                 conv.weight.normal_(
                     0.0, float(np.sqrt(2.0 / conv.out_channels)),
                     generator=generator)
+                if conv.bias is not None:
+                    conv.bias.zero_()
                 attn_linears.add(conv)
             m.rel_t.normal_(0.0, 1.0, generator=generator)
             m.rel_f.normal_(0.0, 1.0, generator=generator)
@@ -180,7 +182,10 @@ class TranscriptionModel:
         """Route the mel frontend and the attention cores through the CUDA
         kernels (True, the default) or their plain versions (False). The
         CQT and CFP frontends have no kernel (no `use_kernel`): with them
-        the switch moves the attention cores alone."""
+        the switch moves the attention cores alone. The models build their
+        mel frontend at its defaults, which the kernel computes; a
+        `MelSpectrogram` at settings it does not compute raises
+        ValueError at True."""
         for m in self.modules():
             if hasattr(m, "use_kernel"):
                 m.use_kernel = flag

@@ -38,13 +38,14 @@ class OnsetsAndFramesNet(nn.Module):
     py:627-635`): spec (B, T, F) -> (onset, activation, frame)."""
 
     def __init__(self, n_bins: int = C.N_BINS, model_complexity: int = 48,
-                 compute_dtype=None):
+                 compute_dtype=None, output_features: int = C.N_KEYS):
         super().__init__()
         size, cd = model_complexity * 16, resolve_compute_dtype(compute_dtype)
-        self.onset_stack = OnsetStack(n_bins, size, C.N_KEYS, cd)
+        keys = output_features
+        self.onset_stack = OnsetStack(n_bins, size, keys, compute_dtype=cd)
         self.frame_stack = nn.Sequential(ConvStack(n_bins, size, cd),
-                                         Linear(size, C.N_KEYS), nn.Sigmoid())
-        self.combined_stack = CombineStack(2 * C.N_KEYS, size, C.N_KEYS)
+                                         Linear(size, keys), nn.Sigmoid())
+        self.combined_stack = CombineStack(2 * keys, size, keys)
 
     def forward(self, spec):
         onset = self.onset_stack(spec)
@@ -63,12 +64,13 @@ class FrameStackNet(nn.Module):
     445-451`): spec -> (activation, frame)."""
 
     def __init__(self, n_bins: int = C.N_BINS, model_complexity: int = 48,
-                 compute_dtype=None):
+                 compute_dtype=None, output_features: int = C.N_KEYS):
         super().__init__()
         size, cd = model_complexity * 16, resolve_compute_dtype(compute_dtype)
+        keys = output_features
         self.frame_stack = nn.Sequential(ConvStack(n_bins, size, cd),
-                                         Linear(size, C.N_KEYS), nn.Sigmoid())
-        self.combined_stack = CombineStack(C.N_KEYS, size, C.N_KEYS)
+                                         Linear(size, keys), nn.Sigmoid())
+        self.combined_stack = CombineStack(keys, size, keys)
 
     def forward(self, spec):
         activation = self.frame_stack(spec)
@@ -85,10 +87,11 @@ class OnsetStackNet(nn.Module):
     534-537`): spec -> onset."""
 
     def __init__(self, n_bins: int = C.N_BINS, model_complexity: int = 48,
-                 compute_dtype=None):
+                 compute_dtype=None, output_features: int = C.N_KEYS):
         super().__init__()
         size, cd = model_complexity * 16, resolve_compute_dtype(compute_dtype)
-        self.onset_stack = OnsetStack(n_bins, size, C.N_KEYS, cd)
+        self.onset_stack = OnsetStack(n_bins, size, output_features,
+                                      compute_dtype=cd)
 
     def forward(self, spec):
         return self.onset_stack(spec)
@@ -98,18 +101,19 @@ class _Family(FrameSpecModel):
     """What the three models share: the constructor's keys (those of the
     JAX dataclasses, with `ReconVAT`'s seed, device and compute_dtype;
     `reconstruction` is taken and has no effect: the family has no
-    reconstruction chain; `kl_div` is `OnsetsAndFrames`' alone, as the
-    ablations' VAT objectives are their own; `spec` the frontend, whose
-    bins set the conv trunk's FC input width) and per-step dropout
-    masks."""
+    reconstruction chain; the ablations take `kl_div` and leave it
+    unused, as the JAX package's do, since their VAT objectives are their
+    own; `output_features` the keys of every roll, 88 by default; `spec`
+    the frontend, whose bins set the conv trunk's FC input width) and
+    per-step dropout masks."""
 
     def _build(self, model_complexity, log, mode, spec, vat_cfg, seed,
-               device, compute_dtype):
+               device, compute_dtype, output_features):
         device = resolve_device(device)
         frontend, n_bins = make_frontend(spec)
         # the network's constructor (the mixins have none)
         super(_Family, self).__init__(n_bins, model_complexity,
-                                      compute_dtype)
+                                      compute_dtype, output_features)
         self._init_chain(frontend, n_bins, log, mode, vat_cfg, seed, device)
 
     def _vat(self, spec, generator, train, y_ref=None):
@@ -129,10 +133,10 @@ class OnsetsAndFrames(_Family, OnsetsAndFramesNet):
                  mode: str = "imagewise", spec: str = "Mel",
                  xi: float = 1e-5, eps: float = 10.0, kl_div: bool = False,
                  reconstruction: bool = False, seed: int = 0, device=None,
-                 compute_dtype=None):
+                 compute_dtype=None, output_features: int = C.N_KEYS):
         self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, kl_div=kl_div, norm_axis=-1),
-                    seed, device, compute_dtype)
+                    seed, device, compute_dtype, output_features)
 
     vat_target = OnsetsAndFramesNet.frame_only
 
@@ -187,9 +191,10 @@ class FrameStackVAT(_Family, FrameStackNet):
 
     def __init__(self, model_complexity: int = 48, log: bool = True,
                  mode: str = "imagewise", spec: str = "Mel",
-                 xi: float = 1e-5, eps: float = 10.0,
+                 xi: float = 1e-5, eps: float = 10.0, kl_div: bool = False,
                  reconstruction: bool = False, seed: int = 0, device=None,
-                 compute_dtype=None, vat_mode: str = "all"):
+                 compute_dtype=None, vat_mode: str = "all",
+                 output_features: int = C.N_KEYS):
         def objective(y_pred, y_ref):
             act = mse_loss(y_pred["activation"], y_ref["activation"])
             frame = binary_cross_entropy(y_pred["frame"], y_ref["frame"])
@@ -200,7 +205,7 @@ class FrameStackVAT(_Family, FrameStackNet):
         self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, norm_axis=-1, grad_rescue=1e20,
                               objective=objective),
-                    seed, device, compute_dtype)
+                    seed, device, compute_dtype, output_features)
 
     vat_target = FrameStackNet.both
 
@@ -246,13 +251,14 @@ class OnsetStackVAT(_Family, OnsetStackNet):
 
     def __init__(self, model_complexity: int = 48, log: bool = True,
                  mode: str = "imagewise", spec: str = "Mel",
-                 xi: float = 1e-5, eps: float = 10.0,
+                 xi: float = 1e-5, eps: float = 10.0, kl_div: bool = False,
                  reconstruction: bool = False, seed: int = 0, device=None,
-                 compute_dtype=None, vat_mode: str = "all"):
+                 compute_dtype=None, vat_mode: str = "all",
+                 output_features: int = C.N_KEYS):
         self._build(model_complexity, log, mode, spec,
                     VATConfig(xi=xi, eps=eps, norm_axis=-1, grad_rescue=1.0,
                               clamp=False),
-                    seed, device, compute_dtype)
+                    seed, device, compute_dtype, output_features)
 
     vat_target = OnsetStackNet.forward
 

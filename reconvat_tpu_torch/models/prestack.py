@@ -29,10 +29,13 @@ PATCH = 25
 
 
 class BasicBlock(nn.Module):
-    """torchvision's `BasicBlock`, with its submodule names."""
+    """torchvision's `BasicBlock`, with its submodule names. The 1 x 1
+    `downsample` branch is built where `use_downsample` says, and where
+    torchvision builds one when it is None: at a stride or a change of
+    width."""
 
     def __init__(self, inp: int, out: int, stride: int = 1,
-                 compute_dtype=None):
+                 compute_dtype=None, use_downsample: bool | None = None):
         super().__init__()
         cd = dict(bias=False, compute_dtype=compute_dtype)
         self.conv1 = Conv2d(inp, out, 3, stride=stride, padding=1, **cd)
@@ -40,10 +43,11 @@ class BasicBlock(nn.Module):
         self.relu = nn.ReLU()
         self.conv2 = Conv2d(out, out, 3, padding=1, **cd)
         self.bn2 = BatchNorm2d(out, eps=BATCHNORM_EPS)
+        if use_downsample is None:
+            use_downsample = stride != 1 or inp != out
         self.downsample = (nn.Sequential(
             Conv2d(inp, out, 1, stride=stride, **cd),
-            BatchNorm2d(out, eps=BATCHNORM_EPS))
-            if stride != 1 or inp != out else None)
+            BatchNorm2d(out, eps=BATCHNORM_EPS)) if use_downsample else None)
 
     def forward(self, x):
         out = self.relu(self.bn1(self.conv1(x)))

@@ -170,8 +170,10 @@ class TransposeConvBlock(nn.Module):
 
 class MultiHeadAttention2D(nn.Module):
     """Reference `MutliHeadAttention2D` (`model/Segmentation.py:277-354`):
-    local 2-D attention over a kh x kw window. q from 1 x 1 bias-free
-    convolutions of the input, k and v of the zero-padded input; the
+    local 2-D attention over a kh x kw window. q from 1 x 1 convolutions
+    of the input, k and v of the zero-padded input, bias-free unless
+    `use_bias` (a bias then lands on the padding's keys and values too,
+    as in the JAX package, which also convolves the padded input); the
     relative embeddings `rel_t` (C/2, 1, 1, kh, 1) and `rel_f` (C/2, 1,
     1, 1, kw), the reference's shapes, broadcast over the window and
     stacked over the channel halves, are added to the key windows.
@@ -184,14 +186,15 @@ class MultiHeadAttention2D(nn.Module):
     the bottleneck, or on a few channels."""
 
     def __init__(self, in_channels: int, out_channels: int,
-                 kernel_size=(3, 3), groups: int = 1, compute_dtype=None):
+                 kernel_size=(3, 3), groups: int = 1, use_bias: bool = False,
+                 compute_dtype=None):
         super().__init__()
         kh, kw = kernel_size
         self.out_channels, self.groups = out_channels, groups
         self.kernel_size = (kh, kw)
         for name in ("query_conv", "key_conv", "value_conv"):
             setattr(self, name, Conv2d(in_channels, out_channels, 1,
-                                       bias=False,
+                                       bias=use_bias,
                                        compute_dtype=compute_dtype))
         self.rel_t = nn.Parameter(torch.empty(out_channels // 2, 1, 1, kh, 1))
         self.rel_f = nn.Parameter(torch.empty(out_channels // 2, 1, 1, 1, kw))

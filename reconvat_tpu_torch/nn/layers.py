@@ -138,30 +138,44 @@ class BiLSTM(nn.LSTM):
 
 class OnsetStack(nn.Module):
     """Reference `Onset_Stack` (`model/onset_frame_VAT.py:357-387`): conv
-    trunk (in `compute_dtype`), BiLSTM and linear head (fp32), sigmoid."""
+    trunk (in `compute_dtype`), BiLSTM and linear head (fp32), sigmoid.
+    With `use_lstm=False` there is no `sequence_model` and the head reads
+    the trunk's model_size features."""
 
     def __init__(self, input_features: int, model_size: int,
-                 output_features: int, compute_dtype=None):
+                 output_features: int, use_lstm: bool = True,
+                 compute_dtype=None):
         super().__init__()
         self.convstack = ConvStack(input_features, model_size,
                                    compute_dtype=compute_dtype)
-        self.sequence_model = BiLSTM(model_size, model_size // 2)
-        self.linear = Linear(model_size, output_features)
+        self.sequence_model = (BiLSTM(model_size, model_size // 2)
+                               if use_lstm else None)
+        # the width the JAX package's `Dense` infers: both LSTM directions
+        self.linear = Linear(2 * (model_size // 2) if use_lstm
+                             else model_size, output_features)
 
     def forward(self, x):
-        x = self.sequence_model(self.convstack(x))
+        x = self.convstack(x)
+        if self.sequence_model is not None:
+            x = self.sequence_model(x)
         return torch.sigmoid(self.linear(x))
 
 
 class CombineStack(nn.Module):
     """Reference `Combine_Stack` (`model/onset_frame_VAT.py:390-414`):
-    BiLSTM, linear head, sigmoid, in fp32."""
+    BiLSTM, linear head, sigmoid, in fp32. With `use_lstm=False` there is
+    no `sequence_model` and the head reads the input's input_features."""
 
     def __init__(self, input_features: int, model_size: int,
-                 output_features: int):
+                 output_features: int, use_lstm: bool = True):
         super().__init__()
-        self.sequence_model = BiLSTM(input_features, model_size // 2)
-        self.linear = Linear(model_size, output_features)
+        self.sequence_model = (BiLSTM(input_features, model_size // 2)
+                               if use_lstm else None)
+        self.linear = Linear(2 * (model_size // 2) if use_lstm
+                             else input_features, output_features)
 
     def forward(self, x):
-        return torch.sigmoid(self.linear(self.sequence_model(x)))
+        if self.sequence_model is not None:
+            x = self.sequence_model(x)
+        return torch.sigmoid(self.linear(x))
+

@@ -9,7 +9,7 @@ cuFFT on the card), 1-D convolutions (`F.conv1d`) and products, fp32 with
 TF32 off (`models.base.fp32_math`), as the JAX package computes them outside
 any Pallas kernel. `MFCC` alone reaches a hand-written kernel: its
 `MelSpectrogram` launches `csrc/mel.cu` on a CUDA tensor when that kernel
-computes its DFT length.
+computes its settings.
 
 Every constant is a real buffer, so `.to(device)` moves it and `.double()`
 makes it float64; a complex basis is kept as its real and imaginary parts
@@ -28,7 +28,7 @@ from torch import nn
 
 from ..models.base import fp32_math
 from . import filterbanks as fb
-from .mel_kernel import KERNEL_N_FFT, frame_audio
+from .mel_kernel import frame_audio
 from .spectrogram import STFT, MelSpectrogram, reflect_pad
 
 
@@ -59,19 +59,19 @@ def _joined(module: nn.Module, name: str) -> torch.Tensor:
 class MFCC(nn.Module):
     """Mel spectrogram -> power_to_db -> DCT-II over the mel axis
     (reference `MFCC`, `model/Spectrogram.py:469-591`); `kwargs` go to
-    `MelSpectrogram` (22.05 kHz and 128 mels by default).
+    `MelSpectrogram` (22.05 kHz and 128 mels by default; `center`,
+    `pad_mode`, `power`, `htk` and `norm` among them).
 
-    The mel power takes the `mel_power` kernel (`csrc/mel.cu`, counted in
-    `mel_power.launches`) on a CUDA tensor when the kernel computes this
-    DFT length (`KERNEL_N_FFT`, 2048 points), and its plain version
-    otherwise, on any device: the route is fixed here, when the module is
-    built (`melspec.use_kernel`), never by a failed launch."""
+    The mel power takes `MelSpectrogram`'s route, fixed when it is built:
+    the `mel_power` kernel (`csrc/mel.cu`, counted in
+    `mel_power.launches`) on a CUDA tensor where the kernel computes the
+    settings (`melspec.kernel_computes`: 2048 points, centred, reflect
+    padding, power 2), its plain version otherwise, on any device."""
 
     def __init__(self, sr=22050, n_mfcc=20, norm="ortho", ref=1.0,
                  amin=1e-10, top_db=80.0, **kwargs):
         super().__init__()
         self.melspec = MelSpectrogram(sr=sr, **kwargs)
-        self.melspec.use_kernel = self.melspec.stft.n_fft == KERNEL_N_FFT
         self.n_mfcc = n_mfcc
         self.norm = norm
         self.amin = float(amin)

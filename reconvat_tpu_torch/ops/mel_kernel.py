@@ -32,12 +32,14 @@ def frame_audio(audio: torch.Tensor, n_fft: int, hop: int,
                 center: bool = True, pad_mode: str = "reflect"):
     """(B, N) -> (B, T, n_fft) frames every `hop` samples; with `center`
     (T = N // hop + 1) the signal is first padded by n_fft // 2 per side,
-    reflected or with zeros (`pad_mode` 'reflect' or 'constant')."""
+    reflected where `pad_mode` is 'reflect' and with zeros for any other
+    mode, as the JAX package pads."""
     if center:
         pad = n_fft // 2
         if pad_mode == "reflect" and audio.shape[-1] <= pad:
             raise ValueError("signal shorter than reflect padding length")
-        audio = F.pad(audio[:, None], (pad, pad), mode=pad_mode)[:, 0]
+        mode = "reflect" if pad_mode == "reflect" else "constant"
+        audio = F.pad(audio[:, None], (pad, pad), mode=mode)[:, 0]
     return audio.unfold(-1, n_fft, hop)
 
 

@@ -6,7 +6,8 @@ Mel: the STFT is framing plus two matmuls against precomputed windowed DFT
 bases (the reference's conv1d against Fourier kernels, reference
 `model/Spectrogram.py:219-231`), and the mel projection one more matmul; on
 a CUDA tensor the fused `mel_power` kernel computes the same function with
-an FFT per frame from the window alone. CQT: a strided convolution against
+an FFT per frame from the window alone, at the settings it computes
+(`MelSpectrogram.kernel_computes`). CQT: a strided convolution against
 complex CQT kernels, taken as accumulated matmuls over hop-sized chunks of
 the kernels (cuBLAS). CFP: FFT magnitudes and a spectrum/cepstrum cascade
 of real FFTs (cuFFT), then two triangular projections (cuBLAS). The JAX
@@ -35,16 +36,19 @@ from torch import nn
 
 from .. import constants as C
 from . import filterbanks as fb
-from .mel_kernel import (fft_twiddles, frame_audio, mel_band, mel_power,
-                         mel_power_plain)
+from .mel_kernel import (KERNEL_N_FFT, fft_twiddles, frame_audio, mel_band,
+                         mel_power)
 
 
 class STFT(nn.Module):
-    """Power STFT, `freq_scale='no'` (reference
-    `model/Spectrogram.py:104-231`); centre reflect padding by default,
-    `center` and `pad_mode` as `frame_audio` takes them."""
+    """Magnitude and power STFT, `freq_scale='no'` (reference
+    `model/Spectrogram.py:104-231`): the first `freq_bins` bins (all
+    n_fft // 2 + 1 by default), centre reflect padding by default, with
+    `center` and `pad_mode` as `frame_audio` takes them (zeros for any
+    mode but 'reflect')."""
 
     def __init__(self, n_fft: int = 2048, win_length: int | None = None,
+                 freq_bins: int | None = None,
                  hop_length: int | None = None, window: str = "hann",
                  center: bool = True, pad_mode: str = "reflect"):
         super().__init__()
@@ -52,7 +56,7 @@ class STFT(nn.Module):
         self.n_fft = n_fft
         self.hop_length = hop_length or win_length // 4
         self.center, self.pad_mode = center, pad_mode
-        wcos, wsin = fb.fourier_kernels(n_fft, win_length, None, window)
+        wcos, wsin = fb.fourier_kernels(n_fft, win_length, freq_bins, window)
         # (n_fft, bins) for right-multiplication of frames
         self.register_buffer("wcos", torch.from_numpy(wcos.T.copy()),
                              persistent=False)
@@ -70,24 +74,42 @@ class STFT(nn.Module):
         imag = frames @ self.wsin
         return real * real + imag * imag
 
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, L) -> (B, T, bins) magnitude |STFT|."""
+        return torch.sqrt(self.power(x))
+
 
 class MelSpectrogram(nn.Module):
-    """|STFT|^2 projected onto the slaney mel filterbank (norm=1, htk=False),
-    reference nnAudio MelSpectrogram (`model/Spectrogram.py:396-461`).
+    """|STFT|^power projected onto a mel filterbank, reference nnAudio
+    MelSpectrogram (`model/Spectrogram.py:396-461`): by default power 2,
+    the slaney scale (htk=False) and norm=1, centre reflect padding.
+    `htk` and `norm` change the basis only; `center`, `pad_mode` and
+    `power` go to the STFT and the exponent as the JAX package takes
+    them (a power other than 2 raises the magnitude to it).
 
-    `use_kernel` (default True) sends the whole frontend through the fused
-    `mel_power` wrapper, which launches the CUDA kernel on a CUDA tensor and
-    runs its plain version on a CPU tensor; False runs the plain version on
-    any device (the comparison run of the serving path)."""
+    `use_kernel` sends the whole frontend through the fused `mel_power`
+    wrapper, which launches the CUDA kernel on a CUDA tensor and runs its
+    plain version on a CPU tensor; False runs the plain version on any
+    device (the comparison run of the serving path). It is fixed when the
+    module is built, never by a failed launch: True where the kernel
+    computes these settings (`kernel_computes`: n_fft = KERNEL_N_FFT, all
+    n_fft // 2 + 1 bins, centred, reflect padding and power 2; any
+    window, hop, mel range, `htk` and `norm`, since the kernel reads the
+    window, the basis and its band), else False, and setting it True
+    there raises ValueError."""
 
     def __init__(self, sr: int = 22050, n_fft: int = 2048,
                  win_length: int | None = None, n_mels: int = 128,
                  hop_length: int = 512, window: str = "hann",
-                 fmin: float = 0.0, fmax: float | None = None):
+                 center: bool = True, pad_mode: str = "reflect",
+                 power: float = 2.0, htk: bool = False, fmin: float = 0.0,
+                 fmax: float | None = None, norm: int | None = 1):
         super().__init__()
         self.stft = STFT(n_fft=n_fft, win_length=win_length,
-                         hop_length=hop_length, window=window)
-        basis = fb.mel_filterbank(sr, n_fft, n_mels, fmin, fmax)
+                         hop_length=hop_length, window=window,
+                         center=center, pad_mode=pad_mode)
+        self.power_exp = power
+        basis = fb.mel_filterbank(sr, n_fft, n_mels, fmin, fmax, htk, norm)
         self.register_buffer("mel_basis", torch.from_numpy(basis.T.copy()),
                              persistent=False)      # (bins, n_mels)
         # what the CUDA kernel reads in place of the bases, derived once
@@ -95,18 +117,38 @@ class MelSpectrogram(nn.Module):
         self.register_buffer("band", mel_band(self.mel_basis),
                              persistent=False)
         self.n_mels = n_mels
-        self.use_kernel = True
+        self.kernel_computes = (n_fft == KERNEL_N_FFT and center
+                                and pad_mode == "reflect" and power == 2.0)
+        self.use_kernel = self.kernel_computes
         # frames of audio a spec frame reads on either side, and how many
         # leading frames the frontend drops (streaming's halos)
         self.frame_reach, self.frame_offset = 4, 0
 
+    @property
+    def use_kernel(self) -> bool:
+        return self._use_kernel
+
+    @use_kernel.setter
+    def use_kernel(self, flag: bool) -> None:
+        if flag and not self.kernel_computes:
+            s = self.stft
+            raise ValueError(
+                f"MelSpectrogram: the mel_power kernel computes a centred, "
+                f"reflect-padded {KERNEL_N_FFT}-point power spectrum "
+                f"(power 2), not n_fft={s.n_fft}, center={s.center}, "
+                f"pad_mode={s.pad_mode!r}, power={self.power_exp}")
+        self._use_kernel = bool(flag)
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, T, n_mels)."""
-        args = (x.contiguous(), self.stft.wcos, self.stft.wsin,
-                self.mel_basis, self.stft.hop_length)
         if self.use_kernel:
-            return mel_power(*args, self.stft.window, self.twiddle, self.band)
-        return mel_power_plain(*args)
+            return mel_power(x.contiguous(), self.stft.wcos, self.stft.wsin,
+                             self.mel_basis, self.stft.hop_length,
+                             self.stft.window, self.twiddle, self.band)
+        spec = self.stft.power(x)
+        if self.power_exp != 2.0:
+            spec = torch.sqrt(spec) ** self.power_exp
+        return spec @ self.mel_basis
 
 
 def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
@@ -118,9 +160,11 @@ def reflect_pad(x: torch.Tensor, pad: int) -> torch.Tensor:
 
 class CQT1992v2(nn.Module):
     """Constant-Q transform by direct convolution with complex CQT kernels,
-    reference CQT1992v2 (`model/Spectrogram.py:1246-1329`): centre reflect
-    padding of kernel_width // 2, one hop, magnitude scaled by sqrt(kernel
-    length per bin).
+    reference CQT1992v2 (`model/Spectrogram.py:1246-1329`): centre
+    padding of kernel_width // 2 (reflected for `pad_mode` 'reflect',
+    zeros for any other, none without `center`), one hop, magnitude
+    scaled by sqrt(kernel length per bin). `frame_reach` is the centred
+    frontend's, the one the models build.
 
     When the hop divides the kernel width (512 | 32768 at `make_frontend`'s
     settings) the strided convolution is taken as kernel_width / hop
@@ -133,9 +177,11 @@ class CQT1992v2(nn.Module):
     def __init__(self, sr: int = 22050, hop_length: int = 512,
                  fmin: float = 32.70, fmax: float | None = None,
                  n_bins: int = 84, bins_per_octave: int = 12, norm: int = 1,
-                 window: str = "hann"):
+                 window: str = "hann", center: bool = True,
+                 pad_mode: str = "reflect"):
         super().__init__()
         self.hop_length = hop_length
+        self.center, self.pad_mode = center, pad_mode
         q = 1.0 / (2.0 ** (1.0 / bins_per_octave) - 1.0)
         kernels, self.kernel_width, lengths = fb.cqt_kernels(
             q, sr, fmin, n_bins, bins_per_octave, norm, window, fmax)
@@ -201,7 +247,10 @@ class CQT1992v2(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """(B, L) -> (B, T, n_bins) CQT magnitude."""
-        x = reflect_pad(x, self.kernel_width // 2)
+        if self.center:
+            pad = self.kernel_width // 2
+            x = (reflect_pad(x, pad) if self.pad_mode == "reflect"
+                 else F.pad(x, (pad, pad)))
         return self.magnitude(self._chunked(x) if self.chunks is not None
                               else self.conv1d(x))
 

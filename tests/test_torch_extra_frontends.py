@@ -24,6 +24,16 @@ output), and the draws differ by design (a JAX PRNG key against a
 `torch.Generator`). At 32 iterations the port meets the JAX package's tone
 criterion on its own draw (tests/test_extra_frontends.py:77-86).
 
+The settings of `ops/spectrogram.py`'s frontends that the JAX classes
+take (`STFT`'s magnitude and `freq_bins`, `MelSpectrogram`'s `center`,
+`pad_mode`, `power`, `htk` and `norm`, `CQT1992v2`'s `center` and
+`pad_mode`, and `MFCC`'s through its `MelSpectrogram`) are held by the
+same criterion, and each `MelSpectrogram`'s route, fixed when it is
+built, is checked: the kernel's where `csrc/mel.cu` computes the settings,
+else the plain version, where `use_kernel = True` raises. `CQT1992v2`'s
+`F.conv1d` route is held by tests/test_torch_cqt_cfp.py's frontend
+tolerance instead (`test_cqt1992v2_conv1d_route_padding_matches_jax`).
+
 Clips are 1 s or less and the torch work runs on one thread
 (`tests/torch_threads.py`).
 """
@@ -36,8 +46,10 @@ import jax.numpy as jnp
 
 from reconvat_tpu.ops import extra_frontends as jxf
 from reconvat_tpu.ops import filterbanks as jfb
+from reconvat_tpu.ops import spectrogram as jspec
 from reconvat_tpu_torch.ops import extra_frontends as xf
 from reconvat_tpu_torch.ops import filterbanks as fb
+from reconvat_tpu_torch.ops import spectrogram as spec
 from reconvat_tpu_torch.ops.mel_kernel import mel_power
 from reconvat_tpu_torch.ops.mel_kernel import frame_audio
 
@@ -96,9 +108,96 @@ def test_gammatone_filterbank_matches_jax():
 
 
 @pytest.mark.parametrize("kw", [{}, {"sr": 16000, "n_mels": 64,
-                                     "n_mfcc": 30, "top_db": None}])
+                                     "n_mfcc": 30, "top_db": None},
+                                {"htk": True}, {"power": 1.0}])
 def test_mfcc_matches_jax(kw):
     _compare("MFCC", jxf.MFCC(**kw), xf.MFCC(**kw), _noise())
+
+
+@pytest.mark.parametrize("kw", [{}, {"freq_bins": 300, "hop_length": 256},
+                                {"n_fft": 1024, "center": False},
+                                {"pad_mode": "constant"}])
+def test_stft_matches_jax(kw):
+    """`STFT(...)(x)`, the magnitude, and `.power`; `freq_bins` keeps the
+    first bins, and `window` stays the basis' bin 0."""
+    port = spec.STFT(**kw)
+    _compare("STFT", jspec.STFT(**kw), port, _noise(),
+             call=lambda m, a: (m(a), m.power(a)))
+    assert port.wcos.shape[1] == kw.get("freq_bins",
+                                        kw.get("n_fft", 2048) // 2 + 1)
+    assert torch.equal(port.window, port.wcos[:, 0])
+
+
+# (settings, whether the mel_power kernel computes them)
+MEL_SETTINGS = [({"center": False}, False), ({"pad_mode": "constant"}, False),
+                ({"power": 1.0}, False), ({"htk": True}, True),
+                ({"norm": None}, True)]
+
+
+@pytest.mark.parametrize("kw,kernel", MEL_SETTINGS)
+def test_melspectrogram_settings_match_jax(kw, kernel):
+    """Each `MelSpectrogram` setting against the JAX class, and its route,
+    fixed when the module is built: the kernel's where the kernel computes
+    the settings (`htk` and `norm` change the basis alone), the plain
+    version otherwise, where `use_kernel = True` raises ValueError. On a
+    CPU tensor either route launches nothing."""
+    port = spec.MelSpectrogram(**kw)
+    assert port.kernel_computes is kernel and port.use_kernel is kernel
+    before = mel_power.launches
+    _compare(f"MelSpectrogram {kw}", jspec.MelSpectrogram(**kw), port,
+             _noise())
+    assert mel_power.launches == before
+    port.use_kernel = False
+    if kernel:
+        port.use_kernel = True
+        assert port.use_kernel
+    else:
+        with pytest.raises(ValueError, match="mel_power kernel computes"):
+            port.use_kernel = True
+        assert not port.use_kernel
+
+
+def test_mel_routes_fixed_at_build():
+    """n_fft off the kernel's 2048 takes the plain route and refuses the
+    kernel's; a model's `use_kernels` switch moves its default frontend
+    both ways; an MFCC takes its `MelSpectrogram`'s route."""
+    assert spec.MelSpectrogram().use_kernel
+    short = spec.MelSpectrogram(n_fft=1024)
+    assert not short.kernel_computes and not short.use_kernel
+    with pytest.raises(ValueError, match="n_fft=1024"):
+        short.use_kernel = True
+    frontend, _ = spec.make_frontend("Mel")
+    assert frontend.use_kernel
+    assert xf.MFCC(htk=True).melspec.use_kernel
+    assert not xf.MFCC(power=1.0).melspec.use_kernel
+
+
+@pytest.mark.parametrize("kw", [{"center": False}, {"pad_mode": "constant"}])
+def test_cqt1992v2_padding_matches_jax(kw):
+    """`CQT1992v2` without centre padding, and with zeros for it, on its
+    chunked route (hop 512 divides the kernel width)."""
+    port = spec.CQT1992v2(**kw)
+    assert port.chunks is not None
+    _compare(f"CQT1992v2 {kw}", jspec.CQT1992v2(**kw), port,
+             _noise(n=32768))
+
+
+@pytest.mark.parametrize("kw", [{"center": False}, {"pad_mode": "constant"}])
+def test_cqt1992v2_conv1d_route_padding_matches_jax(kw):
+    """The same settings on the `F.conv1d` route (hop 500), held by
+    tests/test_torch_cqt_cfp.py's frontend tolerance (rtol 1e-4, atol 1e-5
+    x the largest output): the CPU's fp32 `F.conv1d` over 16,384 taps
+    rounds further from float64 than XLA's convolution (1.1e-6 of a 0.40
+    peak, 8.6x the JAX package's error), past this file's factor of 2."""
+    kw = dict(kw, hop_length=500)
+    port = spec.CQT1992v2(**kw)
+    assert port.chunks is None
+    x = _noise(n=32768)
+    got = port(torch.from_numpy(x)).numpy()
+    ref = np.asarray(jspec.CQT1992v2(**kw)(jnp.asarray(x)))
+    assert got.shape == ref.shape
+    np.testing.assert_allclose(got, ref, rtol=1e-4,
+                               atol=1e-5 * np.abs(ref).max())
 
 
 def test_mfcc_route_is_fixed_when_built():

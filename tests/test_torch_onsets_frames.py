@@ -20,6 +20,9 @@ Tolerances (tests/test_torch_unet_onset.py's):
   0.1, the directions pinned to the port's draws: rtol 1e-6.
 - bf16: each output within 2x JAX's own bf16-vs-fp32 gap of JAX's bf16
   output (tests/test_torch_bf16.py's rule).
+- the stacks without an LSTM (`use_lstm=False`) and the models at
+  `output_features=12`, narrow (model_size 96): atol 1e-4 (rtol 1e-4), as
+  the eval forward; their weights through the bridge both ways, exact.
 """
 import numpy as np
 import pytest
@@ -34,12 +37,14 @@ import reconvat_tpu.nn.layers as jlayers
 from reconvat_tpu.models.common import transcribe_spec as jax_transcribe_spec
 from reconvat_tpu.nn.layers import BiLSTM as JaxBiLSTM
 from reconvat_tpu.nn.layers import ConvStack as JaxConvStack
+from reconvat_tpu.train.torch_convert import torch_to_flax
 from reconvat_tpu_torch import weights
 from reconvat_tpu_torch.models import get_model
 from reconvat_tpu_torch.models.onsets_frames import (FrameStackVAT,
                                                      OnsetsAndFrames,
                                                      OnsetStackVAT)
-from reconvat_tpu_torch.nn.layers import (BiLSTM, ConvStack, SharedDropout,
+from reconvat_tpu_torch.nn.layers import (BiLSTM, CombineStack, ConvStack,
+                                          OnsetStack, SharedDropout,
                                           new_dropout_masks)
 from reconvat_tpu_torch.weights import flax_to_torch
 
@@ -191,6 +196,78 @@ def test_convstack_and_bilstm_match_jax(flax_no_dropout):
             _close(k, p.grad, got[k.replace("hh", "ih")])
         else:
             _close(k, p.grad, got[k])
+
+
+@pytest.mark.parametrize("stack", ["onset", "combine"])
+def test_stacks_without_lstm_match_jax(stack, flax_no_dropout):
+    """`OnsetStack` and `CombineStack` with `use_lstm=False`, at a narrow
+    model_size of 96: no `sequence_model`, the linear head reading the
+    conv trunk (96 features) or the input (176), as the JAX package's
+    `Dense` infers them. Eval forward (train mode for the trunk's
+    BatchNorm too) against the JAX module, its tree carried in by
+    `flax_to_torch` with strict=True and back by the JAX package's
+    `torch_to_flax` with nothing skipped, leaf for leaf (the trunk's
+    reference names renamed back to the JAX package's as its loader
+    does)."""
+    width = 229 if stack == "onset" else 176
+    x = np.random.RandomState(4).rand(2, FRAMES, width).astype(np.float32)
+    if stack == "onset":
+        jmod, port = (jlayers.OnsetStack(width, 96, 88, use_lstm=False),
+                      OnsetStack(width, 96, 88, use_lstm=False))
+    else:
+        jmod, port = (jlayers.CombineStack(96, 88, use_lstm=False),
+                      CombineStack(width, 96, 88, use_lstm=False))
+    v = _perturb(jax.jit(jmod.init)(jax.random.PRNGKey(3), jnp.asarray(x)),
+                 3)
+    port = _no_dropout(port)
+    assert port.sequence_model is None
+    assert port.linear.in_features == (96 if stack == "onset" else width)
+    port.load_state_dict(flax_to_torch(v, port), strict=True)
+    inverse = {f".{t}.": f".{j}." for j, t in weights._CONVSTACK.items()}
+    sd = {}
+    for k, w in port.state_dict().items():
+        for t, j in inverse.items():
+            k = k.replace(t, j)
+        sd[k] = w
+    back, report = torch_to_flax(sd, v)
+    assert report["skipped"] == []
+    got = dict(jax.tree_util.tree_leaves_with_path(back))
+    for p, leaf in jax.tree_util.tree_leaves_with_path(v):
+        np.testing.assert_array_equal(np.asarray(got[p]), leaf,
+                                      err_msg=str(p))
+    for train in (False, True):
+        port.train(train)
+        ref = jax.jit(lambda v, x: jmod.apply(
+            v, x, train, mutable=["batch_stats"])[0])(v, x)
+        with torch.no_grad():
+            _close(f"{stack} train={train}", port(torch.from_numpy(x)), ref)
+
+
+@pytest.mark.parametrize("name", list(MODELS))
+def test_output_features_forward_matches_jax(name, tmp_path):
+    """`output_features` at 12 keys and model_complexity 6 (trunks of 96):
+    every roll has 12 keys, and the eval forward matches the JAX model's
+    on the same weights (the port's seeded init read by the JAX package's
+    loader, perturbed, carried back by `flax_to_torch`)."""
+    cls, jcls, outputs = MODELS[name]
+    kw = dict(output_features=12, model_complexity=6)
+    port = _no_dropout(cls(device="cpu", seed=2, **kw))
+    jmodel = jcls(**kw)
+    path = str(tmp_path / "weight.pt")
+    torch.save(port.state_dict(), path)
+    variables = _perturb(jmodel.load_reference_weights(
+        path, _template(jmodel)), 2)
+    port.load_state_dict(flax_to_torch(variables, port), strict=True)
+    port.eval()
+    x = _spec_input()
+    ref = _outputs(jax.jit(lambda v, x: jmodel.module.apply(
+        v, x, train=False))(variables, jnp.asarray(x)))
+    with torch.no_grad():
+        got = _outputs(port(torch.from_numpy(x)))
+    assert len(got) == len(ref) == len(outputs)
+    for out_name, a, b in zip(outputs, got, ref):
+        assert a.shape[-1] == 12, out_name
+        _close(out_name, a, b)
 
 
 _JAX_FORWARD = {}

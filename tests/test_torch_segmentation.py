@@ -27,6 +27,9 @@ Tolerances:
 - streaming against the port's bucketed transcription: the JAX package's
   bounds (tests/test_streaming_transcribe.py:118-119), atol 1e-4 inside
   and 1e-3 over the last 64 frames.
+- streaming on sharpened weights against the JAX package's stream on the
+  same weights: atol 1e-5 (`STREAM_PAIR_ATOL`; the packages' rolls sit
+  2e-7 apart), also between the packages' stream-vs-bucketed gaps.
 """
 import numpy as np
 import pytest
@@ -41,6 +44,7 @@ from reconvat_tpu.train.torch_convert import torch_to_flax
 from reconvat_tpu.vat import VATConfig as JaxVATConfig
 from reconvat_tpu.vat import vat_loss as jax_vat_loss
 from reconvat_tpu_torch.models import get_model
+from reconvat_tpu_torch.models.base import init_parameters
 from reconvat_tpu_torch.models.segmentation import (MultiHeadAttention2D,
                                                     SemanticSegmentation,
                                                     tf_same_pad,
@@ -129,12 +133,13 @@ def test_padding_helpers_match_jax(size):
         np.testing.assert_array_equal(got.numpy(), ref, err_msg=str(in_hw))
 
 
-def test_attention_2d_matches_jax():
+def _attention_2d_case(use_bias=False):
     """`MultiHeadAttention2D` alone at a 24 x 24 map (full 17 x 17 windows
     inside it), 64 -> 32 channels, 2 groups: the output and the
-    probabilities."""
-    mod = MultiHeadAttention2D(64, 32, (17, 17), groups=2)
-    jmod = jseg.MultiHeadAttention2D(32, (17, 17), groups=2)
+    probabilities. Returns the port module and its JAX variables."""
+    mod = MultiHeadAttention2D(64, 32, (17, 17), groups=2, use_bias=use_bias)
+    jmod = jseg.MultiHeadAttention2D(32, (17, 17), groups=2,
+                                     use_bias=use_bias)
     x = np.random.RandomState(1).randn(2, 24, 24, 64).astype(np.float32)
     variables = _jax_variables(mod, lambda: jmod.init(
         jax.random.PRNGKey(0), jnp.asarray(x)), 1)
@@ -145,6 +150,31 @@ def test_attention_2d_matches_jax():
     _close("out", out.permute(0, 2, 3, 1), ref_out)
     _close("probs", attn, ref_attn)
     assert out.dtype == torch.float32
+    return mod, variables
+
+
+def test_attention_2d_matches_jax():
+    _attention_2d_case()
+
+
+def test_attention_2d_with_biases_matches_jax():
+    """`use_bias=True`: the three 1 x 1 projections carry biases (drawn,
+    `_perturb`), which the bridge carries both ways; a bias also lands on
+    the zero padding's keys and values, as in the JAX package. The port's
+    init zeroes them, as flax's does."""
+    mod, variables = _attention_2d_case(use_bias=True)
+    for name in ("query_conv", "key_conv", "value_conv"):
+        bias = getattr(mod, name).bias
+        assert bias is not None and bias.abs().max() > 0, name
+    back, report = torch_to_flax(mod.state_dict(), variables)
+    assert report["skipped"] == []
+    for p, leaf in jax.tree_util.tree_leaves_with_path(variables):
+        got = dict(jax.tree_util.tree_leaves_with_path(back))[p]
+        np.testing.assert_array_equal(np.asarray(got), leaf, err_msg=str(p))
+    fresh = MultiHeadAttention2D(4, 8, (3, 3), use_bias=True)
+    init_parameters(fresh, torch.Generator().manual_seed(0))
+    assert all(getattr(fresh, n).bias.abs().max() == 0
+               for n in ("query_conv", "key_conv", "value_conv"))
 
 
 def test_eval_forward_matches_jax(pair, jax_eval):
@@ -378,6 +408,56 @@ def test_streaming_matches_bucketed(pair):
     assert streamed.shape == full.shape == (1, 780, 88)
     _close("inside", streamed[:, :-64], full[:, :-64], rtol=0, atol=1e-4)
     _close("tail", streamed[:, -64:], full[:, -64:], rtol=0, atol=1e-3)
+
+
+STREAM_FRAMES, STREAM_WINDOW, STREAM_TAIL = 780, 256, 64
+# the packages' streams, and their bucketed rolls, against each other
+STREAM_PAIR_ATOL = 1e-5
+
+
+def test_streaming_on_sharpened_weights_matches_jax():
+    """Segmentation streamed on sharpened weights, in both packages. The
+    port's seeded init (perturbed) with its output layer sharpened as
+    `chip_smoke.sharpen_output` sharpens it (x 16, each pitch's bias at a
+    gap in its top 2 % of logits), carried to JAX through
+    `torch_to_flax`; one 780-frame song in 256-frame windows at the
+    default halo of 256, where the receptive field reaches past the halo.
+    Each stream against its own package's bucketed `transcribe`, and the
+    port's against JAX's: the packages' streams and their bucketed rolls
+    agree within STREAM_PAIR_ATOL (1e-5), and so do the two packages'
+    stream-vs-bucketed gaps, so a gap of a stream is the model's own, the
+    same in the JAX package. That gap is printed; that it is more than
+    rounding is asserted (the song does reach past the halo)."""
+    import chip_smoke
+
+    jmodel, variables, port = _pair()
+    audio = (np.random.RandomState(6).randn(1, STREAM_FRAMES * 512)
+             * 0.1).astype(np.float32)
+    song = torch.from_numpy(audio)
+    chip_smoke.sharpen_output(port, [song], lin=port.inference_model)
+    variables, report = torch_to_flax(port.state_dict(), variables)
+    assert report["skipped"] == []
+    rolls = {
+        "port": (port.transcribe_streaming(
+            song, window_frames=STREAM_WINDOW)["frame"].numpy(),
+            port.transcribe(song, bucket_frames=64)["frame"].numpy()),
+        "jax": (np.asarray(jmodel.transcribe_streaming(
+            variables, jnp.asarray(audio),
+            window_frames=STREAM_WINDOW)["frame"]),
+            np.asarray(jmodel.transcribe(variables, jnp.asarray(audio),
+                                         bucket_frames=64)["frame"]))}
+    gaps = {}
+    for pkg, (streamed, full) in rolls.items():
+        assert streamed.shape == full.shape == (1, STREAM_FRAMES, 88), pkg
+        gap = np.abs(streamed - full)
+        gaps[pkg] = (gap[:, :-STREAM_TAIL].max(), gap[:, -STREAM_TAIL:].max())
+    print(f"stream vs bucketed (inside, last {STREAM_TAIL} frames): {gaps}")
+    for i, what in enumerate(("streamed", "bucketed")):
+        _close(what, rolls["port"][i], rolls["jax"][i], rtol=0,
+               atol=STREAM_PAIR_ATOL)
+    for port_gap, jax_gap in zip(gaps["port"], gaps["jax"]):
+        assert abs(port_gap - jax_gap) <= STREAM_PAIR_ATOL, gaps
+    assert gaps["port"][0] > 10 * STREAM_PAIR_ATOL, gaps
 
 
 def test_dropout_is_shared_and_layout_refused(monkeypatch):

@@ -263,6 +263,29 @@ def test_phase_20_runs_in_main_and_counts_mel_power():
     assert "use_kernel = False" in phase
 
 
+def test_phase_20b_rule_fails_an_ignored_mel_setting():
+    """Phase 20b's `MelSpectrogram` settings on the CPU: each one's route
+    is the one XF_MEL_SETTINGS expects, its fp32 route is held by
+    `frontend_held` against its float64 run, and the default module's
+    output in its place (the setting ignored) is not held."""
+    import inspect
+
+    from reconvat_tpu_torch.ops.spectrogram import MelSpectrogram
+
+    audio = torch.tensor(np.random.RandomState(20).randn(2, 16384) * 0.1,
+                         dtype=torch.float32)
+    default = MelSpectrogram()(audio)
+    for kw, kernel, key in chip_smoke.XF_MEL_SETTINGS:
+        module = MelSpectrogram(**kw)
+        assert module.use_kernel is kernel and (key is not None) is kernel
+        truth = module.double()(audio.double())
+        cpu32 = module.float()(audio)
+        assert chip_smoke.frontend_held(cpu32, cpu32, truth)[2], kw
+        assert not chip_smoke.frontend_held(default, cpu32, truth)[2], kw
+    phase = inspect.getsource(chip_smoke.phase_extra_frontends)
+    assert "phase_mel_settings(mel_row, audio, counted)" in phase
+
+
 def test_phase_20_rule_fails_a_defective_frontend():
     """`frontend_held` on phase 20's cases at a short clip on the CPU: the
     CPU's own fp32 route is held; a CQT1992 whose basis misses one bin,
